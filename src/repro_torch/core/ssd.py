@@ -1,0 +1,81 @@
+"""Selective Synaptic Dampening (SSD) — the retraining-free baseline FiCABU
+builds on (Foster et al., AAAI'24), Eqs. (3)-(4):
+
+    select:  I_Df,i > alpha * I_D,i
+    dampen:  theta_i <- beta * theta_i,  beta = min(lambda * I_D,i / I_Df,i, 1)
+
+``dampen_tree`` is the one-shot edit over a whole parameter tree;
+``dampen_array`` is the per-tensor primitive that the hand-written kernel
+(``repro_torch.kernels.dampen``) implements for the card. The int8
+``dampen_q8_*`` variants come with the int8 slice of the port.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, Tuple
+
+import torch
+
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels.dampen import dampen_ref
+from repro_torch.models.module import tree_leaves, tree_unflatten
+
+from .fisher import diag_fisher
+
+Params = Any
+
+
+def dampen_array(theta: torch.Tensor, i_f: torch.Tensor, i_g: torch.Tensor,
+                 alpha: float, lam: float
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Eqs. (3)+(4) on one tensor in plain PyTorch, on any device.
+    Returns (new_theta, selected_mask)."""
+    return dampen_ref(theta, i_f, i_g, kops.f32(alpha), kops.f32(lam))
+
+
+def dampen_tree(params: Params, fisher_f: Params, fisher_g: Params,
+                alpha: float, lam: float, use_kernel: bool = False, *,
+                in_place: bool = False) -> Tuple[Params, Params]:
+    """Apply SSD dampening to every leaf (leaves matched by key). Returns
+    (params', selection masks). ``use_kernel`` routes every leaf through
+    ``kernels.ops.dampen`` (the CUDA kernel for tensors on the card);
+    ``in_place`` writes theta' into the caller's tensors."""
+    def one(t, f, g):
+        if use_kernel:
+            return kops.dampen(t, f, g, alpha, lam,
+                               out=t if in_place else None)
+        new, mask = dampen_array(t, f, g, alpha, lam)
+        return (t.copy_(new) if in_place else new), mask
+
+    flat_p = tree_leaves(params)
+    flat_f = tree_leaves(fisher_f)
+    flat_g = tree_leaves(fisher_g)
+    if not len(flat_p) == len(flat_f) == len(flat_g):
+        raise ValueError(
+            f"dampen_tree needs Fisher trees shaped like the parameters, got "
+            f"{len(flat_p)} parameter leaves, {len(flat_f)} forget-Fisher "
+            f"and {len(flat_g)} global-Fisher leaves")
+    outs = [one(t, f, g) for t, f, g in zip(flat_p, flat_f, flat_g)]
+    new = tree_unflatten(params, [o[0] for o in outs])
+    masks = tree_unflatten(params, [o[1] for o in outs])
+    return new, masks
+
+
+def selection_fraction(masks: Params) -> float:
+    flat = tree_leaves(masks)
+    tot = sum(m.numel() for m in flat)
+    sel = sum(int(m.sum()) for m in flat)
+    return sel / max(tot, 1)
+
+
+def ssd_unlearn(loss_fn: Callable, params: Params, forget_batch: Any,
+                fisher_global: Params, alpha: float, lam: float,
+                chunk_size: int = 8, use_kernel: bool = False, *,
+                device="cuda") -> Tuple[Params, Dict]:
+    """Vanilla SSD: one Fisher pass on the forget batch + one-shot dampening
+    of ALL parameters (no early stop, layer-agnostic hyperparameters)."""
+    fisher_f = diag_fisher(loss_fn, params, forget_batch, chunk_size,
+                           device=device)
+    new, masks = dampen_tree(params, fisher_f, fisher_global, alpha, lam,
+                             use_kernel=use_kernel)
+    stats = {"selected_fraction": selection_fraction(masks)}
+    return new, stats

@@ -1,0 +1,128 @@
+"""Fused per-layer unlearning step — one cached step per layer shape.
+
+Port of ``repro.engine.fused``. The reference lowers the whole per-layer
+step as ONE jitted XLA program; PyTorch runs eagerly, so here a "program"
+is the step closure ``build_fused_step`` returns, cached by the engine
+under the same key (``repro_torch.engine.programs``). Per layer it runs:
+
+  * the per-chunk vjp on the layer's original weights (``torch.autograd``),
+  * the Fisher square-accumulate over chunks (f32),
+  * SSD/Balanced dampening, through the hand-written CUDA kernel
+    (``repro_torch.kernels.dampen``) when ``use_kernel`` is set.
+
+(alpha, lambda) arrive as f32-rounded Python floats, per call, so Balanced
+Dampening's per-layer S(l)-scaled values never rebuild a step. The
+split-edit (coalesced) and int8 variants come with later slices.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Hashable, Optional, Tuple
+
+import torch
+
+from repro_torch.core.cau import _restore_excluded
+from repro_torch.core.ssd import dampen_tree
+from repro_torch.models.module import tree_leaves, tree_map, tree_unflatten
+
+F32 = torch.float32
+Params = Any
+
+
+def shape_signature(tree: Params) -> Hashable:
+    """Hashable (structure, leaf shapes/dtypes) key for a tree of tensors.
+    Dict keys are taken in sorted order, so two trees with equal keys and
+    leaves have equal signatures whatever order their dicts were built in."""
+    if isinstance(tree, dict):
+        return ("dict",) + tuple((k, shape_signature(tree[k]))
+                                 for k in sorted(tree))
+    if isinstance(tree, (list, tuple)):
+        return (type(tree).__name__,) + tuple(shape_signature(v)
+                                              for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return (tuple(tree.shape), str(tree.dtype).replace("torch.", ""))
+    return repr(tree)
+
+
+def grad_fisher_chunks(apply_fn: Callable[[Params, torch.Tensor],
+                                          torch.Tensor],
+                       layer_p: Params, acts_c: torch.Tensor,
+                       cot_c: torch.Tensor, *, with_act_grad: bool = True
+                       ) -> Tuple[Params, Optional[torch.Tensor]]:
+    """The per-layer vjp + Fisher square-accumulate over chunked
+    activations/cotangents [nc, cs, ...], one chunk after another.
+
+    ``apply_fn(layer_p, act) -> out`` is the layer forward with any context
+    already bound. Returns ``(fisher_layer, act_cotangents)``: the Fisher is
+    the sum over chunks of squared gradients, accumulated in chunk order,
+    divided by nc (with nc == 1 the square itself, as the reference's
+    straight-line path); ``act_cotangents`` is [nc, cs, ...], or None when
+    ``with_act_grad`` is False.
+    """
+    nc = acts_c.shape[0]
+    fish = None
+    g_acts = torch.empty_like(acts_c) if with_act_grad else None
+    with torch.enable_grad():
+        for i in range(nc):
+            lp = tree_map(lambda t: t.detach().requires_grad_(True), layer_p)
+            leaves = tree_leaves(lp)
+            a = acts_c[i].detach().requires_grad_(with_act_grad)
+            inputs = leaves + [a] if with_act_grad else leaves
+            grads = torch.autograd.grad(apply_fn(lp, a), inputs,
+                                        grad_outputs=cot_c[i])
+            if with_act_grad:
+                g_acts[i] = grads[-1]
+                grads = grads[:-1]
+            if fish is None:
+                fish = [g.to(F32) * g.to(F32) for g in grads]
+            else:
+                for f, g in zip(fish, grads):
+                    f.addcmul_(g.to(F32), g.to(F32))
+    if nc > 1:
+        fish = [f.div_(nc) for f in fish]
+    return tree_unflatten(layer_p, fish), g_acts
+
+
+def build_fused_step(apply_fn: Callable[[Params, Params, torch.Tensor],
+                                        torch.Tensor],
+                     *,
+                     with_act_grad: bool = True,
+                     use_kernel: bool = False,
+                     exclude: Optional[Callable[[str], bool]] = None,
+                     donate: bool = False):
+    """Build the fused per-layer step.
+
+    ``apply_fn(ctx, layer_p, act) -> out`` is the layer forward; ``ctx`` is
+    whatever context the adapter needs beyond the layer's own params (None
+    for self-contained layers). Returns
+
+        step(ctx, layer_p, fisher_g, acts_c, cot_c, scalars)
+            -> (new_layer, act_cotangents, n_selected)
+
+    where ``acts_c``/``cot_c`` are chunked [nc, cs, ...] activations and
+    upstream cotangents, ``scalars = (alpha, lam)`` (f32-rounded floats),
+    and ``layer_p`` serves as vjp reference AND edit target (the sweep
+    touches each layer once per request, so its current params still equal
+    the originals). ``n_selected`` is a device scalar.
+
+    ``donate=True`` writes theta' into ``layer_p``'s own tensors (after the
+    vjp has read them) unless ``exclude`` must restore some of them;
+    otherwise the step allocates new ones and the caller's tensors stay
+    untouched.
+    """
+    in_place = donate and exclude is None
+
+    def step(ctx, layer_p, fisher_g, acts_c, cot_c, scalars):
+        alpha, lam = scalars
+        fish, g_acts = grad_fisher_chunks(
+            lambda lp, aa: apply_fn(ctx, lp, aa), layer_p, acts_c, cot_c,
+            with_act_grad=with_act_grad)
+        with torch.no_grad():
+            new_layer, masks = dampen_tree(layer_p, fish, fisher_g, alpha,
+                                           lam, use_kernel=use_kernel,
+                                           in_place=in_place)
+            if exclude is not None:
+                new_layer = _restore_excluded(exclude, new_layer, layer_p)
+            n_sel = sum(m.sum() for m in tree_leaves(masks))
+        return new_layer, g_acts, n_sel
+
+    return step

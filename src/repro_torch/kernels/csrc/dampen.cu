@@ -1,0 +1,159 @@
+// Dampening IP for Hopper (sm_90a): SSD select / beta / multiply in one pass.
+//
+// Replaces the JAX package's Pallas kernel kernels/dampen.py::dampen
+// (_dampen_kernel). Per element, in f32:
+//
+//   sel    = i_f > alpha * i_g
+//   beta   = min(lam * i_g / max(i_f, 1e-30), 1)       NaN propagates
+//   theta' = sel ? theta * beta : theta                 in theta's dtype
+//
+// and the selection mask, one byte per element, from the same pass (the JAX
+// wrapper recomputes the mask outside its kernel, a second read of i_f and
+// i_g).
+//
+// What bounds it: device memory. Per element it reads theta, i_f and i_g
+// once and writes theta' and the mask once (17 bytes for f32 theta, 13 for
+// bf16) against five floating-point operations. So the design only moves
+// each byte once, in wide transactions: a thread handles four neighbouring
+// elements with 16-byte loads of i_f and i_g (and of theta in f32) whenever
+// every pointer is aligned for it, one grid-stride loop covers an array of
+// any length in a single launch, and a scalar loop takes the last n % 4
+// elements (or everything, when a pointer is misaligned).
+//
+// Exactness: the kernel must agree with the plain PyTorch version bit for
+// bit. Build it WITHOUT --use_fast_math. The multiplies and the divide use
+// the correctly rounded __fmul_rn / __fdiv_rn intrinsics, which nvcc never
+// contracts into an FMA or replaces by an approximate reciprocal. max and
+// min are written out so that NaN propagates as in torch.maximum /
+// jnp.maximum (fmaxf / fminf would drop it). The result is always formed in
+// f32 and converted with round-to-nearest-even, as PyTorch's own conversion
+// does on the card.
+//
+// C interface (bound with ctypes): every pointer and the stream are void*,
+// n is the element count, alpha and lam are f32 (the caller has rounded
+// them once). Each entry point launches on the given stream, does not
+// synchronise, allocates nothing, and returns cudaGetLastError().
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int64_t kMaxBlocks = int64_t(1) << 20;
+
+template <typename T>
+struct alignas(4 * sizeof(T)) Vec4 {
+  T v[4];
+};
+
+__device__ __forceinline__ float nan_max(float x, float c) {
+  return (x > c || x != x) ? x : c;
+}
+
+__device__ __forceinline__ float nan_min(float x, float c) {
+  return (x < c || x != x) ? x : c;
+}
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T dampen_one(T t, float f, float g, float alpha,
+                                        float lam, unsigned char* sel) {
+  const bool s = f > __fmul_rn(alpha, g);
+  const float beta =
+      nan_min(__fdiv_rn(__fmul_rn(lam, g), nan_max(f, 1e-30f)), 1.0f);
+  const float tf = to_f32(t);
+  *sel = s ? 1 : 0;
+  return from_f32<T>(s ? __fmul_rn(tf, beta) : tf);
+}
+
+// theta and out may be the same buffer (an in-place edit): each element is
+// read and written by the same thread, so they are not marked __restrict__.
+template <typename T>
+__global__ void dampen_kernel(const T* theta, const float* __restrict__ i_f,
+                              const float* __restrict__ i_g, T* out,
+                              unsigned char* __restrict__ mask, int64_t n,
+                              float alpha, float lam, bool vec) {
+  const int64_t stride = int64_t(gridDim.x) * blockDim.x;
+  const int64_t tid = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
+  int64_t head = 0;
+  if (vec) {
+    const int64_t nv = n / 4;
+    const Vec4<T>* th4 = reinterpret_cast<const Vec4<T>*>(theta);
+    const float4* f4 = reinterpret_cast<const float4*>(i_f);
+    const float4* g4 = reinterpret_cast<const float4*>(i_g);
+    Vec4<T>* o4 = reinterpret_cast<Vec4<T>*>(out);
+    uchar4* m4 = reinterpret_cast<uchar4*>(mask);
+    for (int64_t k = tid; k < nv; k += stride) {
+      const Vec4<T> t = th4[k];
+      const float4 f = f4[k];
+      const float4 g = g4[k];
+      Vec4<T> o;
+      uchar4 m;
+      o.v[0] = dampen_one(t.v[0], f.x, g.x, alpha, lam, &m.x);
+      o.v[1] = dampen_one(t.v[1], f.y, g.y, alpha, lam, &m.y);
+      o.v[2] = dampen_one(t.v[2], f.z, g.z, alpha, lam, &m.z);
+      o.v[3] = dampen_one(t.v[3], f.w, g.w, alpha, lam, &m.w);
+      o4[k] = o;
+      m4[k] = m;
+    }
+    head = nv * 4;
+  }
+  for (int64_t k = head + tid; k < n; k += stride) {
+    out[k] = dampen_one(theta[k], i_f[k], i_g[k], alpha, lam, &mask[k]);
+  }
+}
+
+inline bool aligned(const void* p, uintptr_t bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
+
+template <typename T>
+int launch(const void* theta, const void* i_f, const void* i_g, void* out,
+           void* mask, long long n, float alpha, float lam, void* stream) {
+  if (n <= 0) return int(cudaSuccess);
+  const bool vec = aligned(theta, 4 * sizeof(T)) &&
+                   aligned(out, 4 * sizeof(T)) && aligned(i_f, 16) &&
+                   aligned(i_g, 16) && aligned(mask, 4);
+  int64_t work = vec ? n / 4 : n;
+  if (work < 1) work = 1;  // n < 4: one block runs the scalar tail
+  int64_t blocks = (work + kThreads - 1) / kThreads;
+  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
+  dampen_kernel<T><<<unsigned(blocks), kThreads, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(theta), static_cast<const float*>(i_f),
+      static_cast<const float*>(i_g), static_cast<T*>(out),
+      static_cast<unsigned char*>(mask), int64_t(n), alpha, lam, vec);
+  return int(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int ficabu_dampen_f32(const void* theta, const void* i_f,
+                                 const void* i_g, void* out, void* mask,
+                                 long long n, float alpha, float lam,
+                                 void* stream) {
+  return launch<float>(theta, i_f, i_g, out, mask, n, alpha, lam, stream);
+}
+
+extern "C" int ficabu_dampen_bf16(const void* theta, const void* i_f,
+                                  const void* i_g, void* out, void* mask,
+                                  long long n, float alpha, float lam,
+                                  void* stream) {
+  return launch<__nv_bfloat16>(theta, i_f, i_g, out, mask, n, alpha, lam,
+                               stream);
+}

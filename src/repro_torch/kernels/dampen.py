@@ -1,0 +1,136 @@
+"""Dampening IP on Hopper — port of ``repro.kernels.dampen.dampen``.
+
+The TPU kernel (``_dampen_kernel``) is one fused elementwise pass of SSD
+Eqs. (3)+(4): select ``i_f > alpha * i_g``, ``beta = min(lam * i_g /
+max(i_f, 1e-30), 1)``, multiply. Here it is ``csrc/dampen.cu``, CUDA C++
+for ``sm_90a``, built with nvcc into a shared library with a plain C
+interface and bound with ctypes. It also writes the selection mask from the
+same pass. It is bound by device memory (17 bytes per element for f32
+theta, 13 for bf16); the source says what its design does about that.
+
+Why CUDA C++ and not Triton: the kernel must agree with ``dampen_ref`` bit
+for bit, and Triton lowers an f32 ``/`` to the approximate
+``div.full.f32``; nvcc's divide is correctly rounded as long as the build
+never uses ``--use_fast_math`` (``_NVCC_FLAGS`` does not).
+
+The library is built at first use, from the source in the checkout, into
+``_build/`` beside this file (listed in .gitignore), under a name that
+hashes the source and the flags — an edited source rebuilds. ``LAUNCHES``
+counts kernel launches, and only kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Optional, Tuple
+
+import torch
+
+F32 = torch.float32
+
+_SRC = Path(__file__).resolve().parent / "csrc" / "dampen.cu"
+_BUILD_DIR = Path(__file__).resolve().parent / "_build"
+# No --use_fast_math: the kernel's divide must stay correctly rounded.
+_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+_ENTRY = {F32: "ficabu_dampen_f32", torch.bfloat16: "ficabu_dampen_bf16"}
+
+LAUNCHES = 0   # kernel launches since the last reset (a plain counter)
+BUILD_LOG = ""  # nvcc's output (register use, spills) when this process built
+_LIB: Optional[ctypes.CDLL] = None
+
+
+def dampen_ref(theta: torch.Tensor, i_f: torch.Tensor, i_g: torch.Tensor,
+               alpha: float, lam: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain PyTorch version: Eqs. (3)+(4) in f32, output in theta's
+    dtype, plus the selection mask. ``alpha``/``lam`` must already be
+    rounded to f32 (``kernels.ops.dampen`` does it), so the product
+    ``alpha * i_g`` is the correctly rounded f32 product either way."""
+    i_f32 = i_f.to(F32)
+    i_g32 = i_g.to(F32)
+    th32 = theta.to(F32)
+    sel = i_f32 > alpha * i_g32
+    # clamp_min/clamp_max propagate NaN, as jnp.maximum/jnp.minimum do
+    beta = (lam * i_g32 / i_f32.clamp_min(1e-30)).clamp_max(1.0)
+    out = torch.where(sel, th32 * beta, th32)
+    return out.to(theta.dtype), sel
+
+
+def build() -> Path:
+    """Compile ``csrc/dampen.cu`` for sm_90a if this exact source and flag
+    set has not been built yet; returns the shared library's path."""
+    global BUILD_LOG
+    tag = hashlib.sha256(_SRC.read_bytes()
+                         + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
+    so = _BUILD_DIR / f"libficabu_dampen-{tag}.so"
+    if so.exists():
+        return so
+    nvcc = shutil.which("nvcc") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
+    proc = subprocess.run([nvcc, *_NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed to build {_SRC} "
+                           f"(exit {proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, so)  # atomic: a concurrent builder never sees half a file
+    BUILD_LOG = proc.stdout + proc.stderr
+    return so
+
+
+def _lib() -> ctypes.CDLL:
+    global _LIB
+    if _LIB is None:
+        lib = ctypes.CDLL(str(build()))
+        for name in _ENTRY.values():
+            fn = getattr(lib, name)
+            fn.argtypes = [ctypes.c_void_p] * 5 + [
+                ctypes.c_longlong, ctypes.c_float, ctypes.c_float,
+                ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        _LIB = lib
+    return _LIB
+
+
+def dampen_cuda(theta: torch.Tensor, i_f: torch.Tensor, i_g: torch.Tensor,
+                alpha: float, lam: float,
+                out: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the kernel on CUDA tensors of any shape; returns (theta',
+    mask). ``out`` may be ``theta`` itself (an in-place edit). Launches on
+    the current stream and does not synchronise."""
+    global LAUNCHES
+    dev = theta.device
+    if dev.type != "cuda":
+        raise ValueError(f"dampen_cuda takes CUDA tensors, got theta on {dev}")
+    if theta.dtype not in _ENTRY:
+        raise ValueError(f"the dampen kernel takes f32 or bf16 theta, got "
+                         f"{theta.dtype}")
+    if out is None:
+        out = torch.empty_like(theta, memory_format=torch.contiguous_format)
+    for name, t, dt in (("i_f", i_f, F32), ("i_g", i_g, F32),
+                        ("theta", theta, theta.dtype), ("out", out, theta.dtype)):
+        if t.device != dev or t.dtype != dt or not t.is_contiguous() \
+                or t.shape != theta.shape:
+            raise ValueError(
+                f"dampen kernel operand {name} must be a contiguous {dt} "
+                f"tensor of shape {tuple(theta.shape)} on {dev}, got "
+                f"{t.dtype} {tuple(t.shape)} on {t.device} "
+                f"(contiguous={t.is_contiguous()})")
+    mask = torch.empty(theta.shape, dtype=torch.uint8, device=dev)
+    n = theta.numel()
+    if n:
+        fn = getattr(_lib(), _ENTRY[theta.dtype])
+        with torch.cuda.device(dev):
+            err = fn(theta.data_ptr(), i_f.data_ptr(), i_g.data_ptr(),
+                     out.data_ptr(), mask.data_ptr(), n, alpha, lam,
+                     torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"dampen kernel launch failed: cudaError {err}")
+        LAUNCHES += 1
+    return out, mask.view(torch.bool)

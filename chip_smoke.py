@@ -7,24 +7,33 @@ NVIDIA card: the quickest proof that the port still starts on the GPU.
 Phases, in order; any failure exits non-zero and prints no result line:
 
   1. the card's name and power limit, as nvidia-smi reports them;
-  2. build every kernel of the main path from the sources in the checkout
-     (csrc/dampen.cu, nvcc for sm_90a);
+  2. build every kernel of the main paths from the sources in the checkout
+     (csrc/dampen.cu: the f32/bf16 dampen kernel and the int8 one, one nvcc
+     for sm_90a), with each kernel's registers and spills;
   3. each kernel against its plain PyTorch version on the card, at every
-     ResNet-18 leaf shape, f32 and bf16, three (alpha, lambda) pairs, and
-     the edge cases (ties, zeros, NaN/inf, n = 1, n % 4 != 0, misaligned
-     pointers): theta' and the mask must be BIT-identical;
-  4. the slice at full width: RESNET18_CIFAR20 (random weights from a seed,
-     pre-trained here for a few hundred AdamW steps so that halting means
-     something) served through ``Unlearner`` with ``use_kernel=True``:
+     ResNet-18 leaf shape, three (alpha, lambda) pairs (f32 and bf16 theta
+     for dampen, int8 codes for dampen_int8), and the edge cases (ties,
+     half-way codes, saturation, zeros, NaN/inf, lambda = NaN/inf,
+     alpha = 0, n = 1, n % 4 != 0, misaligned pointers): the result and the
+     mask must be BIT-identical;
+  4. the slices at full width: RESNET18_CIFAR20 (random weights from a
+     seed, pre-trained here for a few hundred AdamW steps so that halting
+     means something) served through ``Unlearner`` with ``use_kernel=True``:
      ensure_fisher on a retain batch, a 64-image forget request of one
      class at chunk 8, in "ssd" mode (all 10 layers, 56 kernel launches)
      and "ficabu" mode (checkpoint_every=2), then warm requests that must
-     build nothing. Launch counters are zeroed just before this phase and
-     read just after;
+     build nothing — first the fp32 path, then the int8 path
+     (``precision="int8"``: dampen_int8 on the codes, every leaf on its q8
+     grid, per-layer error against fp32 within INT8_SWEEP_RTOL). Both
+     launch counters are zeroed just before each path and read just after:
+     an fp32 request launches only dampen, an int8 request only
+     dampen_int8;
   5. the whole ssd forget with the kernel against the same forget with the
-     plain version, under deterministic cuDNN: bit-identical parameters;
-  6. times: each kernel and its plain version at the main path's shapes,
-     beside the memory bound, printed as one ``{"kernels": [...]}`` line.
+     plain version, under deterministic cuDNN, fp32 and int8:
+     bit-identical parameters;
+  6. times: each kernel and its plain version at the main paths' shapes,
+     beside the memory bound, printed as one ``{"kernels": [...]}`` line,
+     and where a warm fp32 and a warm int8 ssd request spend their time.
 
 The last line is the contract line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -93,7 +102,8 @@ def cuda_time_ms(fn, iters: int, *, queue_ahead: bool = False) -> float:
 
 def profile_request(run):
     """Device busy time of one ``run()`` from torch.profiler: the sum of
-    the CUDA kernels' self time, and the top kernels by that time."""
+    the CUDA kernels' self time, the number of device kernels, and the top
+    kernels by time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -104,8 +114,8 @@ def profile_request(run):
            if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in evs) / 1e3
     top = sorted(evs, key=lambda e: -e.self_device_time_total)[:6]
-    return busy, [(e.key[:70], e.self_device_time_total / 1e3, e.count)
-                  for e in top]
+    return busy, sum(e.count for e in evs), [
+        (e.key[:70], e.self_device_time_total / 1e3, e.count) for e in top]
 
 
 def bits(t):
@@ -176,6 +186,94 @@ def check_kernel_against_plain(leaf_shapes, dev):
     return cases, max_err
 
 
+def check_int8_kernel_against_plain(leaf_shapes, dev):
+    """Phase 3, int8: dampen_int8_cuda vs dampen_int8_ref, bit for bit."""
+    from repro_torch.kernels import dampen as kd
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    max_err = 0
+    cases = 0
+
+    def compare(theta_q, i_f, i_g, alpha, lam, what):
+        nonlocal max_err, cases
+        got, mask = kd.dampen_int8_cuda(theta_q, i_f, i_g, alpha, lam)
+        want, want_mask = kd.dampen_int8_ref(theta_q, i_f, i_g, alpha, lam)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want) or not torch.equal(mask, want_mask):
+            raise AssertionError(f"dampen_int8 kernel != dampen_int8_ref: "
+                                 f"{what}")
+        if got.numel():
+            max_err = max(max_err, int((got.int() - want.int()).abs().max()))
+        cases += 1
+
+    def operands(n):
+        th = torch.randint(-128, 128, (n,), generator=gen, device=dev,
+                           dtype=torch.int8)
+        i_g = torch.rand(n, generator=gen, device=dev) + 1e-6
+        i_f = torch.rand(n, generator=gen, device=dev) * 20 * i_g
+        return th, i_f, i_g
+
+    for shape in leaf_shapes:
+        n = torch.Size(shape).numel()
+        for alpha, lam in PAIRS:
+            th, i_f, i_g = operands(n)
+            tie = torch.rand(n, generator=gen, device=dev) < 0.01
+            i_f = torch.where(tie, alpha * i_g, i_f)
+            compare(th.view(shape), i_f.view(shape), i_g.view(shape), alpha,
+                    lam, f"{shape} a={alpha} l={lam}")
+
+    # every code at beta = 0.5 exactly (half-way products round to even),
+    # and at a negative beta (saturation at +-127)
+    codes = torch.arange(-128, 128, device=dev).to(torch.int8)
+    ones = torch.ones(256, device=dev)
+    compare(codes, ones, ones, 0.5, 0.5, "half-way codes")
+    compare(codes, ones, -ones, 2.0, 10.0, "saturation")
+    nan, inf = float("nan"), float("inf")
+    special = torch.tensor([0.0, -0.0, nan, inf, -inf, 1.0, 2.0, 1e-30,
+                            1e-38, 3.0], device=dev)
+    for n in (1, 2, 3, 4, 5, 7, 33, 1023, 4097):
+        for alpha, lam in PAIRS + [(2.0, nan), (2.0, inf), (0.0, 1.0),
+                                   (0.5, 0.5)]:
+            th, i_f, i_g = operands(n + 3)
+            pick = lambda: special[torch.randint(  # noqa: E731
+                0, len(special), (n + 3,), generator=gen, device=dev)]
+            i_f = torch.where(torch.rand(n + 3, generator=gen, device=dev)
+                              < 0.3, pick(), i_f)
+            i_g = torch.where(torch.rand(n + 3, generator=gen, device=dev)
+                              < 0.3, pick(), i_g)
+            for lo in (0, 1, 3):   # lo > 0: pointers off the 4/16-byte grid
+                compare(th[lo:lo + n], i_f[lo:lo + n], i_g[lo:lo + n],
+                        alpha, lam, f"edge n={n} lo={lo} a={alpha} l={lam}")
+    return cases, max_err
+
+
+def on_q8_grid(new, pristine):
+    """True when every leaf of ``new`` is f32(code * scale) with integer
+    codes in +-127 on the scale table of the pristine leaf."""
+    from repro_torch.optim.compression import q8_scales
+    for k, p in pristine.items():
+        s = q8_scales(p)
+        q = torch.round(new[k] / s)
+        if q.abs().max() > 127 or not torch.equal(q * s, new[k]):
+            return False
+    return True
+
+
+def layer_rel_l2(adapter, p8, p32):
+    """Per layer, ||p8 - p32|| / ||p32|| over the layer's leaves."""
+    from repro_torch.models.module import tree_leaves
+    from repro_torch.optim.compression import INT8_SWEEP_RTOL, q8_quantize
+    out = []
+    for j in range(adapter.n_layers):
+        a = tree_leaves(adapter.get_layer(p8, j))
+        b = tree_leaves(adapter.get_layer(p32, j))
+        d = sum(float(((x.double() - y.double()) ** 2).sum())
+                for x, y in zip(a, b))
+        n = sum(float((y.double() ** 2).sum()) for y in b)
+        out.append((d / n) ** 0.5)
+    return out
+
+
 def pretrain(params, x, y, steps, batch, dev):
     """A few hundred AdamW steps on the synthetic classes, so the forget
     class is learnt and the checkpoints have something to halt on."""
@@ -202,13 +300,15 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import bridge
-    from repro_torch.api import ForgetRequest, Unlearner, UnlearnSpec
+    from repro_torch.api import (ForgetRequest, QuantSpec, Unlearner,
+                                 UnlearnSpec)
     from repro_torch.configs import RESNET18_CIFAR20 as cfg
     from repro_torch.core import adapters
     from repro_torch.data import synthetic as syn
     from repro_torch.kernels import dampen as kd
     from repro_torch.models import vision as V
     from repro_torch.models.module import tree_leaves
+    from repro_torch.optim.compression import INT8_SWEEP_RTOL, q8_quantize
 
     # 1. the card
     smi = subprocess.run(
@@ -244,6 +344,11 @@ def main() -> int:
     log(f"[kernel] dampen bit-identical to dampen_ref in {cases} cases "
         f"(56 leaf shapes x f32/bf16 x 3 pairs + edges), max |err| "
         f"{max_err} ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    cases8, max_err8 = check_int8_kernel_against_plain(shapes, dev)
+    log(f"[kernel] dampen_int8 bit-identical to dampen_int8_ref in {cases8} "
+        f"cases (56 leaf shapes x 3 pairs + half-way, saturation, edges), "
+        f"max |err| {max_err8} ({time.perf_counter() - t0:.1f} s)")
 
     # 4. the slice at full width
     x, y = syn.make_classification(syn.ClsDataConfig(
@@ -284,60 +389,95 @@ def main() -> int:
     ficabu = ssd.with_spec(spec("ficabu", use_kernel=True))
     before = {k: v.clone() for k, v in bridge.paths(params).items()}
 
-    kd.LAUNCHES = 0                       # main path starts
-    runs = []
-    for name, unl in (("ssd", ssd), ("ficabu", ficabu), ("ssd", ssd),
-                      ("ficabu", ficabu)):
-        l0 = kd.LAUNCHES
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        new, st = unl.forget(ForgetRequest(fx, fy, tag=name), params=params)
-        torch.cuda.synchronize()
-        runs.append((name, new, st, kd.LAUNCHES - l0,
-                     time.perf_counter() - t0))
-    main_launches = kd.LAUNCHES           # main path ends
+    def serve(path, pairs):
+        """Drive one path: both launch counters zeroed just before, read
+        just after; per request the launches of each kernel."""
+        kd.LAUNCHES = kd.INT8_LAUNCHES = 0    # this path starts
+        runs = []
+        for name, unl in pairs:
+            l0, i0 = kd.LAUNCHES, kd.INT8_LAUNCHES
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            new, st = unl.forget(ForgetRequest(fx, fy, tag=name),
+                                 params=params)
+            torch.cuda.synchronize()
+            runs.append((name, new, st, kd.LAUNCHES - l0,
+                         kd.INT8_LAUNCHES - i0, time.perf_counter() - t0))
+        counts = (kd.LAUNCHES, kd.INT8_LAUNCHES)   # this path ends
+        for i, (name, new, st, launches, launches8, secs) in enumerate(runs):
+            warm = i >= 2
+            swept = sum(len(tree_leaves(adapter.get_layer(new, 10 - l)))
+                        for l in range(1, st["stopped_at_l"] + 1))
+            log(f"[slice] {path} {name:6s} {'warm' if warm else 'cold'}: "
+                f"stopped_at_l={st['stopped_at_l']} "
+                f"checkpoints={st['checkpoints_hit']} "
+                f"macs_vs_ssd_pct={st['macs_vs_ssd_pct']:.4f} "
+                f"launches dampen={launches} dampen_int8={launches8} "
+                f"builds={st['engine']['compiles']} "
+                f"hits={st['engine']['cache_hits']} wall={secs * 1e3:.1f} ms "
+                f"forget acc {acc(new, fx, fy):.4f} retain acc "
+                f"{acc(new, rx, ry):.4f}")
+            mine, other = ((launches, launches8) if path == "fp32"
+                           else (launches8, launches))
+            if mine != swept or other != 0:
+                raise AssertionError(
+                    f"{path} {name}: {launches} dampen and {launches8} "
+                    f"dampen_int8 launches for {swept} dampened leaves")
+            if name == "ssd" and (mine != 56 or st["stopped_at_l"] != 10):
+                raise AssertionError(f"{path} ssd sweep: {mine} launches, "
+                                     f"stopped at {st['stopped_at_l']}")
+            if st["engine"]["precision"] != path:
+                raise AssertionError(f"{path} {name}: the engine ran "
+                                     f"{st['engine']['precision']}")
+            if warm and st["engine"]["compiles"] != 0:
+                raise AssertionError(f"warm {path} {name} request built "
+                                     f"{st['engine']['compiles']} steps")
+            if not all(torch.isfinite(t).all() for t in tree_leaves(new)):
+                raise AssertionError(f"{path} {name}: non-finite parameters")
+            if acc(new, fx, fy) > acc(params, fx, fy):
+                raise AssertionError(f"{path} {name}: forget accuracy rose")
+        for k, t in bridge.paths(params).items():
+            if not torch.equal(t, before[k]):
+                raise AssertionError(f"{path} forget without donation "
+                                     f"edited {k}")
+        return runs, counts
 
-    for i, (name, new, st, launches, secs) in enumerate(runs):
-        warm = i >= 2
-        swept = sum(len(tree_leaves(adapter.get_layer(new, 10 - l)))
-                    for l in range(1, st["stopped_at_l"] + 1))
-        log(f"[slice] {name:6s} {'warm' if warm else 'cold'}: "
-            f"stopped_at_l={st['stopped_at_l']} "
-            f"checkpoints={st['checkpoints_hit']} "
-            f"macs_vs_ssd_pct={st['macs_vs_ssd_pct']:.4f} "
-            f"launches={launches} builds={st['engine']['compiles']} "
-            f"hits={st['engine']['cache_hits']} wall={secs * 1e3:.1f} ms "
-            f"forget acc {acc(new, fx, fy):.4f} retain acc "
-            f"{acc(new, rx, ry):.4f}")
-        if launches != swept:
-            raise AssertionError(f"{name}: {launches} kernel launches for "
-                                 f"{swept} dampened leaves")
-        if name == "ssd" and (launches != 56 or st["stopped_at_l"] != 10):
-            raise AssertionError(f"ssd sweep: {launches} launches, stopped "
-                                 f"at {st['stopped_at_l']}")
-        if warm and st["engine"]["compiles"] != 0:
-            raise AssertionError(f"warm {name} request built "
-                                 f"{st['engine']['compiles']} steps")
-        if not all(torch.isfinite(t).all() for t in tree_leaves(new)):
-            raise AssertionError(f"{name}: non-finite parameters")
-        if acc(new, fx, fy) > acc(params, fx, fy):
-            raise AssertionError(f"{name}: forget accuracy rose")
-    for k, t in bridge.paths(params).items():
-        if not torch.equal(t, before[k]):
-            raise AssertionError(f"forget without donation edited {k}")
+    runs, (main_launches, _) = serve(
+        "fp32", (("ssd", ssd), ("ficabu", ficabu), ("ssd", ssd),
+                 ("ficabu", ficabu)))
+    spec8 = lambda mode: spec(mode, use_kernel=True,  # noqa: E731
+                              precision="int8", quant=QuantSpec())
+    ssd8 = ssd.with_spec(spec8("ssd"))
+    ficabu8 = ssd.with_spec(spec8("ficabu"))
+    runs8, (_, main_launches8) = serve(
+        "int8", (("ssd", ssd8), ("ficabu", ficabu8), ("ssd", ssd8),
+                 ("ficabu", ficabu8)))
+    for (name, new8, *_), (name32, new32, *_) in zip(runs8[:2], runs[:2]):
+        if not on_q8_grid(bridge.paths(new8), before):
+            raise AssertionError(f"int8 {name}: a leaf left its q8 grid")
+        rel = layer_rel_l2(adapter, new8, new32)
+        log(f"[slice] int8 {name} vs fp32 {name32}, per-layer relative L2 "
+            f"(j = 0..9): {[round(r, 6) for r in rel]}")
+        if not all(0.0 < r <= INT8_SWEEP_RTOL for r in rel):
+            raise AssertionError(f"int8 {name}: per-layer error {rel} "
+                                 f"outside (0, {INT8_SWEEP_RTOL}]")
 
     # 5. whole forget: kernel vs plain, deterministic cuDNN
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
-    plain = ssd.with_spec(spec("ssd", use_kernel=False))
-    p_kernel, _ = ssd.forget(ForgetRequest(fx, fy), params=params)
-    p_plain, _ = plain.forget(ForgetRequest(fx, fy), params=params)
-    a, b = bridge.paths(p_kernel), bridge.paths(p_plain)
-    diff = [k for k in a if not torch.equal(bits(a[k]), bits(b[k]))]
-    if diff:
-        raise AssertionError(f"kernel forget != plain forget at {diff}")
-    log("[slice] ssd forget with the kernel == plain forget, bit for bit, "
-        "all 56 leaves")
+    for path, unl, plain in (
+            ("fp32", ssd, ssd.with_spec(spec("ssd", use_kernel=False))),
+            ("int8", ssd8, ssd.with_spec(spec("ssd", precision="int8",
+                                              quant=QuantSpec())))):
+        p_kernel, _ = unl.forget(ForgetRequest(fx, fy), params=params)
+        p_plain, _ = plain.forget(ForgetRequest(fx, fy), params=params)
+        a, b = bridge.paths(p_kernel), bridge.paths(p_plain)
+        diff = [k for k in a if not torch.equal(bits(a[k]), bits(b[k]))]
+        if diff:
+            raise AssertionError(f"{path} kernel forget != plain forget at "
+                                 f"{diff}")
+        log(f"[slice] {path} ssd forget with the kernel == plain forget, bit "
+            f"for bit, all 56 leaves")
 
     # 6. times at the main path's shapes
     fisher_g = ssd.fisher_global
@@ -403,22 +543,71 @@ def main() -> int:
         f"elements, f32; big = the largest leaf {big}, {n_big} elements; "
         f"device = launches queued ahead, back to back on the card)")
 
-    # where one warm ssd request spends its time on the card
-    walls = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        ssd.forget(ForgetRequest(fx, fy), params=params)
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
-    wall = sorted(walls)[1]
-    busy, top = profile_request(
-        lambda: ssd.forget(ForgetRequest(fx, fy), params=params))
-    log(f"[profile] warm ssd request: wall {wall:.2f} ms (median of "
-        f"{[round(w, 2) for w in walls]}), device busy {busy:.3f} ms, "
-        f"idle share {1 - busy / wall:.3f}")
-    for name, ms, count in top:
-        log(f"[profile]   {ms:9.3f} ms  x{count:<5d} {name}")
+    # the int8 kernel at the int8 path's shapes: the same 56 leaves (and
+    # four sets of the largest, 4 x 21 MB) as int8 codes
+    sweep8_ops = [(q8_quantize(th)[0], i_f, i_g) for th, i_f, i_g in sweep_ops]
+    sets8 = [(q8_quantize(st[0])[0],) + st[1:] for st in sets]
+
+    def sweep8(fn):
+        for q, i_f, i_g in sweep8_ops:
+            fn(q, i_f, i_g, 10.0, 1.0)
+
+    def one_big8(fn):
+        q, i_f, i_g = sets8[next(rot) % 4]
+        fn(q, i_f, i_g, 10.0, 1.0)
+
+    t8 = {
+        "sweep_kernel": cuda_time_ms(lambda: sweep8(kd.dampen_int8_cuda), 8,
+                                     queue_ahead=True),
+        "sweep_plain": cuda_time_ms(lambda: sweep8(kd.dampen_int8_ref), 1,
+                                    queue_ahead=True),
+        "sweep_kernel_stream": cuda_time_ms(
+            lambda: sweep8(kd.dampen_int8_cuda), 20),
+        "sweep_plain_stream": cuda_time_ms(
+            lambda: sweep8(kd.dampen_int8_ref), 20),
+        "big_kernel": cuda_time_ms(lambda: one_big8(kd.dampen_int8_cuda),
+                                   200, queue_ahead=True),
+        "big_plain": cuda_time_ms(lambda: one_big8(kd.dampen_int8_ref), 50,
+                                  queue_ahead=True),
+    }
+    # 11 bytes per element: theta_q (1) + i_f (4) + i_g (4) read, codes (1)
+    # + mask (1) written
+    bound8 = {"sweep": n_sweep * 11 / rate * 1e3,
+              "big": n_big * 11 / rate * 1e3}
+    for key in ("sweep", "big"):
+        log(f"[time] dampen_int8 {key:5s} device: kernel "
+            f"{t8[key + '_kernel']:.5f} ms, plain {t8[key + '_plain']:.5f} ms,"
+            f" bound {bound8[key]:.5f} ms "
+            f"({bound8[key] / t8[key + '_kernel'] * 100:.1f}% of the memory "
+            f"bound)")
+    log(f"[time] dampen_int8 sweep stream (host launch overhead included): "
+        f"kernel {t8['sweep_kernel_stream']:.5f} ms, plain "
+        f"{t8['sweep_plain_stream']:.5f} ms")
+
+    # where one warm ssd request spends its time on the card, per path
+    prof = {}
+    for path, unl in (("fp32", ssd), ("int8", ssd8)):
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            unl.forget(ForgetRequest(fx, fy), params=params)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        wall = sorted(walls)[1]
+        busy, n_kernels, top = profile_request(
+            lambda: unl.forget(ForgetRequest(fx, fy), params=params))
+        prof[path] = (wall, busy, n_kernels)
+        log(f"[profile] warm {path} ssd request: wall {wall:.2f} ms (median "
+            f"of {[round(w, 2) for w in walls]}), device busy {busy:.3f} ms, "
+            f"idle share {1 - busy / wall:.3f}, {n_kernels} device kernels")
+        for name, ms, count in top:
+            log(f"[profile]   {ms:9.3f} ms  x{count:<5d} {name}")
+    log(f"[profile] int8 / fp32 warm ssd request: wall "
+        f"{prof['int8'][0] / prof['fp32'][0]:.3f}x, device busy "
+        f"{prof['int8'][1] / prof['fp32'][1]:.3f}x, device kernels "
+        f"{prof['int8'][2]} vs {prof['fp32'][2]} "
+        f"(+{prof['int8'][2] - prof['fp32'][2]})")
 
     print(json.dumps({"kernels": [{
         "name": "dampen", "route": "cuda",
@@ -436,6 +625,19 @@ def main() -> int:
                          "bf16_ms": t["bf16_kernel"],
                          "bf16_plain_ms": t["bf16_plain"],
                          "bf16_bound_ms": bound["bf16"]},
+    }, {
+        "name": "dampen_int8", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/dampen.cu",
+        "replaces": "src/repro/kernels/dampen.py:39",
+        "launches": main_launches8, "max_abs_err": max_err8,
+        "ms": t8["sweep_kernel"], "plain_ms": t8["sweep_plain"],
+        "bound_ms": bound8["sweep"], "bound_by": "bytes",
+        "library_ms": None,
+        "stream_ms": t8["sweep_kernel_stream"],
+        "plain_stream_ms": t8["sweep_plain_stream"],
+        "largest_leaf": {"n": n_big, "ms": t8["big_kernel"],
+                         "plain_ms": t8["big_plain"],
+                         "bound_ms": bound8["big"]},
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

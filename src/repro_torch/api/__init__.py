@@ -8,4 +8,4 @@
 """
 from .facade import ForgetRequest, Unlearner  # noqa: F401
 from .specs import (MODES, DampenSpec, ExecSpec, HaltSpec,  # noqa: F401
-                    UnlearnSpec)
+                    QuantSpec, UnlearnSpec)

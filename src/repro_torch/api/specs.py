@@ -10,14 +10,15 @@ each a frozen dataclass:
   ``HaltSpec``    when to stop: the CAU early-stop target tau, checkpoint
                   cadence, and an optional sweep bound.
   ``ExecSpec``    how to run: Fisher chunking, the CUDA dampening kernel,
-                  buffer donation, the drive loop and the numeric path.
+                  buffer donation, the drive loop and the numeric path
+                  (with ``QuantSpec``, the int8 calibration).
 
 ``UnlearnSpec`` composes them under a paper ``mode`` ("ssd" | "cau" |
 "bd" | "ficabu"): JSON round-trip via ``to_json``/``from_json``, validation
 that raises ``ValueError`` with actionable messages, and ``to_config()``
 lowering to the engine-level ``core.cau.UnlearnConfig`` with the
-reference's mode mapping. (Refresh, quantisation, mesh, guard and serving
-specs come with later slices.)
+reference's mode mapping. (Refresh, mesh, guard and serving specs come with
+later slices.)
 """
 from __future__ import annotations
 
@@ -114,22 +115,62 @@ class HaltSpec:
 
 
 @dataclasses.dataclass(frozen=True)
+class QuantSpec:
+    """Calibration of the int8 unlearning path (DESIGN.md §12).
+
+    The engine's quantised path is symmetric int8
+    (``repro_torch.optim.compression.q8_*``): one f32 scale per leading-axis
+    channel of the reference layout, codes in ±127, dequant-free dampening
+    on the codes. The fields pin that contract so a serialized request is
+    explicit about the grid it ran on:
+
+    ``bits``          code width — only 8 is implemented (the paper's
+                      GEMM-centric datapath is int8).
+    ``channel_axis``  the scale-table axis — only 0 (leading-axis rows,
+                      the ``lead_axes=1`` rule) is implemented.
+    ``min_scale``     calibration clamp for all-zero channels
+                      (``Q8_MIN_SCALE`` by default).
+    """
+    bits: int = 8
+    channel_axis: int = 0
+    min_scale: float = 1e-12
+
+    def __post_init__(self):
+        _require(self.bits == 8,
+                 f"QuantSpec.bits must be 8 (the only implemented code "
+                 f"width — the paper's datapath is int8), got {self.bits!r}")
+        _require(self.channel_axis == 0,
+                 f"QuantSpec.channel_axis must be 0 (per-channel scales "
+                 f"over the leading axis is the only implemented layout), "
+                 f"got {self.channel_axis!r}")
+        _finite(self.min_scale, "QuantSpec.min_scale", positive=True)
+
+
+@dataclasses.dataclass(frozen=True)
 class ExecSpec:
     """How to run: chunking, the kernel, donation, drive loop, precision.
 
-    ``use_kernel`` routes dampening through the hand-written CUDA kernel
-    (its plain PyTorch version for tensors on the CPU). ``donate`` defaults
-    to None = NO donation (callers may keep references to the pre-edit
-    parameter tree); ``donate=True`` lets the fused steps write the edited
-    layers into the caller's tensors. ``sweep_mode`` takes "layerwise" and
-    ``precision`` takes "fp32" in this slice of the port; the scanned sweep
-    and the int8 path raise a ValueError naming the slice that brings them.
+    ``use_kernel`` routes dampening through the hand-written CUDA kernels
+    (their plain PyTorch versions for tensors on the CPU). ``donate``
+    defaults to None = NO donation (callers may keep references to the
+    pre-edit parameter tree); ``donate=True`` lets the fused steps write the
+    edited layers into the caller's tensors. ``sweep_mode`` takes
+    "layerwise" in this port so far; the scanned sweep raises a ValueError
+    naming the slice that brings it.
+
+    ``precision`` picks the numeric path: ``"fp32"`` (default) or
+    ``"int8"`` — int8 weight codes with f32 scale tables, dequant-free
+    dampening in the int8 kernel, halting on the fake-quantised weights.
+    ``quant`` optionally pins the int8 calibration (a ``QuantSpec``); it may
+    only be set when ``precision="int8"`` — a quant table on an fp32
+    request is a config contradiction and raises.
     """
     chunk_size: int = 8
-    use_kernel: bool = False          # CUDA dampening kernel
+    use_kernel: bool = False          # CUDA dampening kernels
     donate: Optional[bool] = None     # None: no donation
     sweep_mode: str = "layerwise"
-    precision: str = "fp32"
+    precision: str = "fp32"           # "fp32" | "int8"
+    quant: Optional[QuantSpec] = None  # int8 calibration (int8 only)
 
     def __post_init__(self):
         _require(isinstance(self.chunk_size, int)
@@ -143,6 +184,17 @@ class ExecSpec:
                  f"ExecSpec.donate must be None (no donation) or a bool, "
                  f"got {self.donate!r}")
         check_engine_modes(self.sweep_mode, self.precision, "ExecSpec")
+        if isinstance(self.quant, dict):  # convenience: accept mappings
+            object.__setattr__(self, "quant",
+                               _from_dict(QuantSpec, self.quant, "quant"))
+        _require(self.quant is None or isinstance(self.quant, QuantSpec),
+                 f"ExecSpec.quant must be None or a QuantSpec (or a mapping "
+                 f"of its fields), got {type(self.quant).__name__}")
+        _require(self.quant is None or self.precision == "int8",
+                 f"ExecSpec.quant is set but precision={self.precision!r}: "
+                 f"a quantisation calibration on an fp32 request is a "
+                 f'config contradiction — set precision="int8" or drop '
+                 f"quant")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -179,7 +231,8 @@ class UnlearnSpec:
                  chunk_size: int = 8, use_kernel: bool = False,
                  donate: Optional[bool] = None,
                  sweep_mode: str = "layerwise",
-                 precision: str = "fp32") -> "UnlearnSpec":
+                 precision: str = "fp32",
+                 quant: Optional[QuantSpec] = None) -> "UnlearnSpec":
         """Flat-kwargs constructor mirroring the reference's."""
         return cls(
             mode=mode,
@@ -188,7 +241,7 @@ class UnlearnSpec:
                           max_layers=max_layers),
             exec=ExecSpec(chunk_size=chunk_size, use_kernel=use_kernel,
                           donate=donate, sweep_mode=sweep_mode,
-                          precision=precision))
+                          precision=precision, quant=quant))
 
     # -- mode semantics -----------------------------------------------------
     @property
@@ -204,7 +257,7 @@ class UnlearnSpec:
     def to_config(self) -> UnlearnConfig:
         """Lower to the engine-level config: CAU off => tau=-1 (never
         early-stop) and checkpoint_every=0 (no checkpoints); BD on/off from
-        the mode."""
+        the mode; the int8 calibration's clamp as ``quant_min_scale``."""
         cau_on = self.cau_enabled
         return UnlearnConfig(
             alpha=self.dampen.alpha, lam=self.dampen.lam,
@@ -214,7 +267,9 @@ class UnlearnSpec:
             chunk_size=self.exec.chunk_size, use_kernel=self.exec.use_kernel,
             max_layers=self.halt.max_layers,
             sweep_mode=self.exec.sweep_mode,
-            precision=self.exec.precision)
+            precision=self.exec.precision,
+            quant_min_scale=(self.exec.quant.min_scale
+                             if self.exec.quant is not None else 1e-12))
 
     # -- JSON round trip ----------------------------------------------------
     def to_dict(self) -> Dict[str, Any]:

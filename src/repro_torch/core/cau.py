@@ -20,6 +20,7 @@ Key properties implemented exactly as in the paper:
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -29,24 +30,25 @@ from repro_torch.models.module import (flatten_with_paths, map_with_paths,
 
 Params = Any
 
-# What this slice of the port implements; the rest names the slice to come.
+# What the port implements so far; the rest names the slice to come.
 SWEEP_MODES = ("layerwise",)
-PRECISIONS = ("fp32",)
+PRECISIONS = ("fp32", "int8")
 
 
 def check_engine_modes(sweep_mode: str, precision: str, owner: str) -> None:
-    """Reject engine modes the port does not have yet, naming the slice
-    that brings each (a mistyped or missing mode must never silently run
-    the layerwise fp32 loop)."""
+    """Reject engine modes the port does not have (yet), naming the slice
+    that brings the scanned sweep (a mistyped or missing mode must never
+    silently run the layerwise fp32 loop)."""
     if sweep_mode not in SWEEP_MODES:
         raise ValueError(
             f"{owner}.sweep_mode must be 'layerwise', got {sweep_mode!r} — "
             f"the scanned whole-sweep program comes with the port's "
-            f"scanned-sweep slice (ROADMAP P9)")
+            f"scanned-sweep slice (ROADMAP Queue 1, Slice 6)")
     if precision not in PRECISIONS:
         raise ValueError(
-            f"{owner}.precision must be 'fp32', got {precision!r} — the "
-            f"int8 path comes with the port's int8 slice (ROADMAP P7)")
+            f"{owner}.precision must be one of {PRECISIONS}, got "
+            f"{precision!r} — a mistyped precision would silently run the "
+            f"fp32 path")
 
 
 @dataclasses.dataclass
@@ -95,10 +97,22 @@ class UnlearnConfig:
     use_kernel: bool = False          # hand-written CUDA dampening kernel
     max_layers: Optional[int] = None  # optionally bound the sweep
     sweep_mode: str = "layerwise"     # the host drives the per-layer loop
+    # "fp32" (the default) or "int8": int8 weight codes with f32 scale
+    # tables, dampening on the codes, halting on the fake-quantised
+    # weights (DESIGN.md §12); within optim.compression.INT8_SWEEP_RTOL of
+    # the fp32 path per layer
     precision: str = "fp32"
+    # the q8 scale-table clamp (QuantSpec.min_scale)
+    quant_min_scale: float = 1e-12
 
     def __post_init__(self):
         check_engine_modes(self.sweep_mode, self.precision, "UnlearnConfig")
+        if not (isinstance(self.quant_min_scale, float)
+                and math.isfinite(self.quant_min_scale)
+                and self.quant_min_scale > 0.0):
+            raise ValueError(
+                f"UnlearnConfig.quant_min_scale must be a finite float > 0 "
+                f"(the int8 scale-table clamp), got {self.quant_min_scale!r}")
 
 
 def _layer_param_counts(adapter: ModelAdapter, params: Params) -> List[int]:

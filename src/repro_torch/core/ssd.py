@@ -6,8 +6,9 @@ builds on (Foster et al., AAAI'24), Eqs. (3)-(4):
 
 ``dampen_tree`` is the one-shot edit over a whole parameter tree;
 ``dampen_array`` is the per-tensor primitive that the hand-written kernel
-(``repro_torch.kernels.dampen``) implements for the card. The int8
-``dampen_q8_*`` variants come with the int8 slice of the port.
+(``repro_torch.kernels.dampen``) implements for the card. ``dampen_q8_tree``
+and ``dampen_q8_array`` are the same edit on int8 weight codes, the
+``precision="int8"`` path, with its own kernel.
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ from typing import Any, Callable, Dict, Tuple
 import torch
 
 from repro_torch.kernels import ops as kops
-from repro_torch.kernels.dampen import dampen_ref
+from repro_torch.kernels.dampen import dampen_int8_ref, dampen_ref
 from repro_torch.models.module import tree_leaves, tree_unflatten
 
 from .fisher import diag_fisher
@@ -39,11 +40,40 @@ def dampen_tree(params: Params, fisher_f: Params, fisher_g: Params,
     (params', selection masks). ``use_kernel`` routes every leaf through
     ``kernels.ops.dampen`` (the CUDA kernel for tensors on the card);
     ``in_place`` writes theta' into the caller's tensors."""
+    return _dampen_leaves("dampen_tree", kops.dampen, dampen_array, params,
+                          fisher_f, fisher_g, alpha, lam, use_kernel,
+                          in_place)
+
+
+def dampen_q8_array(theta_q: torch.Tensor, i_f: torch.Tensor,
+                    i_g: torch.Tensor, alpha: float, lam: float
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Eqs. (3)+(4) applied directly to int8 weight CODES, in plain
+    PyTorch (dequant-free: beta <= 1, so theta_q' = round(beta * theta_q)
+    stays on the same grid and the scale table remains valid). Returns
+    (new_q, selected_mask)."""
+    return dampen_int8_ref(theta_q, i_f, i_g, kops.f32(alpha), kops.f32(lam))
+
+
+def dampen_q8_tree(q_params: Params, fisher_f: Params, fisher_g: Params,
+                   alpha: float, lam: float, use_kernel: bool = False, *,
+                   in_place: bool = False) -> Tuple[Params, Params]:
+    """SSD dampening over a tree of int8 weight codes (the engine's
+    precision="int8" edit representation). Returns (codes', masks).
+    ``use_kernel`` routes every leaf through ``kernels.ops.dampen_int8``;
+    ``in_place`` writes the codes into the given tensors."""
+    return _dampen_leaves("dampen_q8_tree", kops.dampen_int8,
+                          dampen_q8_array, q_params, fisher_f, fisher_g,
+                          alpha, lam, use_kernel, in_place)
+
+
+def _dampen_leaves(name, kernel_fn, plain_fn, params, fisher_f, fisher_g,
+                   alpha, lam, use_kernel, in_place):
     def one(t, f, g):
         if use_kernel:
-            return kops.dampen(t, f, g, alpha, lam,
-                               out=t if in_place else None)
-        new, mask = dampen_array(t, f, g, alpha, lam)
+            return kernel_fn(t, f, g, alpha, lam,
+                             out=t if in_place else None)
+        new, mask = plain_fn(t, f, g, alpha, lam)
         return (t.copy_(new) if in_place else new), mask
 
     flat_p = tree_leaves(params)
@@ -51,7 +81,7 @@ def dampen_tree(params: Params, fisher_f: Params, fisher_g: Params,
     flat_g = tree_leaves(fisher_g)
     if not len(flat_p) == len(flat_f) == len(flat_g):
         raise ValueError(
-            f"dampen_tree needs Fisher trees shaped like the parameters, got "
+            f"{name} needs Fisher trees shaped like the parameters, got "
             f"{len(flat_p)} parameter leaves, {len(flat_f)} forget-Fisher "
             f"and {len(flat_g)} global-Fisher leaves")
     outs = [one(t, f, g) for t, f, g in zip(flat_p, flat_f, flat_g)]

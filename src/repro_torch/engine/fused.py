@@ -8,11 +8,13 @@ under the same key (``repro_torch.engine.programs``). Per layer it runs:
   * the per-chunk vjp on the layer's original weights (``torch.autograd``),
   * the Fisher square-accumulate over chunks (f32),
   * SSD/Balanced dampening, through the hand-written CUDA kernel
-    (``repro_torch.kernels.dampen``) when ``use_kernel`` is set.
+    (``repro_torch.kernels.dampen``) when ``use_kernel`` is set — on float
+    weights, or on int8 weight codes for ``precision="int8"``.
 
 (alpha, lambda) arrive as f32-rounded Python floats, per call, so Balanced
 Dampening's per-layer S(l)-scaled values never rebuild a step. The
-split-edit (coalesced) and int8 variants come with later slices.
+split-edit variant (vjp reference apart from the edit target) is the int8
+step's signature; its fp32 form waits for the coalesced ``forget_many``.
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ from typing import Any, Callable, Hashable, Optional, Tuple
 import torch
 
 from repro_torch.core.cau import _restore_excluded
-from repro_torch.core.ssd import dampen_tree
+from repro_torch.core.ssd import dampen_q8_tree, dampen_tree
 from repro_torch.models.module import tree_leaves, tree_map, tree_unflatten
 
 F32 = torch.float32
@@ -88,7 +90,9 @@ def build_fused_step(apply_fn: Callable[[Params, Params, torch.Tensor],
                      with_act_grad: bool = True,
                      use_kernel: bool = False,
                      exclude: Optional[Callable[[str], bool]] = None,
-                     donate: bool = False):
+                     donate: bool = False,
+                     split_edit: bool = False,
+                     precision: str = "fp32"):
     """Build the fused per-layer step.
 
     ``apply_fn(ctx, layer_p, act) -> out`` is the layer forward; ``ctx`` is
@@ -104,25 +108,53 @@ def build_fused_step(apply_fn: Callable[[Params, Params, torch.Tensor],
     touches each layer once per request, so its current params still equal
     the originals). ``n_selected`` is a device scalar.
 
-    ``donate=True`` writes theta' into ``layer_p``'s own tensors (after the
-    vjp has read them) unless ``exclude`` must restore some of them;
-    otherwise the step allocates new ones and the caller's tensors stay
-    untouched.
+    ``split_edit=True`` builds the split signature
+
+        step(ctx, ref_layer, edit_layer, fisher_g, acts_c, cot_c, scalars)
+            -> (new_edit_layer, act_cotangents, n_selected)
+
+    where the vjp/Fisher run on ``ref_layer`` and dampening edits
+    ``edit_layer`` (select and beta depend only on the Fisher pair).
+
+    ``precision="int8"`` always takes the split signature: the vjp/Fisher
+    run on ``ref_layer``, the fake-quantised reference weights (the weights
+    the int8 deployment executes), MATERIALISED by the caller; the edit runs
+    dequant-free on the int8 codes ``edit_layer`` via ``dampen_q8_tree``
+    (the scales do not change under beta <= 1, so they never enter the
+    step), and ``exclude`` restores the pre-edit codes.
+
+    ``donate=True`` writes the edit into the edit target's own tensors
+    (after the vjp has read them) unless ``exclude`` must restore some of
+    them; otherwise the step allocates new ones and the caller's tensors
+    stay untouched.
     """
+    if precision not in ("fp32", "int8"):
+        raise ValueError(
+            f"build_fused_step precision must be 'fp32' or 'int8', got "
+            f"{precision!r}")
+    edit = dampen_q8_tree if precision == "int8" else dampen_tree
     in_place = donate and exclude is None
 
-    def step(ctx, layer_p, fisher_g, acts_c, cot_c, scalars):
+    def body(ctx, ref_layer, edit_layer, fisher_g, acts_c, cot_c, scalars):
         alpha, lam = scalars
         fish, g_acts = grad_fisher_chunks(
-            lambda lp, aa: apply_fn(ctx, lp, aa), layer_p, acts_c, cot_c,
+            lambda lp, aa: apply_fn(ctx, lp, aa), ref_layer, acts_c, cot_c,
             with_act_grad=with_act_grad)
         with torch.no_grad():
-            new_layer, masks = dampen_tree(layer_p, fish, fisher_g, alpha,
-                                           lam, use_kernel=use_kernel,
-                                           in_place=in_place)
+            new_layer, masks = edit(edit_layer, fish, fisher_g, alpha, lam,
+                                    use_kernel=use_kernel, in_place=in_place)
             if exclude is not None:
-                new_layer = _restore_excluded(exclude, new_layer, layer_p)
+                # exclusion blocks edits; for int8, quantisation is a
+                # deployment property of every leaf, so the pre-edit codes
+                # come back
+                new_layer = _restore_excluded(exclude, new_layer, edit_layer)
             n_sel = sum(m.sum() for m in tree_leaves(masks))
         return new_layer, g_acts, n_sel
+
+    if split_edit or precision == "int8":
+        return body
+
+    def step(ctx, layer_p, fisher_g, acts_c, cot_c, scalars):
+        return body(ctx, layer_p, layer_p, fisher_g, acts_c, cot_c, scalars)
 
     return step

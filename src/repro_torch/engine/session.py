@@ -1,5 +1,5 @@
 """UnlearnSession — the warm unlearning engine (port of
-``repro.engine.session``, the layerwise fp32 path).
+``repro.engine.session``, the layerwise path, fp32 and int8).
 
 Holds the adapter, the global Fisher importance, and a cross-request step
 cache, so a serving process builds each step ONCE:
@@ -9,12 +9,14 @@ cache, so a serving process builds each step ONCE:
     2nd..Nth forget request builds nothing;
   * checkpoint partial inference runs one cached runner per start depth
     (the reference's per-depth form, which it also takes for ResNet, whose
-    activations are not shape-uniform).
+    activations are not shape-uniform);
+  * the int8 path (``precision="int8"``) adds its own step family
+    ("gfused8") and the whole-tree fake-quant entry step ("quant"), with
+    their own build/hit counters.
 
 The host drives the layer loop / checkpoint decisions / early stop exactly
 as the RISC-V core drives the paper's processor. (The coalesced
-``forget_many``, the scanned sweep, the int8 family and telemetry come with
-later slices.)
+``forget_many``, the scanned sweep and telemetry come with later slices.)
 """
 from __future__ import annotations
 
@@ -28,6 +30,9 @@ from repro_torch.core.cau import (ModelAdapter, UnlearnConfig, _chunk,
 from repro_torch.core.metrics import MacCounter
 from repro_torch.core.schedule import checkpoint_set, sigmoid_profile
 from repro_torch.kernels.ops import f32
+from repro_torch.optim.compression import (q8_dequantize_tree,
+                                           q8_fakequant_tree,
+                                           q8_quantize_tree)
 
 from .fused import build_fused_step, shape_signature
 from .programs import ProgramCache
@@ -58,6 +63,7 @@ class UnlearnSession:
             "requests": 0,
             "fused_compiles": 0, "fused_hits": 0,
             "partial_compiles": 0, "partial_hits": 0,
+            "quant_compiles": 0, "quant_hits": 0,
         }
 
     # -- step cache ---------------------------------------------------------
@@ -83,11 +89,19 @@ class UnlearnSession:
         return params if lc is None else lc(params, j)
 
     def fused_program(self, j: int, ctx, layer_p, acts_c, cot_c,
-                      cfg: UnlearnConfig) -> Callable:
+                      cfg: UnlearnConfig, *, split_edit: bool = False
+                      ) -> Callable:
         """The fused per-layer step for depth j, from cache when the layer's
-        kind + shapes were seen before (this request or any earlier one)."""
+        kind + shapes were seen before (this request or any earlier one).
+
+        ``split_edit`` selects the split signature (vjp/Fisher on one
+        layer, the edit on another); the int8 path always takes it. The
+        edit target shares the reference's shape signature, so the key only
+        differs in the kind prefix."""
         with_act = j > 0
-        key = ("fused", self._layer_key(j), shape_signature(ctx),
+        kind = ("gfused" if split_edit else "fused") + (
+            "8" if cfg.precision == "int8" else "")
+        key = (kind, self._layer_key(j), shape_signature(ctx),
                shape_signature(layer_p), shape_signature(acts_c),
                shape_signature(cot_c), with_act, cfg.use_kernel,
                self.adapter.exclude is not None)
@@ -97,11 +111,30 @@ class UnlearnSession:
             def apply_fn(c, lp, a, _j=j):
                 return adapter.apply_layer(c, _j, lp, a)
 
+            # a split step's edit target is not the caller's layer
+            # (int8: codes the session made for this step), so it never
+            # donates
             return build_fused_step(
                 apply_fn, with_act_grad=with_act, use_kernel=cfg.use_kernel,
-                exclude=adapter.exclude, donate=self.donate)
+                exclude=adapter.exclude,
+                donate=False if split_edit else self.donate,
+                split_edit=split_edit, precision=cfg.precision)
 
         return self._cached("fused", key, builder)
+
+    def _fakequant_program(self, tree: Params, min_scale: float) -> Callable:
+        """Whole-tree fake-quant as ONE cached step: the int8 drive loop's
+        entry step."""
+        key = ("quant", shape_signature(tree), float(min_scale))
+
+        def builder():
+            def run(t, _ms=float(min_scale)):
+                with torch.no_grad():
+                    return q8_fakequant_tree(t, min_scale=_ms)
+
+            return run
+
+        return self._cached("quant", key, builder)
 
     # -- checkpoint partial inference ---------------------------------------
     def _uniform_suffix(self, acts: List[torch.Tensor]) -> bool:
@@ -143,10 +176,13 @@ class UnlearnSession:
         return self._perj_program(j, params, act, labels)(params, act, labels)
 
     def _family_counters(self) -> Tuple[int, int]:
-        """(builds, cache hits) summed over the request-serving families."""
+        """(builds, cache hits) summed over the request-serving families:
+        fused per-layer steps, checkpoint runners and the fake-quant entry
+        step."""
         s = self.stats
-        return (s["fused_compiles"] + s["partial_compiles"],
-                s["fused_hits"] + s["partial_hits"])
+        return (s["fused_compiles"] + s["partial_compiles"]
+                + s["quant_compiles"],
+                s["fused_hits"] + s["partial_hits"] + s["quant_hits"])
 
     # -- the drive loop -----------------------------------------------------
     def forget(self, params: Params, inputs: Any, labels: torch.Tensor,
@@ -156,12 +192,25 @@ class UnlearnSession:
 
         With ``donate`` off the caller's tensors are left untouched: every
         edited layer is a new tensor and the returned tree shares only the
-        layers the sweep did not reach."""
+        layers the sweep did not reach.
+
+        ``precision="int8"``: the working tree is the fake-quantised
+        ``fq(params)``, made once; every forward and checkpoint runs on it.
+        Each layer's edit codes are quantised ONCE from the PRISTINE layer,
+        outside the step (q8 is not idempotent to the last bit, so the fq
+        tree is never quantised again), and dequantised after it. The
+        returned tree is the deployment state: every leaf lies on its q8
+        grid, edited or not, and none is the caller's tensor."""
         adapter = self.adapter
         self.stats["requests"] += 1
         comp0, hits0 = self._family_counters()
 
         L = adapter.n_layers
+        int8 = cfg.precision == "int8"
+        pristine = params
+        if int8:
+            params = self._fakequant_program(
+                params, cfg.quant_min_scale)(params)
         cps = (set(checkpoint_set(L, cfg.checkpoint_every))
                if 0 < cfg.checkpoint_every <= L else set())
         S = (sigmoid_profile(L, cfg.b_r, cfg.c_m) if cfg.balanced
@@ -197,9 +246,21 @@ class UnlearnSession:
             scalars = (f32(cfg.alpha * s), f32(cfg.lam * s))
             fg_layer = adapter.get_layer(self.fisher_global, j)
 
-            step = self.fused_program(j, ctx, layer_p, acts_c, cot, cfg)
-            new_layer, g_acts, n_sel = step(ctx, layer_p, fg_layer,
+            if int8:
+                # vjp/Fisher on the materialised fq layer; the edit on codes
+                # quantised from the PRISTINE layer
+                edit_q, edit_s = q8_quantize_tree(
+                    adapter.get_layer(pristine, j),
+                    min_scale=cfg.quant_min_scale)
+                step = self.fused_program(j, ctx, layer_p, acts_c, cot, cfg,
+                                          split_edit=True)
+                new_q, g_acts, n_sel = step(ctx, layer_p, edit_q, fg_layer,
                                             acts_c, cot, scalars)
+                new_layer = q8_dequantize_tree(new_q, edit_s, like=layer_p)
+            else:
+                step = self.fused_program(j, ctx, layer_p, acts_c, cot, cfg)
+                new_layer, g_acts, n_sel = step(ctx, layer_p, fg_layer,
+                                                acts_c, cot, scalars)
             macs.add_backward_layer(j)
             macs.add_fisher_layer(j)
             macs.add_dampen_layer(j)

@@ -1,23 +1,32 @@
-// Dampening IP for Hopper (sm_90a): SSD select / beta / multiply in one pass.
+// Dampening IP for Hopper (sm_90a): SSD select / beta / multiply in one pass,
+// on float weights and on int8 weight codes.
 //
-// Replaces the JAX package's Pallas kernel kernels/dampen.py::dampen
-// (_dampen_kernel). Per element, in f32:
+// Replaces two of the JAX package's Pallas kernels, kernels/dampen.py::dampen
+// (_dampen_kernel, :28) and kernels/dampen.py::dampen_int8
+// (_dampen_int8_kernel, :39). Per element, in f32:
 //
 //   sel    = i_f > alpha * i_g
 //   beta   = min(lam * i_g / max(i_f, 1e-30), 1)       NaN propagates
 //   theta' = sel ? theta * beta : theta                 in theta's dtype
 //
-// and the selection mask, one byte per element, from the same pass (the JAX
-// wrapper recomputes the mask outside its kernel, a second read of i_f and
-// i_g).
+// and for int8 codes theta_q (the precision="int8" path, dequant-free: the
+// per-channel scale table stays valid because beta <= 1)
+//
+//   theta_q' = int8(clip(sel ? round(theta_q * beta) : theta_q, -127, 127))
+//
+// with round half to even and NaN -> code 0 (XLA's float -> int8 convert).
+// Both write the selection mask, one byte per element, from the same pass
+// (the JAX wrappers recompute the mask outside their kernels, a second read
+// of i_f and i_g).
 //
 // What bounds it: device memory. Per element it reads theta, i_f and i_g
 // once and writes theta' and the mask once (17 bytes for f32 theta, 13 for
-// bf16) against five floating-point operations. So the design only moves
-// each byte once, in wide transactions: a thread handles four neighbouring
-// elements with 16-byte loads of i_f and i_g (and of theta in f32) whenever
-// every pointer is aligned for it, one grid-stride loop covers an array of
-// any length in a single launch, and a scalar loop takes the last n % 4
+// bf16, 11 for int8 codes) against five floating-point operations. So the
+// design only moves each byte once, in wide transactions: a thread handles
+// four neighbouring elements with 16-byte loads of i_f and i_g (and a
+// 16-byte f32 / 8-byte bf16 / 4-byte int8 load of theta) whenever every
+// pointer is aligned for it, one grid-stride loop covers an array of any
+// length in a single launch, and a scalar loop takes the last n % 4
 // elements (or everything, when a pointer is misaligned).
 //
 // Exactness: the kernel must agree with the plain PyTorch version bit for
@@ -27,7 +36,8 @@
 // min are written out so that NaN propagates as in torch.maximum /
 // jnp.maximum (fmaxf / fminf would drop it). The result is always formed in
 // f32 and converted with round-to-nearest-even, as PyTorch's own conversion
-// does on the card.
+// does on the card; int8 codes round with rintf (half to even, as
+// torch.round / jnp.round), never floorf(x + 0.5f).
 //
 // C interface (bound with ctypes): every pointer and the stream are void*,
 // n is the element count, alpha and lam are f32 (the caller has rounded
@@ -61,6 +71,8 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
+__device__ __forceinline__ float to_f32(int8_t x) { return float(x); }
+
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
 template <>
@@ -68,6 +80,15 @@ __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
+}
+// int8 codes: round half to even, saturate to +-127, NaN -> 0. An
+// unselected code is already an integer, so rounding it changes nothing and
+// the select needs no int8 special case.
+template <>
+__device__ __forceinline__ int8_t from_f32<int8_t>(float x) {
+  if (x != x) return 0;
+  const float r = fminf(fmaxf(rintf(x), -127.0f), 127.0f);
+  return static_cast<int8_t>(__float2int_rn(r));
 }
 
 template <typename T>
@@ -156,4 +177,11 @@ extern "C" int ficabu_dampen_bf16(const void* theta, const void* i_f,
                                   void* stream) {
   return launch<__nv_bfloat16>(theta, i_f, i_g, out, mask, n, alpha, lam,
                                stream);
+}
+
+extern "C" int ficabu_dampen_int8(const void* theta_q, const void* i_f,
+                                  const void* i_g, void* out, void* mask,
+                                  long long n, float alpha, float lam,
+                                  void* stream) {
+  return launch<int8_t>(theta_q, i_f, i_g, out, mask, n, alpha, lam, stream);
 }

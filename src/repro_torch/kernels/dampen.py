@@ -1,12 +1,16 @@
-"""Dampening IP on Hopper — port of ``repro.kernels.dampen.dampen``.
+"""Dampening IP on Hopper — port of ``repro.kernels.dampen.dampen`` and
+``repro.kernels.dampen.dampen_int8``.
 
-The TPU kernel (``_dampen_kernel``) is one fused elementwise pass of SSD
-Eqs. (3)+(4): select ``i_f > alpha * i_g``, ``beta = min(lam * i_g /
-max(i_f, 1e-30), 1)``, multiply. Here it is ``csrc/dampen.cu``, CUDA C++
-for ``sm_90a``, built with nvcc into a shared library with a plain C
-interface and bound with ctypes. It also writes the selection mask from the
-same pass. It is bound by device memory (17 bytes per element for f32
-theta, 13 for bf16); the source says what its design does about that.
+The TPU kernels (``_dampen_kernel``, ``_dampen_int8_kernel``) are one fused
+elementwise pass of SSD Eqs. (3)+(4): select ``i_f > alpha * i_g``,
+``beta = min(lam * i_g / max(i_f, 1e-30), 1)``, multiply — on float
+weights, or on int8 weight codes with ``round`` (half to even) and a clip
+to ±127 (the ``precision="int8"`` path). Here both are ``csrc/dampen.cu``,
+CUDA C++ for ``sm_90a``, built with nvcc into one shared library with a
+plain C interface and bound with ctypes. Each also writes the selection
+mask from the same pass. They are bound by device memory (17 bytes per
+element for f32 theta, 13 for bf16, 11 for int8 codes); the source says
+what the design does about that.
 
 Why CUDA C++ and not Triton: the kernel must agree with ``dampen_ref`` bit
 for bit, and Triton lowers an f32 ``/`` to the approximate
@@ -16,7 +20,8 @@ never uses ``--use_fast_math`` (``_NVCC_FLAGS`` does not).
 The library is built at first use, from the source in the checkout, into
 ``_build/`` beside this file (listed in .gitignore), under a name that
 hashes the source and the flags — an edited source rebuilds. ``LAUNCHES``
-counts kernel launches, and only kernel launches.
+counts launches of the float kernel and ``INT8_LAUNCHES`` launches of the
+int8 one, and nothing else, so a run shows which kernel an edit took.
 """
 from __future__ import annotations
 
@@ -30,6 +35,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.optim.compression import int8_codes
+
 F32 = torch.float32
 
 _SRC = Path(__file__).resolve().parent / "csrc" / "dampen.cu"
@@ -38,8 +45,10 @@ _BUILD_DIR = Path(__file__).resolve().parent / "_build"
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 _ENTRY = {F32: "ficabu_dampen_f32", torch.bfloat16: "ficabu_dampen_bf16"}
+_ENTRY_INT8 = "ficabu_dampen_int8"
 
-LAUNCHES = 0   # kernel launches since the last reset (a plain counter)
+LAUNCHES = 0       # float-kernel launches since the last reset
+INT8_LAUNCHES = 0  # int8-kernel launches since the last reset
 BUILD_LOG = ""  # nvcc's output (register use, spills) when this process built
 _LIB: Optional[ctypes.CDLL] = None
 
@@ -50,14 +59,31 @@ def dampen_ref(theta: torch.Tensor, i_f: torch.Tensor, i_g: torch.Tensor,
     dtype, plus the selection mask. ``alpha``/``lam`` must already be
     rounded to f32 (``kernels.ops.dampen`` does it), so the product
     ``alpha * i_g`` is the correctly rounded f32 product either way."""
+    sel, beta = _select_beta(i_f, i_g, alpha, lam)
+    th32 = theta.to(F32)
+    out = torch.where(sel, th32 * beta, th32)
+    return out.to(theta.dtype), sel
+
+
+def dampen_int8_ref(theta_q: torch.Tensor, i_f: torch.Tensor,
+                    i_g: torch.Tensor, alpha: float, lam: float
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain PyTorch version of the int8 kernel: Eqs. (3)+(4) on int8
+    weight codes, ``round`` half to even, clipped to ±127, NaN -> code 0
+    (as XLA converts). Returns (codes', mask); ``alpha``/``lam`` as in
+    ``dampen_ref``."""
+    sel, beta = _select_beta(i_f, i_g, alpha, lam)
+    th32 = theta_q.to(F32)
+    return int8_codes(torch.where(sel, torch.round(th32 * beta), th32)), sel
+
+
+def _select_beta(i_f, i_g, alpha, lam):
     i_f32 = i_f.to(F32)
     i_g32 = i_g.to(F32)
-    th32 = theta.to(F32)
     sel = i_f32 > alpha * i_g32
     # clamp_min/clamp_max propagate NaN, as jnp.maximum/jnp.minimum do
     beta = (lam * i_g32 / i_f32.clamp_min(1e-30)).clamp_max(1.0)
-    out = torch.where(sel, th32 * beta, th32)
-    return out.to(theta.dtype), sel
+    return sel, beta
 
 
 def build() -> Path:
@@ -87,7 +113,7 @@ def _lib() -> ctypes.CDLL:
     global _LIB
     if _LIB is None:
         lib = ctypes.CDLL(str(build()))
-        for name in _ENTRY.values():
+        for name in (*_ENTRY.values(), _ENTRY_INT8):
             fn = getattr(lib, name)
             fn.argtypes = [ctypes.c_void_p] * 5 + [
                 ctypes.c_longlong, ctypes.c_float, ctypes.c_float,
@@ -101,16 +127,44 @@ def dampen_cuda(theta: torch.Tensor, i_f: torch.Tensor, i_g: torch.Tensor,
                 alpha: float, lam: float,
                 out: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the kernel on CUDA tensors of any shape; returns (theta',
-    mask). ``out`` may be ``theta`` itself (an in-place edit). Launches on
-    the current stream and does not synchronise."""
+    """Launch the float kernel on CUDA tensors of any shape; returns
+    (theta', mask). ``out`` may be ``theta`` itself (an in-place edit).
+    Launches on the current stream and does not synchronise."""
     global LAUNCHES
-    dev = theta.device
-    if dev.type != "cuda":
-        raise ValueError(f"dampen_cuda takes CUDA tensors, got theta on {dev}")
     if theta.dtype not in _ENTRY:
         raise ValueError(f"the dampen kernel takes f32 or bf16 theta, got "
                          f"{theta.dtype}")
+    res = _launch(_ENTRY[theta.dtype], "dampen", theta, i_f, i_g, alpha,
+                  lam, out)
+    if theta.numel():
+        LAUNCHES += 1
+    return res
+
+
+def dampen_int8_cuda(theta_q: torch.Tensor, i_f: torch.Tensor,
+                     i_g: torch.Tensor, alpha: float, lam: float,
+                     out: Optional[torch.Tensor] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the int8 kernel on CUDA tensors of any shape; returns
+    (codes', mask). ``out`` may be ``theta_q`` itself (an in-place edit).
+    Launches on the current stream and does not synchronise."""
+    global INT8_LAUNCHES
+    if theta_q.dtype != torch.int8:
+        raise ValueError(f"the dampen_int8 kernel takes int8 codes, got "
+                         f"{theta_q.dtype}")
+    res = _launch(_ENTRY_INT8, "dampen_int8", theta_q, i_f, i_g, alpha, lam,
+                  out)
+    if theta_q.numel():
+        INT8_LAUNCHES += 1
+    return res
+
+
+def _launch(entry: str, what: str, theta, i_f, i_g, alpha, lam, out):
+    """Check the operands, allocate ``out`` (unless given) and the mask,
+    and launch ``entry`` unless the tensors are empty."""
+    dev = theta.device
+    if dev.type != "cuda":
+        raise ValueError(f"{what}_cuda takes CUDA tensors, got theta on {dev}")
     if out is None:
         out = torch.empty_like(theta, memory_format=torch.contiguous_format)
     for name, t, dt in (("i_f", i_f, F32), ("i_g", i_g, F32),
@@ -118,19 +172,18 @@ def dampen_cuda(theta: torch.Tensor, i_f: torch.Tensor, i_g: torch.Tensor,
         if t.device != dev or t.dtype != dt or not t.is_contiguous() \
                 or t.shape != theta.shape:
             raise ValueError(
-                f"dampen kernel operand {name} must be a contiguous {dt} "
+                f"{what} kernel operand {name} must be a contiguous {dt} "
                 f"tensor of shape {tuple(theta.shape)} on {dev}, got "
                 f"{t.dtype} {tuple(t.shape)} on {t.device} "
                 f"(contiguous={t.is_contiguous()})")
     mask = torch.empty(theta.shape, dtype=torch.uint8, device=dev)
     n = theta.numel()
     if n:
-        fn = getattr(_lib(), _ENTRY[theta.dtype])
+        fn = getattr(_lib(), entry)
         with torch.cuda.device(dev):
             err = fn(theta.data_ptr(), i_f.data_ptr(), i_g.data_ptr(),
                      out.data_ptr(), mask.data_ptr(), n, alpha, lam,
                      torch.cuda.current_stream(dev).cuda_stream)
         if err != 0:
-            raise RuntimeError(f"dampen kernel launch failed: cudaError {err}")
-        LAUNCHES += 1
+            raise RuntimeError(f"{what} kernel launch failed: cudaError {err}")
     return out, mask.view(torch.bool)

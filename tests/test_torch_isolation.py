@@ -91,6 +91,11 @@ new, st = unl.forget(ForgetRequest(x[y == 1][:8], y[y == 1][:8]),
 assert all(torch.isfinite(t).all() for t in
            [v for blk in new["blocks"].values() for v in blk.values()
             if isinstance(v, torch.Tensor)])
+unl8 = unl.with_spec(UnlearnSpec.for_mode("ssd", chunk_size=4,
+                                          use_kernel=True, precision="int8"))
+new8, st8 = unl8.forget(ForgetRequest(x[y == 1][:8], y[y == 1][:8]),
+                        params=params)
+assert st8["engine"]["precision"] == "int8" and st8["stopped_at_l"] == 10
 leaked = [m for m in sys.modules
           if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
 print("MODULES", len(mods), "LEAKED", leaked, "STOP", st["stopped_at_l"])

@@ -1,12 +1,14 @@
-"""The port's dampening wrapper against the JAX package's, on the CPU.
+"""The port's dampening wrappers against the JAX package's, on the CPU.
 
-Here (no card) ``repro_torch.kernels.ops.dampen`` takes its plain PyTorch
-version, ``dampen_ref``; the JAX side runs its Pallas kernel in interpret
-mode, as tests/test_kernels.py does, and its pure-jnp oracle. The same
-numpy inputs go to both, and theta' and the mask must agree BIT FOR BIT:
-every step is one correctly rounded f32 operation, so there is nothing to
-tolerate. (The CUDA kernel itself is held bit-exact against ``dampen_ref``
-on the card by chip_smoke.py.)
+Here (no card) ``repro_torch.kernels.ops.dampen`` and ``ops.dampen_int8``
+take their plain PyTorch versions, ``dampen_ref`` and ``dampen_int8_ref``;
+the JAX side runs its Pallas kernels in interpret mode, as
+tests/test_kernels.py does, and its pure-jnp oracles. The same numpy inputs
+go to both, and theta' (or the int8 codes) and the mask must agree BIT FOR
+BIT: every step is one correctly rounded f32 operation, a round half to
+even, or a clip, so there is nothing to tolerate. (The CUDA kernels
+themselves are held bit-exact against their plain versions on the card by
+chip_smoke.py.)
 """
 import numpy as np
 import pytest
@@ -16,6 +18,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
+from repro_torch.core import ssd as tssd  # noqa: E402
 from repro_torch.core.ssd import dampen_array  # noqa: E402
 from repro_torch.kernels import dampen as tdampen  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
@@ -148,3 +151,125 @@ def test_alpha_rounds_to_f32_once():
     _, jmask = jops.dampen(jnp.ones(1), jnp.asarray(i_f), jnp.ones(1),
                            alpha, 1.0)
     assert not bool(mask[0]) and not bool(np.asarray(jmask)[0])
+
+
+# -- the int8 kernel (precision="int8") -------------------------------------
+INT8_SIZES = [1, 3, 4, 5, 1000, 1024, 4097]
+
+
+def _int8_inputs(n):
+    th = RNG.integers(-128, 128, size=n).astype(np.int8)
+    i_g = (np.abs(RNG.normal(size=n)) + 1e-6).astype(np.float32)
+    i_f = (RNG.uniform(size=n) * 20 * i_g).astype(np.float32)
+    return th, i_f, i_g
+
+
+def _check_int8(th, i_f, i_g, alpha, lam):
+    """ops.dampen_int8 vs the reference's ops.dampen_int8 (Pallas,
+    interpret mode) and its oracle; returns the port's (codes, mask)."""
+    got, mask = ops.dampen_int8(torch.from_numpy(th), torch.from_numpy(i_f),
+                                torch.from_numpy(i_g), alpha, lam)
+    args = (jnp.asarray(th), jnp.asarray(i_f), jnp.asarray(i_g), alpha, lam)
+    want = np.asarray(jops.dampen_int8(*args))
+    oracle = np.asarray(jref.dampen_int8_ref(*args))
+    assert got.dtype == torch.int8 and mask.dtype == torch.bool
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got.numpy(), oracle)
+    with np.errstate(invalid="ignore"):
+        np.testing.assert_array_equal(mask.numpy(),
+                                      i_f > np.float32(alpha) * i_g)
+    return got.numpy(), mask.numpy()
+
+
+@pytest.mark.parametrize("n", INT8_SIZES)
+@pytest.mark.parametrize("alpha,lam", PAIRS)
+def test_dampen_int8_bit_exact_against_jax(n, alpha, lam):
+    got, mask = _check_int8(*_int8_inputs(n), alpha, lam)
+    assert int(np.abs(got.astype(np.int32)).max()) <= 127
+
+
+def test_dampen_int8_ties_round_half_to_even():
+    """beta = 0.5 (and 0.25) exactly: every odd code (code = 2 mod 4) lands
+    on k + 0.5 and rounds to the even neighbour; -128 saturates to -127."""
+    th = np.arange(-128, 128).astype(np.int8)
+    ones = np.ones(256, np.float32)
+    got, mask = _check_int8(th, ones, ones, 0.5, 0.5)
+    assert mask.all()
+    t = th.astype(np.int32)
+    np.testing.assert_array_equal(got, np.clip(np.round(t * 0.5), -127, 127))
+    assert (got[t == 3][0], got[t == 5][0], got[t == -3][0]) == (2, 2, -2)
+    got, _ = _check_int8(th, 4 * ones, ones, 0.5, 1.0)
+    assert got[t == 2][0] == 0 and got[t == 6][0] == 2 and got[t == 10][0] == 2
+
+
+def test_dampen_int8_saturation_and_edge_cases():
+    """A negative beta (a negative Fisher) saturates at ±127; alpha = 0,
+    lambda = NaN/inf and zero/NaN/inf Fisher entries agree with the
+    reference, and a NaN product gives code 0, as XLA converts NaN."""
+    th = np.arange(-128, 128).astype(np.int8)
+    ones = np.ones(256, np.float32)
+    got, mask = _check_int8(th, ones, -ones, 2.0, 10.0)
+    assert mask.all()
+    assert (got[th == 100][0], got[th == -100][0]) == (-127, 127)
+    # normal numbers only: subnormals are the one divergence (next test)
+    special = np.array([0.0, np.nan, np.inf, 1.0, 2.0, 1e-30, 1e-37, -1.0],
+                       np.float32)
+    f = np.tile(special, 8 * 4)[:256]
+    g = np.repeat(special, 32)
+    for alpha, lam in [(0.0, 1.0), (2.0, float("nan")), (2.0, float("inf")),
+                       (10.0, 1.0), (0.5, 0.1)]:
+        got, mask = _check_int8(th, f, g, alpha, lam)
+        if lam != lam:
+            assert mask.any() and (got[mask] == 0).all()
+        np.testing.assert_array_equal(got[~mask], np.clip(th[~mask], -127,
+                                                          127))
+
+
+def test_subnormal_fisher_keeps_ieee_meaning_in_the_port():
+    """A known divergence (ROADMAP Queue 3): XLA on the CPU flushes f32
+    subnormals to zero, PyTorch and the CUDA kernels (built without fast
+    math) do not. So i_f = 1e-38 against i_g = 0 is selected in the port
+    (1e-38 > 0, beta = 0: the weight is zeroed) and not in the reference."""
+    i_f = np.array([1e-38, 1e-40, 1.0], np.float32)
+    i_g = np.zeros(3, np.float32)
+    th = np.array([5.0, -7.0, 3.0], np.float32)
+    got, mask = ops.dampen(torch.from_numpy(th), torch.from_numpy(i_f),
+                           torch.from_numpy(i_g), 2.0, 0.5)
+    got8, mask8 = ops.dampen_int8(torch.from_numpy(th.astype(np.int8)),
+                                  torch.from_numpy(i_f),
+                                  torch.from_numpy(i_g), 2.0, 0.5)
+    assert mask.tolist() == mask8.tolist() == [True, True, True]
+    assert got.tolist() == got8.tolist() == [0, 0, 0]
+    want = np.asarray(jref.dampen_ref(jnp.asarray(th), jnp.asarray(i_f),
+                                      jnp.asarray(i_g), 2.0, 0.5))
+    assert want.tolist() == [5.0, -7.0, 0.0]   # flushed: not selected
+
+
+def test_dampen_int8_rejects_bad_operands():
+    """The wrapper's ValueErrors, as tests/test_kernels.py checks the
+    reference's: float theta and mismatched Fisher shapes."""
+    th = torch.zeros(8, dtype=torch.int8)
+    with pytest.raises(ValueError, match="int8 weight codes"):
+        ops.dampen_int8(th.float(), torch.zeros(8), torch.zeros(8), 2.0, 0.5)
+    with pytest.raises(ValueError, match="int8 weight codes"):
+        jops.dampen_int8(jnp.zeros(8), jnp.zeros(8), jnp.zeros(8), 2.0, 0.5)
+    with pytest.raises(ValueError, match="elementwise"):
+        ops.dampen_int8(th, torch.zeros(9), torch.zeros(8), 2.0, 0.5)
+    with pytest.raises(ValueError, match="elementwise"):
+        jops.dampen_int8(jnp.zeros(8, jnp.int8), jnp.zeros(9), jnp.zeros(8),
+                         2.0, 0.5)
+
+
+def test_int8_cpu_path_matches_core_ssd_and_launches_nothing():
+    """On the CPU the wrapper is the plain version (core.ssd.dampen_q8_array,
+    bit for bit), neither launch counter moves, and ``out`` edits in
+    place."""
+    th, i_f, i_g = (torch.from_numpy(a) for a in _int8_inputs(513))
+    before = (tdampen.LAUNCHES, tdampen.INT8_LAUNCHES)
+    kout, kmask = ops.dampen_int8(th, i_f, i_g, 3.0, 0.7)
+    cout, cmask = tssd.dampen_q8_array(th, i_f, i_g, 3.0, 0.7)
+    assert (tdampen.LAUNCHES, tdampen.INT8_LAUNCHES) == before
+    assert torch.equal(kout, cout) and torch.equal(kmask, cmask)
+    edit = th.clone()
+    got, _ = ops.dampen_int8(edit, i_f, i_g, 3.0, 0.7, out=edit)
+    assert got.data_ptr() == edit.data_ptr() and torch.equal(edit, kout)

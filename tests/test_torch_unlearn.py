@@ -26,6 +26,29 @@ Pallas kernel in interpret mode. What must hold:
     reference's compile/hit counts;
   * without donation the caller's tensors are untouched.
 
+The int8 path (``precision="int8"``, cases ssd and ficabu with tau = 0) is
+held the same way, with these tolerances:
+
+  * ``dampen_q8_tree`` fed the reference's own Fisher and codes is
+    bit-exact, codes and masks;
+  * halting, checkpoints, the accuracy trace, the profile and the MACs are
+    EQUAL; the build/hit counts of every family (fused, partial, quant)
+    equal the reference's; selection counts within 0.1% of the layer's
+    parameters, as for fp32;
+  * the deployed weights lie on the reference's q8 grid (both sides
+    quantise the same pristine weights, so the scale tables are the same
+    bits), the codes agree on >= 99.9% of entries, and the values are
+    bit-equal wherever the codes agree. Wherever both sides edited an entry
+    (or both left it alone) the codes differ by at most one step: the
+    forget Fisher differs by up to ~1e-3 relative on a few entries, which
+    can move round(theta_q * beta) across a half. An entry that only one
+    side edits is a selection flip and may differ by more (13 steps at one
+    entry of ficabu-tau0 on this model); those are bounded by the 0.1%
+    selection tolerance;
+  * per layer, ||p8 - p32|| / ||p32|| lies in (0, INT8_SWEEP_RTOL] and
+    within 5% (relative) of the reference's own value: one selection flip
+    moves a whole code, which moved one layer's value by 1.1% here.
+
 Every use of the (slow to train) ``trained_resnet`` fixture lives in this
 file, so the suite trains it once per worker.
 """
@@ -42,6 +65,7 @@ from repro.api import Unlearner as JUnlearner  # noqa: E402
 from repro.core import adapters as jadapters  # noqa: E402
 from repro.core import fisher as jfisher  # noqa: E402
 from repro.core import ssd as jssd  # noqa: E402
+from repro.optim import compression as jcomp  # noqa: E402
 from repro_torch import bridge  # noqa: E402
 from repro_torch.api import ForgetRequest, Unlearner, UnlearnSpec  # noqa: E402
 from repro_torch.core import adapters as tadapters  # noqa: E402
@@ -50,6 +74,8 @@ from repro_torch.core import fisher as tfisher  # noqa: E402
 from repro_torch.core import ssd as tssd  # noqa: E402
 from repro_torch.data import synthetic as tsyn  # noqa: E402
 from repro_torch.models import vision as TV  # noqa: E402
+from repro_torch.models.module import tree_leaves  # noqa: E402
+from repro_torch.optim import compression as tcomp  # noqa: E402
 
 torch.set_num_threads(2)
 FORGET = 2
@@ -63,6 +89,9 @@ STAT_KEYS = ("stopped_at_l", "checkpoints_hit", "forget_acc_trace",
              "profile_S", "macs", "macs_ssd", "macs_vs_ssd_pct")
 COUNTERS = ("fused_compiles", "fused_hits", "partial_compiles",
             "partial_hits")
+# the int8 request cases (each cold JAX int8 forget costs 5-25 s here)
+CASES8 = {"ssd": ("ssd", {}), "ficabu-tau0": ("ficabu", {"tau": 0.0})}
+COUNTERS8 = COUNTERS + ("quant_compiles", "quant_hits")
 
 
 def _np_tree(t):
@@ -288,3 +317,146 @@ def test_context_adaptive_unlearn_is_the_facade(setting, results):
     assert "mode" not in st
     for k in STAT_KEYS + ("selected_per_layer",):
         assert st[k] == want[k], k
+
+
+# -- the int8 path (precision="int8") ---------------------------------------
+@pytest.fixture(scope="module")
+def results8(setting):
+    s = setting
+    fx, fy = s["splits"]["forget"]
+    fx, fy = fx[:32], fy[:32]
+    before = {k: v.clone() for k, v in bridge.paths(s["tparams"]).items()}
+    out = {}
+    for case, (mode, kw) in CASES8.items():
+        kw = dict(kw, precision="int8")
+        junl = JUnlearner(s["jadapter"], s["jI"], _spec(JSpec, mode, **kw))
+        tunl = Unlearner(s["tadapter"], s["tI"],
+                         _spec(UnlearnSpec, mode, **kw), device="cpu")
+        jp, jst = junl.forget(JRequest(fx, fy), params=s["params"])
+        tp, tst = tunl.forget(ForgetRequest(fx, fy), params=s["tparams"])
+        _, jwarm = junl.forget(JRequest(fx, fy), params=s["params"])
+        _, twarm = tunl.forget(ForgetRequest(fx, fy), params=s["tparams"])
+        out[case] = {"j": (jp, jst, jwarm, junl.stats),
+                     "t": (tp, tst, twarm, tunl.stats)}
+    out["before"] = before
+    # the reference's scale tables of the pristine weights, by path
+    out["scales"] = _jax_tree(jcomp.q8_quantize_tree(s["params"])[1])
+    return out
+
+
+def test_dampen_q8_tree_bit_exact_on_jax_fisher(setting):
+    """Fed the reference's own codes and Fisher trees, the port's int8 edit
+    is bit for bit the reference's kernel path, codes and masks."""
+    s = setting
+    fx, fy = s["splits"]["forget"]
+    jf = jfisher.diag_fisher(s["loss_fn"], s["params"], (fx[:32], fy[:32]), 8)
+    jq, _ = jcomp.q8_quantize_tree(s["params"])
+    jnew, jmask = jssd.dampen_q8_tree(jq, jf, s["jI"], 10.0, 1.0,
+                                      use_kernel=True)
+    tq, tf, tI = (bridge.params_to_torch(jax.tree_util.tree_map(np.asarray, t),
+                                         device="cpu")
+                  for t in (jq, jf, s["jI"]))
+    tnew, tmask = tssd.dampen_q8_tree(tq, tf, tI, 10.0, 1.0, use_kernel=True)
+    want, got = _jax_tree(jnew), _np_tree(tnew)
+    wmask, gmask = _jax_tree(jmask), _np_tree(tmask)
+    assert sum(int(m.sum()) for m in wmask.values()) > 0
+    assert sum(int((want[k] != _jax_tree(jq)[k]).sum()) for k in want) > 0
+    for k in want:
+        assert got[k].dtype == np.int8, k
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+        np.testing.assert_array_equal(gmask[k], wmask[k], err_msg=k)
+
+
+@pytest.mark.parametrize("case", CASES8)
+def test_int8_halting_and_macs_equal_jax(results8, case):
+    _, jst, _, _ = results8[case]["j"]
+    _, tst, _, _ = results8[case]["t"]
+    for k in STAT_KEYS:
+        assert tst[k] == jst[k], (case, k, tst[k], jst[k])
+    assert tst["engine"]["precision"] == jst["engine"]["precision"] == "int8"
+    assert set(tst["engine"]) == set(jst["engine"])
+    if case == "ficabu-tau0":
+        assert len(tst["checkpoints_hit"]) >= 3
+
+
+@pytest.mark.parametrize("case", CASES8)
+def test_int8_selection_counts_within_tolerance(setting, results8, case):
+    _, jst, _, _ = results8[case]["j"]
+    _, tst, _, _ = results8[case]["t"]
+    adapter = setting["tadapter"]
+    L = adapter.n_layers
+    assert sorted(tst["selected_per_layer"]) == \
+        sorted(jst["selected_per_layer"])
+    for l, n_j in jst["selected_per_layer"].items():
+        n_prm = sum(t.numel() for t in bridge.paths(
+            adapter.get_layer(setting["tparams"], L - l)).values())
+        assert abs(tst["selected_per_layer"][l] - n_j) <= 1e-3 * n_prm, l
+
+
+@pytest.mark.parametrize("case", CASES8)
+def test_int8_counts_equal_jax_and_warm_builds_nothing(results8, case):
+    _, _, jwarm, jcounts = results8[case]["j"]
+    _, _, twarm, tcounts = results8[case]["t"]
+    assert twarm["engine"]["compiles"] == jwarm["engine"]["compiles"] == 0
+    assert twarm["engine"]["cache_hits"] == jwarm["engine"]["cache_hits"]
+    for k in COUNTERS8:
+        assert tcounts[k] == jcounts[k], (k, tcounts, jcounts)
+    assert tcounts["quant_compiles"] == 1 and tcounts["quant_hits"] == 1
+
+
+@pytest.mark.parametrize("case", CASES8)
+def test_int8_codes_match_jax(setting, results8, case):
+    scales = results8["scales"]
+    want = _jax_tree(results8[case]["j"][0])
+    got = _np_tree(results8[case]["t"][0])
+    orig = _jax_tree(setting["params"])
+    agree = total = edited = 0
+    for k, sc in scales.items():
+        cj, ct = np.round(want[k] / sc), np.round(got[k] / sc)
+        # every deployed leaf lies on its grid: value == f32(code * scale)
+        np.testing.assert_array_equal(want[k], (cj * sc).astype(np.float32))
+        np.testing.assert_array_equal(got[k], (ct * sc).astype(np.float32))
+        assert np.abs(ct).max() <= 127, k
+        same = cj == ct
+        agree += int(same.sum())
+        total += same.size
+        np.testing.assert_array_equal(got[k][same].view(np.uint32),
+                                      want[k][same].view(np.uint32),
+                                      err_msg=k)
+        c0 = np.round(orig[k] / sc)
+        both = (cj != c0) == (ct != c0)
+        assert np.abs(cj - ct)[both].max(initial=0) <= 1, k
+        edited += int((ct != c0).sum())
+    assert agree >= 0.999 * total, (agree, total)
+    assert edited > 0
+
+
+@pytest.mark.parametrize("case", CASES8)
+def test_int8_error_against_fp32_within_contract(setting, results, results8,
+                                                 case):
+    """Per layer, ||p8 - p32|| / ||p32|| in (0, INT8_SWEEP_RTOL], on the
+    port and close to the reference's own value (module docstring)."""
+    s = setting
+    rels = {}
+    for side in ("t", "j"):
+        adapter = s["tadapter"] if side == "t" else s["jadapter"]
+        p8, p32 = results8[case][side][0], results[case][side][0]
+        leaves = (tree_leaves if side == "t" else jax.tree_util.tree_leaves)
+        rels[side] = []
+        for j in range(adapter.n_layers):
+            a = [np.asarray(x, np.float64) for x in
+                 leaves(adapter.get_layer(p8, j))]
+            b = [np.asarray(x, np.float64) for x in
+                 leaves(adapter.get_layer(p32, j))]
+            d = sum(float(((x - y) ** 2).sum()) for x, y in zip(a, b))
+            n = sum(float((y ** 2).sum()) for y in b)
+            rels[side].append((d / n) ** 0.5)
+    for j, (rt, rj) in enumerate(zip(rels["t"], rels["j"])):
+        assert 0.0 < rt <= tcomp.INT8_SWEEP_RTOL, (j, rels)
+        assert abs(rt - rj) <= 0.05 * rj, (j, rels)
+
+
+def test_int8_forget_leaves_caller_tensors_untouched(setting, results8):
+    """The int8 forget works on its own fake-quantised copy."""
+    for k, t in bridge.paths(setting["tparams"]).items():
+        assert torch.equal(t, results8["before"][k]), k

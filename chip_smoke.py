@@ -7,15 +7,20 @@ NVIDIA card: the quickest proof that the port still starts on the GPU.
 Phases, in order; any failure exits non-zero and prints no result line:
 
   1. the card's name and power limit, as nvidia-smi reports them;
-  2. build every kernel of the main paths from the sources in the checkout
-     (csrc/dampen.cu: the f32/bf16 dampen kernel and the int8 one, one nvcc
-     for sm_90a), with each kernel's registers and spills;
-  3. each kernel against its plain PyTorch version on the card, at every
-     ResNet-18 leaf shape, three (alpha, lambda) pairs (f32 and bf16 theta
-     for dampen, int8 codes for dampen_int8), and the edge cases (ties,
-     half-way codes, saturation, zeros, NaN/inf, lambda = NaN/inf,
-     alpha = 0, n = 1, n % 4 != 0, misaligned pointers): the result and the
-     mask must be BIT-identical;
+  2. build every kernel from the sources in the checkout: one nvcc for
+     sm_90a per csrc/*.cu (dampen.cu: dampen, dampen_int8 and
+     dampen_int8_rowscale; fimd.cu; gemm_fisher.cu; gemm_fisher_int8.cu),
+     all started together, with each kernel's registers and spills;
+  3. each kernel against its plain PyTorch version on the card. dampen and
+     dampen_int8: at every ResNet-18 leaf shape, three (alpha, lambda) pairs
+     (f32 and bf16 theta for dampen, int8 codes for dampen_int8), and the
+     edge cases (ties, half-way codes, saturation, zeros, NaN/inf,
+     lambda = NaN/inf, alpha = 0, n = 1, n % 4 != 0, misaligned pointers):
+     the result and the mask must be BIT-identical. The four kernels reached
+     through ``kernels.ops`` only: odd shapes, misaligned pointers, special
+     values, extreme codes; dampen_int8_rowscale and gemm_fisher_int8
+     BIT-identical, fimd within rtol 1e-5 (atol 0), gemm_fisher within
+     relative L2 1e-5 and |d| <= 1e-4 |ref| + 1e-4 max|ref|;
   4. the slices at full width: RESNET18_CIFAR20 (random weights from a
      seed, pre-trained here for a few hundred AdamW steps so that halting
      means something) served through ``Unlearner`` with ``use_kernel=True``:
@@ -24,16 +29,32 @@ Phases, in order; any failure exits non-zero and prints no result line:
      and "ficabu" mode (checkpoint_every=2), then warm requests that must
      build nothing — first the fp32 path, then the int8 path
      (``precision="int8"``: dampen_int8 on the codes, every leaf on its q8
-     grid, per-layer error against fp32 within INT8_SWEEP_RTOL). Both
+     grid, per-layer error against fp32 within INT8_SWEEP_RTOL). All six
      launch counters are zeroed just before each path and read just after:
      an fp32 request launches only dampen, an int8 request only
      dampen_int8;
   5. the whole ssd forget with the kernel against the same forget with the
      plain version, under deterministic cuDNN, fp32 and int8:
      bit-identical parameters;
-  6. times: each kernel and its plain version at the main paths' shapes,
-     beside the memory bound, printed as one ``{"kernels": [...]}`` line,
-     and where a warm fp32 and a warm int8 ssd request spend their time.
+  6. [fisher kernels]: the ``kernels.ops`` API — the entry point of fimd,
+     gemm_fisher, gemm_fisher_int8 and dampen_int8_rowscale, as in the JAX
+     package — on operands of the same forget request (64 images, chunk 8):
+     fimd on the 8 stacked chunk gradients of each of the 56 leaves,
+     gemm_fisher and gemm_fisher_int8 on each chunk's cached input and
+     output cotangent of the fc and three convs (im2col), and
+     dampen_int8_rowscale on every leaf's int8 codes against its row-
+     quantised forget Fisher. The four counters are zeroed just before and
+     must count exactly the calls made. Each result is held against its
+     plain version and against what the main path computes itself: the
+     fused step's Fisher (grad_fisher_chunks), the autograd weight
+     gradient, the fp32 dW (int8, its operands quantised per column of each
+     1024-row block of N, within INT8_SWEEP_RTOL) and dampen_int8 on the
+     dequantised Fisher;
+  7. times: each kernel and its plain version at the main paths' shapes
+     (and, for fimd and the GEMMs, one PyTorch library call computing the
+     same function, the GEMMs' dW alone),
+     beside the bound, printed as one ``{"kernels": [...]}`` line, and where
+     a warm fp32 and a warm int8 ssd request spend their time.
 
 The last line is the contract line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -41,6 +62,7 @@ This script imports nothing of JAX and nothing of the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -53,21 +75,29 @@ ROOT = Path(__file__).resolve().parent
 PAIRS = [(2.0, 0.5), (10.0, 1.0), (0.5, 0.1)]
 SEED = 0
 FORGET_CLASS = 3
-# Device-memory rate of the card, bytes/s (NVIDIA data sheets); the bound
-# of a memory-bound kernel is the bytes it must move over this rate.
-MEM_RATE = {"H100 PCIe": 2.0e12, "H100 NVL": 3.9e12, "H200": 4.8e12,
-            "H100": 3.35e12}
+# rows of one gemm_fisher_int8 call in the [fisher kernels] phase: its int8
+# operands carry one scale per column of each such block of N
+Q8_GEMM_ROWS = 1024
+# Peak rates of the card (NVIDIA data sheets, dense): device memory in
+# bytes/s, f32 on the SIMT cores in FLOP/s, int8 on the tensor cores in
+# OP/s. A kernel's bound is the larger of its bytes over the first and its
+# operations over the rate of their type.
+PEAKS = {"H100 PCIe": (2.0e12, 51e12, 1513e12),
+         "H100 NVL": (3.9e12, 60e12, 1671e12),
+         "H200": (4.8e12, 67e12, 1979e12),
+         "H100": (3.35e12, 67e12, 1979e12)}
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def mem_rate(name: str) -> float:
-    for key, rate in MEM_RATE.items():
+def peaks(name: str):
+    """(memory bytes/s, f32 FLOP/s, int8 OP/s) of the card ``name``."""
+    for key, rates in PEAKS.items():
         if key in name:
-            return rate
-    raise RuntimeError(f"no memory rate on record for card {name!r}")
+            return rates
+    raise RuntimeError(f"no peak rates on record for card {name!r}")
 
 
 def cuda_time_ms(fn, iters: int, *, queue_ahead: bool = False) -> float:
@@ -247,6 +277,255 @@ def check_int8_kernel_against_plain(leaf_shapes, dev):
     return cases, max_err
 
 
+def gemm_close(got, want, rtol=1e-4):
+    """gemm_fisher's tolerance for signed sums: relative L2 <= rtol / 10
+    and |d| <= rtol |ref| + rtol max|ref| elementwise (entries that cancel
+    to near zero defeat a pure rtol). Returns the relative L2."""
+    d = got.double() - want.double()
+    w = want.double()
+    rel = float(d.norm() / w.norm()) if float(w.norm()) else float(d.norm())
+    ok = rel <= rtol / 10 and bool(
+        (d.abs() <= rtol * w.abs() + rtol * w.abs().max()).all())
+    return rel, ok
+
+
+def check_fisher_kernels_against_plain(dev):
+    """Phase 3, the four kernels reached through ``kernels.ops``: each
+    ``*_cuda`` wrapper against its plain version at odd shapes, misaligned
+    pointers, special values and extreme codes."""
+    from repro_torch.kernels import dampen as kd
+    from repro_torch.kernels import fimd as kf
+    from repro_torch.kernels import gemm_fisher as kg
+    from repro_torch.kernels import gemm_fisher_int8 as kg8
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    cases = {"fimd": 0, "gemm_fisher": 0, "gemm_fisher_int8": 0,
+             "dampen_int8_rowscale": 0}
+    nan, inf = float("nan"), float("inf")
+    special = torch.tensor([0.0, -0.0, nan, inf, -inf, 1.0, 2.0, 1e-30,
+                            1e-38, 3.0], device=dev)
+
+    def pick(n):
+        return special[torch.randint(0, len(special), (n,), generator=gen,
+                                     device=dev)]
+
+    # fimd: f32/bf16, P odd or even, offsets off the 16-byte grid, B = 1..33,
+    # some NaN/inf gradients (NaN where the plain version has NaN)
+    for B, P in ((1, 1), (3, 5), (8, 1023), (8, 4096), (33, 130), (1, 8192)):
+        for dtype in (torch.float32, torch.bfloat16):
+            for lo in (0, 1):
+                buf = torch.randn(B * P + lo, generator=gen, device=dev)
+                if P > 100:
+                    buf = torch.where(torch.rand(B * P + lo, generator=gen,
+                                                 device=dev) < 0.001,
+                                      pick(B * P + lo), buf)
+                g = buf.to(dtype)[lo:].view(B, P)
+                got, want = kf.fimd_cuda(g), kf.fimd_ref(g)
+                torch.cuda.synchronize()
+                torch.testing.assert_close(got, want, rtol=1e-5, atol=0,
+                                           equal_nan=True)
+                cases["fimd"] += 1
+
+    # gemm_fisher: M, K off the 64-wide tile, N off the 16-deep slab, one
+    # empty reduction; f32 and bf16
+    for N, M, K in ((1, 1, 1), (17, 5, 3), (0, 7, 9), (100, 65, 130),
+                    (129, 200, 64), (2049, 70, 33)):
+        for dtype in (torch.float32, torch.bfloat16):
+            a = torch.randn(N, M, generator=gen, device=dev).to(dtype)
+            g = torch.randn(N, K, generator=gen, device=dev).to(dtype)
+            dw, fish = kg.gemm_fisher_cuda(a, g)
+            dwr, _ = kg.gemm_fisher_ref(a, g)
+            torch.cuda.synchronize()
+            rel, ok = gemm_close(dw, dwr) if N else (0.0, torch.equal(dw, dwr))
+            if not ok or not torch.equal(bits(fish), bits(dw * dw)):
+                raise AssertionError(f"gemm_fisher kernel != plain at "
+                                     f"{(N, M, K)} {dtype}: rel L2 {rel}")
+            cases["gemm_fisher"] += 1
+
+    # gemm_fisher_int8: every code including -128, extreme codes over a long
+    # reduction, odd shapes, scales with zeros and infinities: bit for bit
+    for N, M, K in ((1, 1, 1), (3, 5, 7), (33, 65, 129), (8192, 70, 9),
+                    (0, 4, 4)):
+        a = torch.randint(-128, 128, (N, M), generator=gen, device=dev,
+                          dtype=torch.int8)
+        g = torch.randint(-128, 128, (N, K), generator=gen, device=dev,
+                          dtype=torch.int8)
+        if N == 8192:
+            a[:, :3] = torch.tensor([127, -128, -127], device=dev,
+                                    dtype=torch.int8)
+            g[:, :2] = torch.tensor([127, -128], device=dev, dtype=torch.int8)
+        sa = torch.rand(M, generator=gen, device=dev)
+        sg = torch.rand(K, generator=gen, device=dev)
+        sa[0] = 0.0 if M > 1 else sa[0]
+        sg[-1] = inf if K > 2 else sg[-1]
+        dw, fish = kg8.gemm_fisher_int8_cuda(a, g, sa, sg)
+        dwr, fishr = kg8.gemm_fisher_int8_ref(a, g, sa, sg)
+        torch.cuda.synchronize()
+        if not (torch.equal(bits(dw), bits(dwr))
+                and torch.equal(bits(fish), bits(fishr))):
+            raise AssertionError(f"gemm_fisher_int8 kernel != plain at "
+                                 f"{(N, M, K)}")
+        cases["gemm_fisher_int8"] += 1
+
+    # dampen_int8_rowscale: dampen_int8's edge cases on the dequantised
+    # Fisher — zero/NaN/inf/subnormal i_fq, fs and i_g, lambda = NaN/inf,
+    # alpha = 0, rows of odd length C = 1..4097, pointers off the 4/16-byte
+    # grid
+    for R, C in ((1, 1), (1, 4097), (3, 1), (3, 5), (2, 7), (5, 33),
+                 (4, 1023), (7, 4)):
+        n = R * C
+        for alpha, lam in PAIRS + [(2.0, nan), (2.0, inf), (0.0, 1.0),
+                                   (0.5, 0.5)]:
+            th = torch.randint(-128, 128, (n + 3,), generator=gen,
+                               device=dev, dtype=torch.int8)
+            i_fq = torch.randint(0, 128, (n + 3,), generator=gen,
+                                 device=dev).float()
+            i_fq = torch.where(torch.rand(n + 3, generator=gen, device=dev)
+                               < 0.3, pick(n + 3), i_fq)
+            fs = torch.rand(R + 3, generator=gen, device=dev) * 0.05
+            fs = torch.where(torch.rand(R + 3, generator=gen, device=dev)
+                             < 0.3, pick(R + 3), fs)
+            i_g = torch.rand(n + 3, generator=gen, device=dev)
+            i_g = torch.where(torch.rand(n + 3, generator=gen, device=dev)
+                              < 0.3, pick(n + 3), i_g)
+            for lo in (0, 1, 3):   # lo > 0: pointers off the 4/16-byte grid
+                args = (th[lo:lo + n].view(R, C), i_fq[lo:lo + n].view(R, C),
+                        fs[lo:lo + R], i_g[lo:lo + n].view(R, C), alpha, lam)
+                got = kd.dampen_int8_rowscale_cuda(*args)
+                want = kd.dampen_int8_rowscale_ref(*args)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    raise AssertionError(
+                        f"dampen_int8_rowscale kernel != plain at {(R, C)} "
+                        f"lo={lo} a={alpha} l={lam}")
+                cases["dampen_int8_rowscale"] += 1
+    return cases
+
+
+def sweep_operands(adapter, params, fx, fy, cs, dev):
+    """Per layer of an ssd sweep over the forget batch (back to front, as
+    the engine walks it, on the original weights): the layer's params, its
+    forward, the chunked cached inputs and output cotangents, the Fisher of
+    ``grad_fisher_chunks`` and each chunk's autograd gradients (leaves in
+    ``tree_leaves`` order)."""
+    from repro_torch.core.cau import _chunk, _logit_cotangents
+    from repro_torch.engine.fused import grad_fisher_chunks
+    from repro_torch.models.module import tree_leaves, tree_unflatten
+
+    xs = torch.as_tensor(fx, device=dev)
+    ys = torch.as_tensor(fy, device=dev)
+    with torch.no_grad():
+        logits, acts = adapter.forward_collect(params, xs)
+    cot = _logit_cotangents(adapter.loss, _chunk(logits, cs), _chunk(ys, cs))
+    layers = {}
+    for j in range(adapter.n_layers - 1, -1, -1):
+        lp = adapter.get_layer(params, j)
+        apply = lambda p, a, _j=j: adapter.apply_layer(None, _j, p, a)  # noqa: E731
+        acts_c = _chunk(acts[j], cs)
+        fish, g_acts = grad_fisher_chunks(apply, lp, acts_c, cot,
+                                          with_act_grad=j > 0)
+        grads = []
+        with torch.enable_grad():
+            for i in range(acts_c.shape[0]):
+                leaves = [t.detach().requires_grad_(True)
+                          for t in tree_leaves(lp)]
+                a = acts_c[i].detach().requires_grad_(j > 0)
+                out = apply(tree_unflatten(lp, leaves), a)
+                grads.append(torch.autograd.grad(
+                    out, leaves + ([a] if j > 0 else []),
+                    grad_outputs=cot[i])[:len(leaves)])
+        layers[j] = {"params": lp, "apply": apply, "acts": acts_c,
+                     "cot": cot, "fisher": tree_leaves(fish),
+                     "fisher_tree": fish, "grads": grads}
+        cot = g_acts
+    return layers
+
+
+@contextlib.contextmanager
+def conv_tape(V):
+    """While open, record every ``V.conv2d`` the model runs as (weight,
+    input, stride, output), with the output's gradient retained."""
+    tape = []
+    conv = V.conv2d
+
+    def taped(w, x, stride=1):
+        out = conv(w, x, stride)
+        if out.requires_grad:
+            out.retain_grad()
+        tape.append((w, x, stride, out))
+        return out
+
+    V.conv2d = taped
+    try:
+        yield tape
+    finally:
+        V.conv2d = conv
+
+
+def conv_operands(x, gy, kernel, stride):
+    """A convolution's weight gradient as one ``gemm_fisher`` GEMM.
+
+    ``x`` [B, cin, H, W] is the conv's input, ``gy`` [B, cout, Ho, Wo] the
+    cotangent of its output, ``kernel`` (kh, kw), and the padding is the
+    model's "SAME" rule (``models.vision.same_padding``: a stride-2 3x3
+    conv pads (0, 1)). Returns A [B*Ho*Wo, cin*kh*kw] (im2col) and
+    G [B*Ho*Wo, cout]; A^T G is the gradient as [cin*kh*kw, cout]."""
+    import torch.nn.functional as F
+    from repro_torch.models.vision import same_padding
+
+    kh, kw = kernel
+    ph = same_padding(x.shape[2], kh, stride)
+    pw = same_padding(x.shape[3], kw, stride)
+    cols = F.unfold(F.pad(x, (pw[0], pw[1], ph[0], ph[1])), (kh, kw),
+                    stride=stride)                    # [B, cin*kh*kw, L]
+    a = cols.transpose(1, 2).reshape(-1, cols.shape[1])
+    g = gy.permute(0, 2, 3, 1).reshape(-1, gy.shape[1])
+    return a, g
+
+
+def oihw(dw, weight_shape):
+    """A conv weight gradient [cin*kh*kw, cout] in the weight's OIHW
+    layout."""
+    return dw.t().reshape(tuple(weight_shape))
+
+
+def conv_gemm_operands(layer, name, V):
+    """Per chunk, the GEMM operands of conv ``name`` of a basic block and
+    its autograd weight gradient: the conv's own input (im2col, the model's
+    "SAME" padding) and the cotangent of its output, recorded by running
+    the block's forward under ``conv_tape``."""
+    per_chunk = []
+    with conv_tape(V) as tape:
+        for i in range(layer["acts"].shape[0]):
+            tape.clear()
+            with torch.enable_grad():
+                w = layer["params"][name].detach().requires_grad_(True)
+                out = layer["apply"](dict(layer["params"], **{name: w}),
+                                     layer["acts"][i])
+                out.backward(layer["cot"][i])
+            (x, stride, y), = [(x, s, y) for ww, x, s, y in tape if ww is w]
+            a, g = conv_operands(x.detach(), y.grad, w.shape[2:], stride)
+            per_chunk.append((a, g, w.grad, stride))
+    return per_chunk
+
+
+def q8_gemm_operands(a, g):
+    """The int8 operands of one ``gemm_fisher_int8`` call on A [N, M] and
+    G [N, K], each quantised per column: (a_q, g_q, sa, sg)."""
+    (aq, sa), (gq, sg) = q8_columns(a), q8_columns(g)
+    return aq, gq, sa, sg
+
+
+def q8_columns(x):
+    """Per-column int8 codes of a GEMM operand [N, C]: the port's q8 rule
+    (``q8_quantize``, max-abs times f32(1/127), clamped to Q8_MIN_SCALE,
+    round half to even) applied to the transposed operand, whose rows are
+    the columns. Returns (codes [N, C] int8, scales [C] f32)."""
+    from repro_torch.optim.compression import q8_quantize
+    q, s = q8_quantize(x.t())
+    return q.t().contiguous(), s[:, 0].contiguous()
+
+
 def on_q8_grid(new, pristine):
     """True when every leaf of ``new`` is f32(code * scale) with integer
     codes in +-127 on the scale table of the pristine leaf."""
@@ -305,9 +584,13 @@ def main() -> int:
     from repro_torch.configs import RESNET18_CIFAR20 as cfg
     from repro_torch.core import adapters
     from repro_torch.data import synthetic as syn
+    from repro_torch.kernels import build as kbuild
     from repro_torch.kernels import dampen as kd
+    from repro_torch.kernels import fimd as kf
+    from repro_torch.kernels import gemm_fisher as kg
+    from repro_torch.kernels import gemm_fisher_int8 as kg8
     from repro_torch.models import vision as V
-    from repro_torch.models.module import tree_leaves
+    from repro_torch.models.module import tree_leaves, tree_unflatten
     from repro_torch.optim.compression import INT8_SWEEP_RTOL, q8_quantize
 
     # 1. the card
@@ -318,17 +601,25 @@ def main() -> int:
     print(smi, flush=True)
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
-    rate = mem_rate(kind)
+    # deterministic cuDNN algorithms from the start: the pre-trained weights,
+    # and every number and gate that depends on them, repeat from run to run
+    # on this card and software
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    rate, fp32_rate, int8_rate = peaks(kind)
     log(f"[card] {kind} | torch {torch.__version__} cuda {torch.version.cuda}"
-        f" | memory rate used for bounds {rate / 1e12:.2f} TB/s")
+        f" | rates used for bounds: memory {rate / 1e12:.2f} TB/s, f32 "
+        f"{fp32_rate / 1e12:.0f} TFLOP/s, int8 {int8_rate / 1e12:.0f} TOP/s")
 
-    # 2. build
+    # 2. build: one nvcc per csrc/*.cu, all started together
     t0 = time.perf_counter()
-    so = kd.build()
-    log(f"[build] {so.relative_to(ROOT)} in {time.perf_counter() - t0:.1f} s")
-    for line in kd.BUILD_LOG.splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            log(f"[build]   {line.strip()}")
+    libs = kbuild.build_all()
+    log(f"[build] {len(libs)} libraries in {time.perf_counter() - t0:.1f} s")
+    for name, so in libs.items():
+        log(f"[build] {so.relative_to(ROOT)}")
+        for line in kbuild.BUILD_LOG.get(name, "").splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                log(f"[build]   {line.strip()}")
 
     # 3. kernel vs plain at every leaf shape + edge cases
     params = V.init_resnet(torch.Generator().manual_seed(SEED), cfg,
@@ -349,6 +640,12 @@ def main() -> int:
     log(f"[kernel] dampen_int8 bit-identical to dampen_int8_ref in {cases8} "
         f"cases (56 leaf shapes x 3 pairs + half-way, saturation, edges), "
         f"max |err| {max_err8} ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    edge = check_fisher_kernels_against_plain(dev)
+    log(f"[kernel] fimd (rtol 1e-5, atol 0), gemm_fisher (rel L2 1e-5), "
+        f"gemm_fisher_int8 and dampen_int8_rowscale (bit-identical) against "
+        f"their plain versions at odd shapes, misaligned pointers and special "
+        f"values: {edge} cases ({time.perf_counter() - t0:.1f} s)")
 
     # 4. the slice at full width
     x, y = syn.make_classification(syn.ClsDataConfig(
@@ -389,10 +686,17 @@ def main() -> int:
     ficabu = ssd.with_spec(spec("ficabu", use_kernel=True))
     before = {k: v.clone() for k, v in bridge.paths(params).items()}
 
+    def fisher_counts():
+        return (kf.LAUNCHES, kg.LAUNCHES, kg8.LAUNCHES, kd.ROWSCALE_LAUNCHES)
+
+    def zero_counts():
+        kd.LAUNCHES = kd.INT8_LAUNCHES = kd.ROWSCALE_LAUNCHES = 0
+        kf.LAUNCHES = kg.LAUNCHES = kg8.LAUNCHES = 0
+
     def serve(path, pairs):
-        """Drive one path: both launch counters zeroed just before, read
+        """Drive one path: all six launch counters zeroed just before, read
         just after; per request the launches of each kernel."""
-        kd.LAUNCHES = kd.INT8_LAUNCHES = 0    # this path starts
+        zero_counts()                          # this path starts
         runs = []
         for name, unl in pairs:
             l0, i0 = kd.LAUNCHES, kd.INT8_LAUNCHES
@@ -404,6 +708,10 @@ def main() -> int:
             runs.append((name, new, st, kd.LAUNCHES - l0,
                          kd.INT8_LAUNCHES - i0, time.perf_counter() - t0))
         counts = (kd.LAUNCHES, kd.INT8_LAUNCHES)   # this path ends
+        if fisher_counts() != (0, 0, 0, 0):
+            raise AssertionError(f"{path} requests launched fimd/gemm_fisher/"
+                                 f"gemm_fisher_int8/rowscale "
+                                 f"{fisher_counts()} times")
         for i, (name, new, st, launches, launches8, secs) in enumerate(runs):
             warm = i >= 2
             swept = sum(len(tree_leaves(adapter.get_layer(new, 10 - l)))
@@ -462,9 +770,7 @@ def main() -> int:
             raise AssertionError(f"int8 {name}: per-layer error {rel} "
                                  f"outside (0, {INT8_SWEEP_RTOL}]")
 
-    # 5. whole forget: kernel vs plain, deterministic cuDNN
-    torch.backends.cudnn.deterministic = True
-    torch.backends.cudnn.benchmark = False
+    # 5. whole forget: kernel vs plain (deterministic cuDNN, set above)
     for path, unl, plain in (
             ("fp32", ssd, ssd.with_spec(spec("ssd", use_kernel=False))),
             ("int8", ssd8, ssd.with_spec(spec("ssd", precision="int8",
@@ -479,8 +785,210 @@ def main() -> int:
         log(f"[slice] {path} ssd forget with the kernel == plain forget, bit "
             f"for bit, all 56 leaves")
 
-    # 6. times at the main path's shapes
+    # 6. [fisher kernels]: the kernels.ops API, the entry point of fimd,
+    # gemm_fisher, gemm_fisher_int8 and dampen_int8_rowscale (as in the JAX
+    # package), on operands of the same 64-image forget request at chunk 8
+    from repro_torch.kernels import ops
+    t0 = time.perf_counter()
     fisher_g = ssd.fisher_global
+    n_layers = adapter.n_layers
+    sw = sweep_operands(adapter, params, fx, fy, 8, dev)
+    # fimd: each leaf's 8 chunk gradients, stacked [8, *leaf]
+    fimd_in = [(j, li, torch.stack([g[li] for g in sw[j]["grads"]]))
+               for j in range(n_layers - 1, -1, -1)
+               for li in range(len(sw[j]["fisher"]))]
+    big_stack = max((st for *_, st in fimd_in), key=lambda t: t.numel())
+    big_stack_bf16 = big_stack.to(torch.bfloat16)
+    # gemm_fisher: per chunk, the layer's cached input A and its output
+    # cotangent G — the fc's pooled input and the logit cotangent, and three
+    # convs through im2col — with the autograd weight gradient of the chunk
+    fc = sw[n_layers - 1]
+    gemm_in = {"fc/w": [(fc["acts"][i].mean(dim=(2, 3)), fc["cot"][i],
+                         tree_unflatten(fc["params"], fc["grads"][i])["w"],
+                         None) for i in range(8)]}
+    for name, j, conv in (("blocks/1/conv1", 2, "conv1"),
+                          ("blocks/2/conv1", 3, "conv1"),
+                          ("blocks/7/conv2", 8, "conv2")):
+        gemm_in[name] = [(a, g, w_grad, w_grad.shape) for a, g, w_grad, _
+                         in conv_gemm_operands(sw[j], conv, V)]
+    shapes_nmk = {k: tuple(v[0][0].shape) + (v[0][1].shape[1],)
+                  for k, v in gemm_in.items()}
+    if shapes_nmk != {"fc/w": (8, 512, 20),
+                      "blocks/1/conv1": (8192, 576, 64),
+                      "blocks/2/conv1": (2048, 576, 128),
+                      "blocks/7/conv2": (128, 4608, 512)}:
+        raise AssertionError(f"GEMM operands (N, M, K): {shapes_nmk}")
+    a_bf16, g_bf16 = (t.to(torch.bfloat16)
+                      for t in gemm_in["blocks/2/conv1"][0][:2])
+    # gemm_fisher_int8: the same A and G, quantised per column of each
+    # block of Q8_GEMM_ROWS rows, one call per block (the blocks' dW summed
+    # is the chunk's dW). A column's max-abs over all 8192 positions of a
+    # chunk at blocks/1/conv1 leaves 77% of the cotangent's codes at 0 and
+    # the int8 dW within a few percent of the 0.10 contract; that reading is
+    # printed beside, from the plain version.
+    gemm8_in = {k: [[q8_gemm_operands(a[r:r + Q8_GEMM_ROWS],
+                                      g[r:r + Q8_GEMM_ROWS])
+                     for r in range(0, a.shape[0], Q8_GEMM_ROWS)]
+                    for a, g, *_ in v] for k, v in gemm_in.items()}
+    # dampen_int8_rowscale: every leaf's int8 codes (the int8 request's
+    # QuantSpec calibration) as [R = leaf.shape[0], C], the forget Fisher
+    # quantised per row (fs[r] = max_c i_f[r, c] * f32(1/127), i_fq =
+    # round(i_f / fs[r])), the global Fisher as i_g
+    min_scale = QuantSpec().min_scale
+    rs_in = []
+    for j in range(n_layers - 1, -1, -1):
+        for th, i_f, i_g in zip(tree_leaves(adapter.get_layer(params, j)),
+                                sw[j]["fisher"],
+                                tree_leaves(adapter.get_layer(fisher_g, j))):
+            R = th.shape[0]
+            th_q = q8_quantize(th, min_scale=min_scale)[0].reshape(R, -1)
+            i_fq, fs = q8_quantize(i_f.reshape(R, -1))
+            rs_in.append((th_q, i_fq, fs[:, 0].contiguous(),
+                          i_g.reshape(R, -1)))
+    torch.cuda.synchronize()
+    log(f"[fisher] operands of the forget request: {len(fimd_in)} leaf "
+        f"stacks, GEMMs (N, M, K) {shapes_nmk} x 8 chunks, {len(rs_in)} "
+        f"leaves for rowscale ({time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
+    zero_counts()                              # this path starts
+    fimd_out = [ops.fimd(st) for *_, st in fimd_in]
+    fimd_out_bf16 = ops.fimd(big_stack_bf16)
+    gemm_out = {k: [ops.gemm_fisher(a, g) for a, g, *_ in v]
+                for k, v in gemm_in.items()}
+    gemm_out_bf16 = ops.gemm_fisher(a_bf16, g_bf16)
+    gemm8_out = {k: [[ops.gemm_fisher_int8(*q) for q in blocks]
+                     for blocks in v] for k, v in gemm8_in.items()}
+    rs_out = [[ops.dampen_int8_rowscale(*x, alpha, lam) for alpha, lam in PAIRS]
+              for x in rs_in]
+    torch.cuda.synchronize()
+    fisher_launches = dict(zip(("fimd", "gemm_fisher", "gemm_fisher_int8",
+                                "dampen_int8_rowscale"), fisher_counts()))
+    # this path ends
+    calls = {"fimd": len(fimd_in) + 1,
+             "gemm_fisher": sum(map(len, gemm_in.values())) + 1,
+             "gemm_fisher_int8": sum(len(blocks) for v in gemm8_in.values()
+                                     for blocks in v),
+             "dampen_int8_rowscale": len(rs_in) * len(PAIRS)}
+    log(f"[fisher] kernels.ops calls {calls}, launches {fisher_launches} "
+        f"({time.perf_counter() - t0:.2f} s)")
+    if fisher_launches != calls:
+        raise AssertionError(f"[fisher kernels] launches {fisher_launches} "
+                             f"!= calls {calls}")
+
+    t0 = time.perf_counter()
+    f_err = {"fimd": 0.0, "gemm_fisher": 0.0, "gemm_fisher_int8": 0.0,
+             "dampen_int8_rowscale": 0}
+    worst = {"fimd_vs_fused": 0.0, "gemm_vs_plain": 0.0,
+             "gemm_vs_autograd": 0.0, "gemm_fisher_vs_fused": 0.0}
+    int8_rel = {}   # per GEMM, the largest relative L2 of int8 dW vs fp32
+    int8_rel_whole = {}  # the same with one scale per column per chunk
+    zero_g = {}     # per GEMM, the largest share of G's int8 codes at 0
+    for (j, li, st), got in zip(fimd_in, fimd_out):
+        want = kf.fimd_ref(st)
+        fused = sw[j]["fisher"][li]
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+        torch.testing.assert_close(got / 8, fused, rtol=1e-5, atol=0)
+        f_err["fimd"] = max(f_err["fimd"], float((got - want).abs().max()))
+        worst["fimd_vs_fused"] = max(worst["fimd_vs_fused"], float(
+            ((got / 8 - fused).abs() / fused.abs()).nan_to_num(0.0).max()))
+    torch.testing.assert_close(fimd_out_bf16, kf.fimd_ref(big_stack_bf16),
+                               rtol=2e-2, atol=0)
+    for name, v in gemm_in.items():
+        fish_sum = None
+        for (a, g, w_grad, w_shape), (dw, fish), blocks8, outs8 in zip(
+                v, gemm_out[name], gemm8_in[name], gemm8_out[name]):
+            dwr, _ = kg.gemm_fisher_ref(a, g)
+            rel_p, ok_p = gemm_close(dw, dwr)
+            layout = dw if w_shape is None else oihw(dw, w_shape)
+            rel_a, ok_a = gemm_close(layout, w_grad)
+            if not (ok_p and ok_a) or not torch.equal(bits(fish),
+                                                      bits(dw * dw)):
+                raise AssertionError(
+                    f"gemm_fisher {name}: relative L2 {rel_p} against plain, "
+                    f"{rel_a} against autograd")
+            f_err["gemm_fisher"] = max(f_err["gemm_fisher"],
+                                       float((dw - dwr).abs().max()))
+            worst["gemm_vs_plain"] = max(worst["gemm_vs_plain"], rel_p)
+            worst["gemm_vs_autograd"] = max(worst["gemm_vs_autograd"], rel_a)
+            fish_sum = fish if fish_sum is None else fish_sum + fish
+            dw8_sum = torch.zeros_like(dw)
+            for (aq, gq, sa, sg), (dw8, fish8) in zip(blocks8, outs8):
+                dwr8, fishr8 = kg8.gemm_fisher_int8_ref(aq, gq, sa, sg)
+                if not (torch.equal(bits(dw8), bits(dwr8))
+                        and torch.equal(bits(fish8), bits(fishr8))):
+                    raise AssertionError(f"gemm_fisher_int8 {name}: kernel "
+                                         f"!= plain")
+                f_err["gemm_fisher_int8"] = max(
+                    f_err["gemm_fisher_int8"],
+                    float((dw8 - dwr8).abs().max()))
+                dw8_sum += dw8
+                zero_g[name] = max(zero_g.get(name, 0.0),
+                                   float((gq == 0).float().mean()))
+            int8_rel[name] = max(int8_rel.get(name, 0.0),
+                                 float((dw8_sum - dw).norm() / dw.norm()))
+            dw8_whole, _ = kg8.gemm_fisher_int8_ref(*q8_gemm_operands(a, g))
+            int8_rel_whole[name] = max(
+                int8_rel_whole.get(name, 0.0),
+                float((dw8_whole - dw).norm() / dw.norm()))
+        # the chunks' dW^2 over nc is the fused step's Fisher of the weight
+        j, leaf = ((n_layers - 1, "w") if name == "fc/w" else
+                   (int(name.split("/")[1]) + 1, name.split("/")[2]))
+        fused = sw[j]["fisher_tree"][leaf]
+        mean = fish_sum / 8
+        rel_f, ok_f = gemm_close(mean if name == "fc/w"
+                                 else oihw(mean, fused.shape), fused)
+        worst["gemm_fisher_vs_fused"] = max(worst["gemm_fisher_vs_fused"],
+                                            rel_f)
+        if not ok_f:
+            raise AssertionError(f"gemm_fisher {name}: mean dW^2 at relative "
+                                 f"L2 {rel_f} from grad_fisher_chunks")
+    rel_b, ok_b = gemm_close(gemm_out_bf16[0],
+                             kg.gemm_fisher_ref(a_bf16, g_bf16)[0], rtol=2e-2)
+    if not ok_b:
+        raise AssertionError(f"gemm_fisher bf16: relative L2 {rel_b}")
+    edited = 0
+    for (th_q, i_fq, fs, i_g), outs in zip(rs_in, rs_out):
+        for (alpha, lam), got in zip(PAIRS, outs):
+            a32, l32 = ops.f32(alpha), ops.f32(lam)
+            want = kd.dampen_int8_rowscale_ref(th_q, i_fq, fs, i_g, a32, l32)
+            via, _ = ops.dampen_int8(th_q, i_fq.float() * fs[:, None], i_g,
+                                     alpha, lam)
+            f_err["dampen_int8_rowscale"] = max(
+                f_err["dampen_int8_rowscale"],
+                int((got.int() - want.int()).abs().max()))
+            if not (torch.equal(got, want) and torch.equal(got, via)):
+                raise AssertionError(f"dampen_int8_rowscale {tuple(th_q.shape)}"
+                                     f" a={alpha} l={lam}: kernel != plain or "
+                                     f"!= dampen_int8 on the dequantised "
+                                     f"Fisher")
+            edited += int((got != th_q).sum())
+    log(f"[fisher] fimd == plain (rtol 1e-5, atol 0) on 56 leaves + bf16, "
+        f"fimd / 8 == grad_fisher_chunks' Fisher (max rel "
+        f"{worst['fimd_vs_fused']:.3e}); gemm_fisher relative L2 max "
+        f"{worst['gemm_vs_plain']:.3e} vs plain, "
+        f"{worst['gemm_vs_autograd']:.3e} vs autograd, mean dW^2 "
+        f"{worst['gemm_fisher_vs_fused']:.3e} vs the fused Fisher, bf16 "
+        f"{rel_b:.3e}; gemm_fisher_int8 bit-identical; "
+        f"dampen_int8_rowscale bit-identical to plain and to dampen_int8 on "
+        f"the dequantised Fisher, {edited} codes edited over "
+        f"{len(rs_in)} leaves x {len(PAIRS)} pairs "
+        f"({time.perf_counter() - t0:.1f} s)")
+    log(f"[fisher] gemm_fisher_int8 dW (codes per column of each "
+        f"{Q8_GEMM_ROWS}-row block) vs the fp32 dW of the same chunk, "
+        f"largest relative L2 per GEMM (must be <= {INT8_SWEEP_RTOL}): "
+        f"{ {k: round(v, 6) for k, v in int8_rel.items()} }; largest share "
+        f"of zero codes in G: { {k: round(v, 4) for k, v in zero_g.items()} }"
+        f"; with one scale per column over the whole chunk (plain version, "
+        f"not gated): "
+        f"{ {k: round(v, 6) for k, v in int8_rel_whole.items()} }")
+    # held until the times are printed, so that a failing run still shows
+    # them; the run fails before its result lines all the same
+    late_failures = [f"gemm_fisher_int8 {k}: int8 dW at relative L2 {v} "
+                     f"from the fp32 dW" for k, v in int8_rel.items()
+                     if not v <= INT8_SWEEP_RTOL]
+
+    # 7. times at the main paths' shapes
     fl = bridge.paths(fisher_g)
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
     sweep_ops = []
@@ -584,6 +1092,116 @@ def main() -> int:
         f"kernel {t8['sweep_kernel_stream']:.5f} ms, plain "
         f"{t8['sweep_plain_stream']:.5f} ms")
 
+    # the four kernels reached through kernels.ops, at the largest shapes of
+    # the [fisher kernels] phase (and gemm at the longest reduction too)
+    def bound_of(nbytes, n_ops=0.0, op_rate=1.0):
+        by_bytes, by_ops = nbytes / rate * 1e3, n_ops / op_rate * 1e3
+        return ((by_bytes, "bytes") if by_bytes >= by_ops
+                else (by_ops, "operations"))
+
+    def int_mm_call(a_q, g_q):
+        """torch._int_mm computing a_q^T g_q (int32, dW only, no scale or
+        square), in the first operand layout it accepts, or (None, None)
+        where it refuses the shape."""
+        at = a_q.t().contiguous()
+        for how, x, y in (("a_q.t(), g_q", a_q.t(), g_q),
+                          ("a_q.t().contiguous(), g_q", at, g_q)):
+            try:
+                torch._int_mm(x, y)
+                torch.cuda.synchronize()
+            except RuntimeError:
+                continue
+            return how, lambda: torch._int_mm(x, y)
+        return None, None
+
+    def fimd_library(st):
+        """One PyTorch call computing fimd's function (a yardstick only)."""
+        return torch.linalg.vecdot(st, st, dim=0)
+
+    stacks = [big_stack.view(8, -1), big_stack.clone().view(8, -1)]
+    B_f, P_f = stacks[0].shape
+    torch.testing.assert_close(fimd_library(stacks[0]), kf.fimd_ref(stacks[0]),
+                               rtol=1e-5, atol=0)
+    rs_big = max(rs_in, key=lambda x: x[0].numel())
+    R_b, C_b = rs_big[0].shape
+    # four operand sets of the largest leaf (4 x 23.6 MB) beyond the L2
+    rs_sets = [(rs_big[0], rs_big[1].float(), rs_big[2], rs_big[3])] + [
+        (torch.randint(-127, 128, (R_b, C_b), generator=gen, device=dev,
+                       dtype=torch.int8),
+         torch.randint(0, 128, (R_b, C_b), generator=gen,
+                       device=dev).float(),
+         rs_big[2].clone(), rs_big[3].clone()) for _ in range(3)]
+    tf = {
+        "fimd_kernel": cuda_time_ms(
+            lambda: kf.fimd_cuda(stacks[next(rot) % 2]), 100,
+            queue_ahead=True),
+        "fimd_plain": cuda_time_ms(
+            lambda: kf.fimd_ref(stacks[next(rot) % 2]), 40, queue_ahead=True),
+        "fimd_library": cuda_time_ms(
+            lambda: fimd_library(stacks[next(rot) % 2]), 100,
+            queue_ahead=True),
+        "rs_kernel": cuda_time_ms(
+            lambda: kd.dampen_int8_rowscale_cuda(*rs_sets[next(rot) % 4],
+                                                 10.0, 1.0), 200,
+            queue_ahead=True),
+        "rs_plain": cuda_time_ms(
+            lambda: kd.dampen_int8_rowscale_ref(*rs_sets[next(rot) % 4],
+                                                10.0, 1.0), 50,
+            queue_ahead=True),
+    }
+    bounds = {"fimd": bound_of(4 * B_f * P_f + 4 * P_f),
+              "dampen_int8_rowscale": bound_of(10 * R_b * C_b + 4 * R_b)}
+    gemm_t = {}
+    for name, iters in (("blocks/7/conv2", 50), ("blocks/1/conv1", 10)):
+        a, g = gemm_in[name][0][:2]
+        aq, gq, sa, sg = q8_gemm_operands(a, g)   # the whole chunk, one call
+        N, M = a.shape
+        K = g.shape[1]
+        how, int_mm = int_mm_call(aq, gq)
+        gemm_t[name] = {
+            "nmk": (N, M, K), "int_mm_layout": how,
+            "kernel": cuda_time_ms(lambda: kg.gemm_fisher_cuda(a, g), iters,
+                                   queue_ahead=True),
+            "plain": cuda_time_ms(lambda: kg.gemm_fisher_ref(a, g), iters,
+                                  queue_ahead=True),
+            "library": cuda_time_ms(lambda: torch.matmul(a.t(), g), iters,
+                                    queue_ahead=True),
+            "bound": bound_of(4 * (N * M + N * K) + 8 * M * K,
+                              2 * N * M * K, fp32_rate),
+            "kernel8": cuda_time_ms(
+                lambda: kg8.gemm_fisher_int8_cuda(aq, gq, sa, sg), iters,
+                queue_ahead=True),
+            "plain8": cuda_time_ms(
+                lambda: kg8.gemm_fisher_int8_ref(aq, gq, sa, sg), iters,
+                queue_ahead=True),
+            "library8": (cuda_time_ms(int_mm, iters, queue_ahead=True)
+                         if int_mm else None),
+            "bound8": bound_of(N * M + N * K + 4 * (M + K) + 8 * M * K,
+                               2 * N * M * K, int8_rate),
+        }
+    log(f"[time] fimd [{B_f}, {P_f}] f32 device: kernel "
+        f"{tf['fimd_kernel']:.5f} ms, plain {tf['fimd_plain']:.5f} ms, "
+        f"torch.linalg.vecdot(g, g, dim=0) {tf['fimd_library']:.5f} ms, bound "
+        f"{bounds['fimd'][0]:.5f} ms ({bounds['fimd'][1]}, "
+        f"{bounds['fimd'][0] / tf['fimd_kernel'] * 100:.1f}%)")
+    log(f"[time] dampen_int8_rowscale [{R_b}, {C_b}] device: kernel "
+        f"{tf['rs_kernel']:.5f} ms, plain {tf['rs_plain']:.5f} ms, bound "
+        f"{bounds['dampen_int8_rowscale'][0]:.5f} ms (bytes, "
+        f"{bounds['dampen_int8_rowscale'][0] / tf['rs_kernel'] * 100:.1f}%)")
+    for name, gt in gemm_t.items():
+        log(f"[time] gemm_fisher {name} (N, M, K) {gt['nmk']} device: kernel "
+            f"{gt['kernel']:.5f} ms, plain {gt['plain']:.5f} ms, "
+            f"torch.matmul (dW only, no square, TF32 off) "
+            f"{gt['library']:.5f} ms, bound {gt['bound'][0]:.5f} ms "
+            f"({gt['bound'][1]}, {gt['bound'][0] / gt['kernel'] * 100:.1f}%)")
+        lib8 = ("refused" if gt["library8"] is None
+                else f"{gt['library8']:.5f} ms ({gt['int_mm_layout']})")
+        log(f"[time] gemm_fisher_int8 {name} device: kernel "
+            f"{gt['kernel8']:.5f} ms, plain {gt['plain8']:.5f} ms, "
+            f"torch._int_mm (dW only, no square) {lib8}, bound "
+            f"{gt['bound8'][0]:.5f} ms ({gt['bound8'][1]}, "
+            f"{gt['bound8'][0] / gt['kernel8'] * 100:.1f}%)")
+
     # where one warm ssd request spends its time on the card, per path
     prof = {}
     for path, unl in (("fp32", ssd), ("int8", ssd8)):
@@ -609,6 +1227,8 @@ def main() -> int:
         f"{prof['int8'][2]} vs {prof['fp32'][2]} "
         f"(+{prof['int8'][2] - prof['fp32'][2]})")
 
+    if late_failures:
+        raise AssertionError("; ".join(late_failures))
     print(json.dumps({"kernels": [{
         "name": "dampen", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/dampen.cu",
@@ -638,7 +1258,50 @@ def main() -> int:
         "largest_leaf": {"n": n_big, "ms": t8["big_kernel"],
                          "plain_ms": t8["big_plain"],
                          "bound_ms": bound8["big"]},
-    }]}), flush=True)
+    }, {
+        "name": "dampen_int8_rowscale", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/dampen.cu",
+        "replaces": "src/repro/kernels/dampen.py:51",
+        "launches": fisher_launches["dampen_int8_rowscale"],
+        "max_abs_err": f_err["dampen_int8_rowscale"],
+        "ms": tf["rs_kernel"], "plain_ms": tf["rs_plain"],
+        "bound_ms": bounds["dampen_int8_rowscale"][0],
+        "bound_by": bounds["dampen_int8_rowscale"][1], "library_ms": None,
+        "shape": [R_b, C_b],
+    }, {
+        "name": "fimd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/fimd.cu",
+        "replaces": "src/repro/kernels/fimd.py:27",
+        "launches": fisher_launches["fimd"], "max_abs_err": f_err["fimd"],
+        "ms": tf["fimd_kernel"], "plain_ms": tf["fimd_plain"],
+        "bound_ms": bounds["fimd"][0], "bound_by": bounds["fimd"][1],
+        "library_ms": tf["fimd_library"],
+        "library_call": "torch.linalg.vecdot(g, g, dim=0)",
+        "shape": [B_f, P_f],
+    }] + [{
+        "name": kname, "route": "cuda",
+        "source": f"src/repro_torch/kernels/csrc/{kname}.cu",
+        "replaces": replaces,
+        "launches": fisher_launches[kname], "max_abs_err": f_err[kname],
+        "ms": gt[key], "plain_ms": gt["plain" + sfx],
+        "bound_ms": gt["bound" + sfx][0], "bound_by": gt["bound" + sfx][1],
+        "library_ms": gt["library" + sfx], "library_call": lib,
+        "shape_nmk": list(gt["nmk"]),
+        "longest_n": {"shape_nmk": list(gl["nmk"]), "ms": gl[key],
+                      "plain_ms": gl["plain" + sfx],
+                      "bound_ms": gl["bound" + sfx][0],
+                      "library_ms": gl["library" + sfx]},
+    } for kname, key, sfx, replaces, lib, gt, gl in (
+        ("gemm_fisher", "kernel", "",
+         "src/repro/kernels/gemm_fisher.py:38",
+         "torch.matmul(a.t(), g), TF32 off: dW only, no square",
+         gemm_t["blocks/7/conv2"], gemm_t["blocks/1/conv1"]),
+        ("gemm_fisher_int8", "kernel8", "8",
+         "src/repro/kernels/gemm_fisher_int8.py:50",
+         f"torch._int_mm({gemm_t['blocks/7/conv2']['int_mm_layout']}): "
+         f"int32 dW only, no scale, no square",
+         gemm_t["blocks/7/conv2"], gemm_t["blocks/1/conv1"]))]}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

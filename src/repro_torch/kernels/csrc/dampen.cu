@@ -1,9 +1,10 @@
 // Dampening IP for Hopper (sm_90a): SSD select / beta / multiply in one pass,
 // on float weights and on int8 weight codes.
 //
-// Replaces two of the JAX package's Pallas kernels, kernels/dampen.py::dampen
-// (_dampen_kernel, :28) and kernels/dampen.py::dampen_int8
-// (_dampen_int8_kernel, :39). Per element, in f32:
+// Replaces three of the JAX package's Pallas kernels, kernels/dampen.py::dampen
+// (_dampen_kernel, :28), kernels/dampen.py::dampen_int8
+// (_dampen_int8_kernel, :39) and kernels/dampen.py::dampen_int8_rowscale
+// (_dampen_int8_rowscale_kernel, :51). Per element, in f32:
 //
 //   sel    = i_f > alpha * i_g
 //   beta   = min(lam * i_g / max(i_f, 1e-30), 1)       NaN propagates
@@ -17,17 +18,28 @@
 // with round half to even and NaN -> code 0 (XLA's float -> int8 convert).
 // Both write the selection mask, one byte per element, from the same pass
 // (the JAX wrappers recompute the mask outside their kernels, a second read
-// of i_f and i_g).
+// of i_f and i_g). The rowscale variant takes the forget Fisher in the quant
+// domain, i_fq [R, C] (as f32) with a per-row f32 scale table fs [R], and
+// dequantises it in-register with one correctly rounded product,
+//
+//   i_f = i_fq[r, c] * fs[r]
+//
+// before the int8 rule above; like the reference's wrapper it returns the
+// codes only and writes no mask.
 //
 // What bounds it: device memory. Per element it reads theta, i_f and i_g
 // once and writes theta' and the mask once (17 bytes for f32 theta, 13 for
-// bf16, 11 for int8 codes) against five floating-point operations. So the
+// bf16, 11 for int8 codes; 10 for rowscale, which reads i_fq as f32 and
+// writes no mask) against five floating-point operations. So the
 // design only moves each byte once, in wide transactions: a thread handles
 // four neighbouring elements with 16-byte loads of i_f and i_g (and a
 // 16-byte f32 / 8-byte bf16 / 4-byte int8 load of theta) whenever every
 // pointer is aligned for it, one grid-stride loop covers an array of any
 // length in a single launch, and a scalar loop takes the last n % 4
-// elements (or everything, when a pointer is misaligned).
+// elements (or everything, when a pointer is misaligned). The rowscale
+// kernel finds an element's row by one division per thread and then steps
+// it along with the grid-stride loop (no division per element), so rows of
+// any length C, odd or not, share the 16-byte path.
 //
 // Exactness: the kernel must agree with the plain PyTorch version bit for
 // bit. Build it WITHOUT --use_fast_math. The multiplies and the divide use
@@ -162,6 +174,69 @@ int launch(const void* theta, const void* i_f, const void* i_g, void* out,
   return int(cudaGetLastError());
 }
 
+// Rowscale: element k lies in row k / C. A thread computes its first row
+// once and advances (row, column) by the grid stride after each step.
+__device__ __forceinline__ void advance(int64_t& row, int64_t& col,
+                                        int64_t rows, int64_t cols,
+                                        int64_t C) {
+  row += rows;
+  col += cols;
+  if (col >= C) {
+    col -= C;
+    row += 1;
+  }
+}
+
+__device__ __forceinline__ int8_t rowscale_one(int8_t t, float fq, float fs,
+                                               float g, float alpha,
+                                               float lam) {
+  unsigned char unused;
+  return dampen_one(t, __fmul_rn(fq, fs), g, alpha, lam, &unused);
+}
+
+__global__ void dampen_int8_rowscale_kernel(
+    const int8_t* __restrict__ theta, const float* __restrict__ i_fq,
+    const float* __restrict__ fs, const float* __restrict__ i_g,
+    int8_t* __restrict__ out,
+    int64_t n, int64_t C, float alpha, float lam, bool vec) {
+  const int64_t stride = int64_t(gridDim.x) * blockDim.x;
+  const int64_t tid = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
+  int64_t head = 0;
+  if (vec) {
+    const int64_t nv = n / 4;
+    const Vec4<int8_t>* th4 = reinterpret_cast<const Vec4<int8_t>*>(theta);
+    const float4* f4 = reinterpret_cast<const float4*>(i_fq);
+    const float4* g4 = reinterpret_cast<const float4*>(i_g);
+    Vec4<int8_t>* o4 = reinterpret_cast<Vec4<int8_t>*>(out);
+    // (row, col) of element 4 * k, and the grid stride 4 * stride in rows
+    int64_t row = (4 * tid) / C, col = 4 * tid - row * C;
+    const int64_t srows = (4 * stride) / C, scols = 4 * stride - srows * C;
+    for (int64_t k = tid; k < nv; k += stride) {
+      const Vec4<int8_t> t = th4[k];
+      const float4 f = f4[k];
+      const float4 g = g4[k];
+      const float fv[4] = {f.x, f.y, f.z, f.w};
+      const float gv[4] = {g.x, g.y, g.z, g.w};
+      Vec4<int8_t> o;
+      int64_t r = row, c = col;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        o.v[i] = rowscale_one(t.v[i], fv[i], fs[r], gv[i], alpha, lam);
+        if (++c == C) {
+          c = 0;
+          ++r;
+        }
+      }
+      o4[k] = o;
+      advance(row, col, srows, scols, C);
+    }
+    head = nv * 4;
+  }
+  for (int64_t k = head + tid; k < n; k += stride) {
+    out[k] = rowscale_one(theta[k], i_fq[k], fs[k / C], i_g[k], alpha, lam);
+  }
+}
+
 }  // namespace
 
 extern "C" int ficabu_dampen_f32(const void* theta, const void* i_f,
@@ -184,4 +259,26 @@ extern "C" int ficabu_dampen_int8(const void* theta_q, const void* i_f,
                                   long long n, float alpha, float lam,
                                   void* stream) {
   return launch<int8_t>(theta_q, i_f, i_g, out, mask, n, alpha, lam, stream);
+}
+
+// theta_q, i_fq, i_g, out: [R, C] row-major (n = R * C elements); fs: [R].
+extern "C" int ficabu_dampen_int8_rowscale(const void* theta_q,
+                                           const void* i_fq, const void* fs,
+                                           const void* i_g, void* out,
+                                           long long n, long long C,
+                                           float alpha, float lam,
+                                           void* stream) {
+  if (n <= 0 || C <= 0) return int(cudaSuccess);
+  const bool vec = aligned(theta_q, 4) && aligned(out, 4) &&
+                   aligned(i_fq, 16) && aligned(i_g, 16);
+  int64_t work = vec ? n / 4 : n;
+  if (work < 1) work = 1;
+  int64_t blocks = (work + kThreads - 1) / kThreads;
+  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
+  dampen_int8_rowscale_kernel<<<unsigned(blocks), kThreads, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(theta_q), static_cast<const float*>(i_fq),
+      static_cast<const float*>(fs), static_cast<const float*>(i_g),
+      static_cast<int8_t*>(out), int64_t(n), int64_t(C), alpha, lam, vec);
+  return int(cudaGetLastError());
 }

@@ -1,9 +1,10 @@
 """Public wrappers around the Hopper kernels: any shape in, the device
-decides the path.
+decides the path. Port of ``repro.kernels.ops``, with the reference's
+signatures, returned shapes and dtypes, and ValueError checks.
 
 A tensor on the CPU goes to the kernel's plain PyTorch version; a tensor on
 the card goes to the kernel, or the wrapper raises — there is no fallback.
-No TPU (8, 1024) padding: the CUDA kernel takes a flat array of any length.
+No TPU (8, 1024) padding: every CUDA kernel masks its own ragged edges.
 """
 from __future__ import annotations
 
@@ -13,6 +14,11 @@ import numpy as np
 import torch
 
 from . import dampen as _dampen
+from . import fimd as _fimd
+from . import gemm_fisher as _gf
+from . import gemm_fisher_int8 as _gf8
+
+F32 = torch.float32
 
 
 def _check_elementwise(name, theta, i_f, i_g):
@@ -21,6 +27,15 @@ def _check_elementwise(name, theta, i_f, i_g):
             f"{name} is elementwise: Fisher operands must match theta's "
             f"shape {tuple(theta.shape)}, got i_f={tuple(i_f.shape)}, "
             f"i_g={tuple(i_g.shape)}")
+
+
+def _path(name: str, t: torch.Tensor) -> str:
+    """'cpu' (the plain version) or 'cuda' (the kernel), by the device of
+    the wrapper's first operand; anything else raises."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on 'cpu' (plain version) or 'cuda' "
+                         f"(the kernel), got a tensor on {t.device}")
+    return t.device.type
 
 
 def f32(x: float) -> float:
@@ -38,18 +53,13 @@ def dampen(theta: torch.Tensor, i_f: torch.Tensor, i_g: torch.Tensor,
     ``out`` receives theta' (pass ``theta`` itself for an in-place edit)."""
     _check_elementwise("dampen", theta, i_f, i_g)
     alpha, lam = f32(alpha), f32(lam)
-    if theta.device.type == "cpu":
+    if _path("dampen", theta) == "cpu":
         new, mask = _dampen.dampen_ref(theta, i_f, i_g, alpha, lam)
         if out is not None:
             new = out.copy_(new)
         return new, mask
-    if theta.device.type == "cuda":
-        return _dampen.dampen_cuda(theta.contiguous(),
-                                   i_f.to(torch.float32).contiguous(),
-                                   i_g.to(torch.float32).contiguous(),
-                                   alpha, lam, out=out)
-    raise ValueError(f"dampen runs on 'cpu' (plain version) or 'cuda' (the "
-                     f"kernel), got a tensor on {theta.device}")
+    return _dampen.dampen_cuda(theta.contiguous(), i_f.to(F32).contiguous(),
+                               i_g.to(F32).contiguous(), alpha, lam, out=out)
 
 
 def dampen_int8(theta_q: torch.Tensor, i_f: torch.Tensor, i_g: torch.Tensor,
@@ -68,15 +78,101 @@ def dampen_int8(theta_q: torch.Tensor, i_f: torch.Tensor, i_g: torch.Tensor,
             f"float weights), got theta_q dtype {theta_q.dtype}")
     _check_elementwise("dampen_int8", theta_q, i_f, i_g)
     alpha, lam = f32(alpha), f32(lam)
-    if theta_q.device.type == "cpu":
+    if _path("dampen_int8", theta_q) == "cpu":
         new, mask = _dampen.dampen_int8_ref(theta_q, i_f, i_g, alpha, lam)
         if out is not None:
             new = out.copy_(new)
         return new, mask
-    if theta_q.device.type == "cuda":
-        return _dampen.dampen_int8_cuda(theta_q.contiguous(),
-                                        i_f.to(torch.float32).contiguous(),
-                                        i_g.to(torch.float32).contiguous(),
-                                        alpha, lam, out=out)
-    raise ValueError(f"dampen_int8 runs on 'cpu' (plain version) or 'cuda' "
-                     f"(the kernel), got a tensor on {theta_q.device}")
+    return _dampen.dampen_int8_cuda(theta_q.contiguous(),
+                                    i_f.to(F32).contiguous(),
+                                    i_g.to(F32).contiguous(), alpha, lam,
+                                    out=out)
+
+
+def fimd(g: torch.Tensor) -> torch.Tensor:
+    """Sum of squared gradients over axis 0 via the FIMD kernel.
+    g: [B, ...] (f32 or bf16; other float types are taken as f32) ->
+    [...] f32."""
+    B, shape = g.shape[0], g.shape[1:]
+    flat = g.reshape(B, -1)
+    if _path("fimd", g) == "cpu":
+        return _fimd.fimd_ref(flat).reshape(shape)
+    if flat.dtype not in (F32, torch.bfloat16):
+        flat = flat.to(F32)
+    return _fimd.fimd_cuda(flat.contiguous()).reshape(shape)
+
+
+def dampen_int8_rowscale(theta_q: torch.Tensor, i_fq: torch.Tensor,
+                         f_scale: torch.Tensor, i_g: torch.Tensor,
+                         alpha, lam) -> torch.Tensor:
+    """Dequant-free dampening with a quant-domain forget-Fisher: ``i_fq``
+    [R, C] plus its per-row f32 scale table ``f_scale`` [R] are dequantised
+    in-register inside the kernel (``i_f = f32(i_fq) * f_scale[r]``, one
+    correctly rounded product). theta_q: [R, C] int8 -> [R, C] int8, the
+    codes only, as the reference returns them."""
+    if theta_q.ndim != 2:
+        raise ValueError(
+            f"dampen_int8_rowscale takes a [R, C] per-channel weight (rows "
+            f"are output channels), got shape {tuple(theta_q.shape)}")
+    if theta_q.dtype != torch.int8:
+        raise ValueError(
+            f"dampen_int8_rowscale edits int8 weight codes in place, got "
+            f"theta_q dtype {theta_q.dtype}")
+    R, C = theta_q.shape
+    _check_elementwise("dampen_int8_rowscale", theta_q, i_fq, i_g)
+    if tuple(f_scale.shape) != (R,):
+        raise ValueError(
+            f"dampen_int8_rowscale f_scale is the per-row Fisher scale "
+            f"table [R]={R,}, got {tuple(f_scale.shape)}")
+    alpha, lam = f32(alpha), f32(lam)
+    if _path("dampen_int8_rowscale", theta_q) == "cpu":
+        return _dampen.dampen_int8_rowscale_ref(theta_q, i_fq, f_scale, i_g,
+                                                alpha, lam)
+    return _dampen.dampen_int8_rowscale_cuda(
+        theta_q.contiguous(), i_fq.to(F32).contiguous(),
+        f_scale.to(F32).contiguous(), i_g.to(F32).contiguous(), alpha, lam)
+
+
+def gemm_fisher(a: torch.Tensor, g: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """dW = a^T @ g and dW^2, fused. a: [N, M], g: [N, K] (f32 or bf16;
+    mixed or other float types are taken as f32) -> (dw, fish) [M, K]
+    f32."""
+    if a.ndim != 2 or g.ndim != 2 or a.shape[0] != g.shape[0]:
+        raise ValueError(
+            f"gemm_fisher contracts [N, M] against [N, K] over a shared "
+            f"reduction dim, got a={tuple(a.shape)}, g={tuple(g.shape)}")
+    if _path("gemm_fisher", a) == "cpu":
+        return _gf.gemm_fisher_ref(a, g)
+    if a.dtype != g.dtype or a.dtype not in (F32, torch.bfloat16):
+        a, g = a.to(F32), g.to(F32)
+    return _gf.gemm_fisher_cuda(a.contiguous(), g.contiguous())
+
+
+def gemm_fisher_int8(a_q: torch.Tensor, g_q: torch.Tensor,
+                     sa: torch.Tensor, sg: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """INT8 dW = a_q^T @ g_q (exact int32 accumulate) rescaled per channel
+    in the epilogue, plus dW^2. a_q: [N, M] int8, g_q: [N, K] int8,
+    sa: [M] f32, sg: [K] f32 -> (dw, fish) [M, K] f32."""
+    if a_q.ndim != 2 or g_q.ndim != 2 or a_q.shape[0] != g_q.shape[0]:
+        raise ValueError(
+            f"gemm_fisher_int8 contracts [N, M] against [N, K] over a "
+            f"shared reduction dim, got a_q={tuple(a_q.shape)}, "
+            f"g_q={tuple(g_q.shape)}")
+    if a_q.dtype != torch.int8 or g_q.dtype != torch.int8:
+        raise ValueError(
+            f"gemm_fisher_int8 takes int8 operands (quantize with "
+            f"optim.compression.q8_quantize first), got a_q={a_q.dtype}, "
+            f"g_q={g_q.dtype}")
+    M, K = a_q.shape[1], g_q.shape[1]
+    if tuple(sa.shape) != (M,) or tuple(sg.shape) != (K,):
+        raise ValueError(
+            f"gemm_fisher_int8 scale tables must be 1-D per-channel vectors "
+            f"sa [M]={M,} and sg [K]={K,}, got sa={tuple(sa.shape)}, "
+            f"sg={tuple(sg.shape)}")
+    if _path("gemm_fisher_int8", a_q) == "cpu":
+        return _gf8.gemm_fisher_int8_ref(a_q, g_q, sa, sg)
+    return _gf8.gemm_fisher_int8_cuda(
+        a_q.contiguous(), g_q.contiguous(), sa.to(F32).contiguous(),
+        sg.to(F32).contiguous())

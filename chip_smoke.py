@@ -18,9 +18,13 @@ Phases, in order; any failure exits non-zero and prints no result line:
      lambda = NaN/inf, alpha = 0, n = 1, n % 4 != 0, misaligned pointers):
      the result and the mask must be BIT-identical. The four kernels reached
      through ``kernels.ops`` only: odd shapes, misaligned pointers, special
-     values, extreme codes; dampen_int8_rowscale and gemm_fisher_int8
-     BIT-identical, fimd within rtol 1e-5 (atol 0), gemm_fisher within
-     relative L2 1e-5 and |d| <= 1e-4 |ref| + 1e-4 max|ref|;
+     values, extreme codes, and for the GEMMs reductions split over N
+     (S > 1) with a ragged last slice and, for gemm_fisher_int8, N = MAX_N
+     with every code -128 (every sum at the int32 limit);
+     dampen_int8_rowscale and gemm_fisher_int8 BIT-identical, fimd within
+     rtol 1e-5 (atol 0), gemm_fisher within relative L2 1e-5 and
+     |d| <= 1e-4 |ref| + 1e-4 max|ref|, its fish bit-equal to dw * dw and
+     every case run twice with the same bits;
   4. the slices at full width: RESNET18_CIFAR20 (random weights from a
      seed, pre-trained here for a few hundred AdamW steps so that halting
      means something) served through ``Unlearner`` with ``use_kernel=True``:
@@ -52,9 +56,12 @@ Phases, in order; any failure exits non-zero and prints no result line:
      dequantised Fisher;
   7. times: each kernel and its plain version at the main paths' shapes
      (and, for fimd and the GEMMs, one PyTorch library call computing the
-     same function, the GEMMs' dW alone),
-     beside the bound, printed as one ``{"kernels": [...]}`` line, and where
-     a warm fp32 and a warm int8 ssd request spend their time.
+     same function, the GEMMs' dW alone; the GEMMs on operand sets rotated
+     beyond the L2, with their split plans), beside the bound (for
+     gemm_fisher the larger of its bytes and the 3xTF32 arithmetic, the
+     FP32-SIMT figure beside it), printed as one ``{"kernels": [...]}``
+     line, and where a warm fp32 and a warm int8 ssd request spend their
+     time.
 
 The last line is the contract line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -80,12 +87,15 @@ FORGET_CLASS = 3
 Q8_GEMM_ROWS = 1024
 # Peak rates of the card (NVIDIA data sheets, dense): device memory in
 # bytes/s, f32 on the SIMT cores in FLOP/s, int8 on the tensor cores in
-# OP/s. A kernel's bound is the larger of its bytes over the first and its
-# operations over the rate of their type.
-PEAKS = {"H100 PCIe": (2.0e12, 51e12, 1513e12),
-         "H100 NVL": (3.9e12, 60e12, 1671e12),
-         "H200": (4.8e12, 67e12, 1979e12),
-         "H100": (3.35e12, 67e12, 1979e12)}
+# OP/s, TF32 on the tensor cores in FLOP/s. A kernel's bound is the larger
+# of its bytes over the first and its operations over the rate of their
+# type.
+PEAKS = {"H100 PCIe": (2.0e12, 51e12, 1513e12, 378e12),
+         "H100 NVL": (3.9e12, 60e12, 1671e12, 418e12),
+         "H200": (4.8e12, 67e12, 1979e12, 495e12),
+         "H100": (3.35e12, 67e12, 1979e12, 495e12)}
+# the card's L2: timed operand sets rotate through more than this
+L2_BYTES = 50e6
 
 
 def log(msg: str) -> None:
@@ -93,7 +103,8 @@ def log(msg: str) -> None:
 
 
 def peaks(name: str):
-    """(memory bytes/s, f32 FLOP/s, int8 OP/s) of the card ``name``."""
+    """(memory bytes/s, f32 FLOP/s, int8 OP/s, TF32 FLOP/s) of the card
+    ``name``."""
     for key, rates in PEAKS.items():
         if key in name:
             return rates
@@ -299,7 +310,8 @@ def check_fisher_kernels_against_plain(dev):
     from repro_torch.kernels import gemm_fisher_int8 as kg8
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
-    cases = {"fimd": 0, "gemm_fisher": 0, "gemm_fisher_int8": 0,
+    cases = {"fimd": 0, "gemm_fisher": 0, "gemm_fisher S>1, ragged": 0,
+             "gemm_fisher_int8": 0, "gemm_fisher_int8 S>1, ragged": 0,
              "dampen_int8_rowscale": 0}
     nan, inf = float("nan"), float("inf")
     special = torch.tensor([0.0, -0.0, nan, inf, -inf, 1.0, 2.0, 1e-30,
@@ -326,30 +338,50 @@ def check_fisher_kernels_against_plain(dev):
                                            equal_nan=True)
                 cases["fimd"] += 1
 
-    # gemm_fisher: M, K off the 64-wide tile, N off the 16-deep slab, one
-    # empty reduction; f32 and bf16
-    for N, M, K in ((1, 1, 1), (17, 5, 3), (0, 7, 9), (100, 65, 130),
-                    (129, 200, 64), (2049, 70, 33)):
+    # gemm_fisher: M, K off the 64-wide tile, N off the 32-row slab, one
+    # empty reduction, and reductions split over N (S > 1) with a ragged
+    # last slice, on the 16-byte cp.async path and (lo = 1: pointers off
+    # the 16-byte grid) the element path; f32 and bf16. Every case runs
+    # twice and must give the same bits.
+    for N, M, K, lo in ((1, 1, 1, 0), (17, 5, 3, 0), (0, 7, 9, 0),
+                        (100, 65, 130, 0), (129, 200, 64, 0),
+                        (2049, 70, 33, 0), (5000, 96, 40, 0),
+                        (5000, 96, 40, 1), (8192, 576, 64, 0)):
+        S, rows = kg.split_plan(N, M, K)
         for dtype in (torch.float32, torch.bfloat16):
-            a = torch.randn(N, M, generator=gen, device=dev).to(dtype)
-            g = torch.randn(N, K, generator=gen, device=dev).to(dtype)
+            a = torch.randn(N * M + lo, generator=gen, device=dev).to(
+                dtype)[lo:].view(N, M)
+            g = torch.randn(N * K + lo, generator=gen, device=dev).to(
+                dtype)[lo:].view(N, K)
             dw, fish = kg.gemm_fisher_cuda(a, g)
+            dw2, fish2 = kg.gemm_fisher_cuda(a, g)
             dwr, _ = kg.gemm_fisher_ref(a, g)
             torch.cuda.synchronize()
             rel, ok = gemm_close(dw, dwr) if N else (0.0, torch.equal(dw, dwr))
             if not ok or not torch.equal(bits(fish), bits(dw * dw)):
                 raise AssertionError(f"gemm_fisher kernel != plain at "
-                                     f"{(N, M, K)} {dtype}: rel L2 {rel}")
+                                     f"{(N, M, K)} lo={lo} {dtype} S={S}: "
+                                     f"rel L2 {rel}")
+            if not (torch.equal(bits(dw), bits(dw2))
+                    and torch.equal(bits(fish), bits(fish2))):
+                raise AssertionError(f"gemm_fisher kernel at {(N, M, K)} "
+                                     f"{dtype} S={S}: two runs differ")
             cases["gemm_fisher"] += 1
+            cases["gemm_fisher S>1, ragged"] += S > 1 and N % rows != 0
 
     # gemm_fisher_int8: every code including -128, extreme codes over a long
-    # reduction, odd shapes, scales with zeros and infinities: bit for bit
-    for N, M, K in ((1, 1, 1), (3, 5, 7), (33, 65, 129), (8192, 70, 9),
-                    (0, 4, 4)):
-        a = torch.randint(-128, 128, (N, M), generator=gen, device=dev,
-                          dtype=torch.int8)
-        g = torch.randint(-128, 128, (N, K), generator=gen, device=dev,
-                          dtype=torch.int8)
+    # reduction, odd shapes, scales with zeros and infinities, reductions
+    # split over N with a ragged last slice (lo = 3: the byte path), and
+    # N = MAX_N with every code -128 (every sum at the int32 limit,
+    # 128^2 MAX_N = 2,147,467,264): bit for bit
+    for N, M, K, lo in ((1, 1, 1, 0), (3, 5, 7, 0), (33, 65, 129, 0),
+                        (8192, 70, 9, 0), (0, 4, 4, 0), (3000, 48, 80, 0),
+                        (3000, 48, 80, 3), (kg8.MAX_N, 64, 64, 0)):
+        S, rows = kg.split_plan(N, M, K, kg8.SLAB)
+        a = torch.randint(-128, 128, (N * M + lo,), generator=gen, device=dev,
+                          dtype=torch.int8)[lo:].view(N, M)
+        g = torch.randint(-128, 128, (N * K + lo,), generator=gen, device=dev,
+                          dtype=torch.int8)[lo:].view(N, K)
         if N == 8192:
             a[:, :3] = torch.tensor([127, -128, -127], device=dev,
                                     dtype=torch.int8)
@@ -358,14 +390,28 @@ def check_fisher_kernels_against_plain(dev):
         sg = torch.rand(K, generator=gen, device=dev)
         sa[0] = 0.0 if M > 1 else sa[0]
         sg[-1] = inf if K > 2 else sg[-1]
+        if N == kg8.MAX_N:
+            a.fill_(-128)
+            g.fill_(-128)
+            sa[0] = 1.0
+            sg[0] = 1.0
         dw, fish = kg8.gemm_fisher_int8_cuda(a, g, sa, sg)
         dwr, fishr = kg8.gemm_fisher_int8_ref(a, g, sa, sg)
         torch.cuda.synchronize()
         if not (torch.equal(bits(dw), bits(dwr))
                 and torch.equal(bits(fish), bits(fishr))):
             raise AssertionError(f"gemm_fisher_int8 kernel != plain at "
-                                 f"{(N, M, K)}")
+                                 f"{(N, M, K)} lo={lo} S={S}")
+        if N == kg8.MAX_N and float(dw[0, 0]) != float(128 * 128 * N):
+            raise AssertionError(f"gemm_fisher_int8 at the int32 limit: "
+                                 f"{float(dw[0, 0])} != {128 * 128 * N}")
         cases["gemm_fisher_int8"] += 1
+        cases["gemm_fisher_int8 S>1, ragged"] += S > 1 and N % rows != 0
+    for key, want in (("gemm_fisher S>1, ragged", 8),
+                      ("gemm_fisher_int8 S>1, ragged", 3)):
+        if cases[key] < want:
+            raise AssertionError(f"{key}: {cases[key]} cases, expected "
+                                 f">= {want}")
 
     # dampen_int8_rowscale: dampen_int8's edge cases on the dequantised
     # Fisher — zero/NaN/inf/subnormal i_fq, fs and i_g, lambda = NaN/inf,
@@ -606,10 +652,11 @@ def main() -> int:
     # on this card and software
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
-    rate, fp32_rate, int8_rate = peaks(kind)
+    rate, fp32_rate, int8_rate, tf32_rate = peaks(kind)
     log(f"[card] {kind} | torch {torch.__version__} cuda {torch.version.cuda}"
         f" | rates used for bounds: memory {rate / 1e12:.2f} TB/s, f32 "
-        f"{fp32_rate / 1e12:.0f} TFLOP/s, int8 {int8_rate / 1e12:.0f} TOP/s")
+        f"{fp32_rate / 1e12:.0f} TFLOP/s, int8 {int8_rate / 1e12:.0f} TOP/s, "
+        f"TF32 {tf32_rate / 1e12:.0f} TFLOP/s")
 
     # 2. build: one nvcc per csrc/*.cu, all started together
     t0 = time.perf_counter()
@@ -1099,20 +1146,28 @@ def main() -> int:
         return ((by_bytes, "bytes") if by_bytes >= by_ops
                 else (by_ops, "operations"))
 
-    def int_mm_call(a_q, g_q):
-        """torch._int_mm computing a_q^T g_q (int32, dW only, no scale or
-        square), in the first operand layout it accepts, or (None, None)
-        where it refuses the shape."""
-        at = a_q.t().contiguous()
-        for how, x, y in (("a_q.t(), g_q", a_q.t(), g_q),
-                          ("a_q.t().contiguous(), g_q", at, g_q)):
+    def int_mm_layout(a_q, g_q):
+        """How torch._int_mm computes a_q^T g_q (int32, dW only, no scale or
+        square): the name of the first operand layout it accepts and the map
+        from (a_q, g_q) to its arguments, or (None, None) where it refuses
+        the shape."""
+        for how, prep in (("a_q.t(), g_q", lambda x, y: (x.t(), y)),
+                          ("a_q.t().contiguous(), g_q",
+                           lambda x, y: (x.t().contiguous(), y))):
             try:
-                torch._int_mm(x, y)
+                torch._int_mm(*prep(a_q, g_q))
                 torch.cuda.synchronize()
             except RuntimeError:
                 continue
-            return how, lambda: torch._int_mm(x, y)
+            return how, prep
         return None, None
+
+    def rotating(first, make, nbytes):
+        """``first`` and copies from ``make()``: at least three operand sets,
+        together more than the L2, so that every timed call reads its
+        operands from device memory."""
+        return [first] + [make() for _ in range(
+            max(3, int(L2_BYTES // nbytes) + 1) - 1)]
 
     def fimd_library(st):
         """One PyTorch call computing fimd's function (a yardstick only)."""
@@ -1152,30 +1207,51 @@ def main() -> int:
     bounds = {"fimd": bound_of(4 * B_f * P_f + 4 * P_f),
               "dampen_int8_rowscale": bound_of(10 * R_b * C_b + 4 * R_b)}
     gemm_t = {}
-    for name, iters in (("blocks/7/conv2", 50), ("blocks/1/conv1", 10)):
+    for name, iters in (("blocks/7/conv2", 50), ("blocks/1/conv1", 30)):
         a, g = gemm_in[name][0][:2]
         aq, gq, sa, sg = q8_gemm_operands(a, g)   # the whole chunk, one call
         N, M = a.shape
         K = g.shape[1]
-        how, int_mm = int_mm_call(aq, gq)
+        fsets = rotating((a, g), lambda: (
+            torch.randn(a.shape, generator=gen, device=dev),
+            torch.randn(g.shape, generator=gen, device=dev)),
+            4 * N * (M + K))
+        qsets = rotating((aq, gq), lambda: (
+            torch.randint(-127, 128, aq.shape, generator=gen, device=dev,
+                          dtype=torch.int8),
+            torch.randint(-127, 128, gq.shape, generator=gen, device=dev,
+                          dtype=torch.int8)), N * (M + K))
+        how, prep = int_mm_layout(aq, gq)
+        lsets = [prep(x, y) for x, y in qsets] if prep else None
+
+        def pick(sets):
+            return sets[next(rot) % len(sets)]
+
         gemm_t[name] = {
             "nmk": (N, M, K), "int_mm_layout": how,
-            "kernel": cuda_time_ms(lambda: kg.gemm_fisher_cuda(a, g), iters,
-                                   queue_ahead=True),
-            "plain": cuda_time_ms(lambda: kg.gemm_fisher_ref(a, g), iters,
-                                  queue_ahead=True),
-            "library": cuda_time_ms(lambda: torch.matmul(a.t(), g), iters,
-                                    queue_ahead=True),
+            "sets": (len(fsets), len(qsets)),
+            "split": kg.split_plan(N, M, K),
+            "split8": kg.split_plan(N, M, K, kg8.SLAB),
+            "kernel": cuda_time_ms(lambda: kg.gemm_fisher_cuda(*pick(fsets)),
+                                   iters, queue_ahead=True),
+            "plain": cuda_time_ms(lambda: kg.gemm_fisher_ref(*pick(fsets)),
+                                  iters, queue_ahead=True),
+            "library": cuda_time_ms(
+                lambda: torch.matmul(*(lambda x, y: (x.t(), y))(
+                    *pick(fsets))), iters, queue_ahead=True),
+            # 3xTF32: three TF32 products per term on the tensor cores
             "bound": bound_of(4 * (N * M + N * K) + 8 * M * K,
-                              2 * N * M * K, fp32_rate),
+                              3 * 2 * N * M * K, tf32_rate),
+            "bound_simt": 2 * N * M * K / fp32_rate * 1e3,
             "kernel8": cuda_time_ms(
-                lambda: kg8.gemm_fisher_int8_cuda(aq, gq, sa, sg), iters,
-                queue_ahead=True),
+                lambda: kg8.gemm_fisher_int8_cuda(*pick(qsets), sa, sg),
+                iters, queue_ahead=True),
             "plain8": cuda_time_ms(
-                lambda: kg8.gemm_fisher_int8_ref(aq, gq, sa, sg), iters,
-                queue_ahead=True),
-            "library8": (cuda_time_ms(int_mm, iters, queue_ahead=True)
-                         if int_mm else None),
+                lambda: kg8.gemm_fisher_int8_ref(*pick(qsets), sa, sg),
+                iters, queue_ahead=True),
+            "library8": (cuda_time_ms(lambda: torch._int_mm(*pick(lsets)),
+                                      iters, queue_ahead=True)
+                         if lsets else None),
             "bound8": bound_of(N * M + N * K + 4 * (M + K) + 8 * M * K,
                                2 * N * M * K, int8_rate),
         }
@@ -1189,14 +1265,18 @@ def main() -> int:
         f"{bounds['dampen_int8_rowscale'][0]:.5f} ms (bytes, "
         f"{bounds['dampen_int8_rowscale'][0] / tf['rs_kernel'] * 100:.1f}%)")
     for name, gt in gemm_t.items():
-        log(f"[time] gemm_fisher {name} (N, M, K) {gt['nmk']} device: kernel "
-            f"{gt['kernel']:.5f} ms, plain {gt['plain']:.5f} ms, "
-            f"torch.matmul (dW only, no square, TF32 off) "
+        log(f"[time] gemm_fisher {name} (N, M, K) {gt['nmk']}, split S, rows "
+            f"{gt['split']}, {gt['sets'][0]} operand sets rotated beyond L2, "
+            f"device: kernel {gt['kernel']:.5f} ms, plain {gt['plain']:.5f} "
+            f"ms, torch.matmul (dW only, no square, TF32 off) "
             f"{gt['library']:.5f} ms, bound {gt['bound'][0]:.5f} ms "
-            f"({gt['bound'][1]}, {gt['bound'][0] / gt['kernel'] * 100:.1f}%)")
+            f"({gt['bound'][1]} vs 3xTF32, "
+            f"{gt['bound'][0] / gt['kernel'] * 100:.1f}%); FP32-SIMT bound "
+            f"{gt['bound_simt']:.5f} ms")
         lib8 = ("refused" if gt["library8"] is None
                 else f"{gt['library8']:.5f} ms ({gt['int_mm_layout']})")
-        log(f"[time] gemm_fisher_int8 {name} device: kernel "
+        log(f"[time] gemm_fisher_int8 {name}, split S, rows {gt['split8']}, "
+            f"{gt['sets'][1]} operand sets, device: kernel "
             f"{gt['kernel8']:.5f} ms, plain {gt['plain8']:.5f} ms, "
             f"torch._int_mm (dW only, no square) {lib8}, bound "
             f"{gt['bound8'][0]:.5f} ms ({gt['bound8'][1]}, "
@@ -1287,19 +1367,30 @@ def main() -> int:
         "bound_ms": gt["bound" + sfx][0], "bound_by": gt["bound" + sfx][1],
         "library_ms": gt["library" + sfx], "library_call": lib,
         "shape_nmk": list(gt["nmk"]),
+        "bound_basis": basis,
+        "split_s_rows": {"blocks/7/conv2": list(gt["split" + sfx]),
+                         "blocks/1/conv1": list(gl["split" + sfx])},
+        "operand_sets": [gt["sets"][bool(sfx)], gl["sets"][bool(sfx)]],
+        **({"fp32_simt_bound_ms": gt["bound_simt"]} if not sfx else {}),
         "longest_n": {"shape_nmk": list(gl["nmk"]), "ms": gl[key],
                       "plain_ms": gl["plain" + sfx],
                       "bound_ms": gl["bound" + sfx][0],
-                      "library_ms": gl["library" + sfx]},
-    } for kname, key, sfx, replaces, lib, gt, gl in (
+                      "bound_by": gl["bound" + sfx][1],
+                      "library_ms": gl["library" + sfx],
+                      **({"fp32_simt_bound_ms": gl["bound_simt"]}
+                         if not sfx else {})},
+    } for kname, key, sfx, replaces, lib, basis, gt, gl in (
         ("gemm_fisher", "kernel", "",
          "src/repro/kernels/gemm_fisher.py:38",
          "torch.matmul(a.t(), g), TF32 off: dW only, no square",
+         "max(bytes at the memory rate, 3 x 2NMK operations of 3xTF32 at "
+         "the TF32 rate)",
          gemm_t["blocks/7/conv2"], gemm_t["blocks/1/conv1"]),
         ("gemm_fisher_int8", "kernel8", "8",
          "src/repro/kernels/gemm_fisher_int8.py:50",
          f"torch._int_mm({gemm_t['blocks/7/conv2']['int_mm_layout']}): "
          f"int32 dW only, no scale, no square",
+         "max(bytes at the memory rate, 2NMK operations at the int8 rate)",
          gemm_t["blocks/7/conv2"], gemm_t["blocks/1/conv1"]))]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
-"""The port stands alone: no module of ``repro_torch`` imports ``jax`` or
-the JAX package ``repro``, it serves a forget request with both blocked,
+"""The port stands alone: no module of ``repro_torch`` and not the chip
+smoke script imports ``jax`` or the JAX package ``repro``, the port serves
+a forget request with both blocked,
 and its entry points refuse to run on an absent card instead of quietly
 falling back to the host."""
 import ast
@@ -17,8 +18,10 @@ from repro_torch.core import adapters, fisher  # noqa: E402
 from repro_torch.models import vision as V  # noqa: E402
 
 torch.set_num_threads(2)
-SRC = Path(__file__).resolve().parent.parent / "src"
+ROOT = Path(__file__).resolve().parent.parent
+SRC = ROOT / "src"
 PORT = SRC / "repro_torch"
+SMOKE = ROOT / "chip_smoke.py"
 BLOCKED = ("jax", "jaxlib", "repro")
 
 
@@ -27,10 +30,12 @@ def _blocked(name: str) -> bool:
 
 
 def test_no_module_imports_jax_or_repro():
+    """Every import statement, at any depth (inside functions too), of every
+    module of the port and of chip_smoke.py."""
     offenders = []
     files = sorted(PORT.rglob("*.py"))
     assert len(files) >= 20
-    for path in files:
+    for path in files + [SMOKE]:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]
@@ -38,7 +43,7 @@ def test_no_module_imports_jax_or_repro():
                 names = [node.module or ""]
             else:
                 continue
-            offenders += [f"{path.relative_to(SRC)}: {n}" for n in names
+            offenders += [f"{path.relative_to(ROOT)}: {n}" for n in names
                           if _blocked(n)]
     assert not offenders, offenders
 

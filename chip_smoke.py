@@ -12,11 +12,17 @@ Phases, in order; any failure exits non-zero and prints no result line:
      dampen_int8_rowscale; fimd.cu; gemm_fisher.cu; gemm_fisher_int8.cu),
      all started together, with each kernel's registers and spills;
   3. each kernel against its plain PyTorch version on the card. dampen and
-     dampen_int8: at every ResNet-18 leaf shape, three (alpha, lambda) pairs
-     (f32 and bf16 theta for dampen, int8 codes for dampen_int8), and the
-     edge cases (ties, half-way codes, saturation, zeros, NaN/inf,
-     lambda = NaN/inf, alpha = 0, n = 1, n % 4 != 0, misaligned pointers):
-     the result and the mask must be BIT-identical. The four kernels reached
+     dampen_int8: one leaf per launch at every ResNet-18 leaf shape, three
+     (alpha, lambda) pairs (f32 and bf16 theta for dampen, int8 codes for
+     dampen_int8), and the edge cases (ties, half-way codes, saturation,
+     zeros, NaN/inf, lambda = NaN/inf, alpha = 0, n = 1, n % 4 != 0,
+     misaligned pointers): the result and the mask must be BIT-identical;
+     then one launch over a table of leaves, as the request launches them:
+     each layer's table, the whole 56-leaf tree, tables past the 64-leaf
+     capacity, and edge tables (empty leaves, n < 4, odd n, offset views,
+     in place, NaN/inf/1e-38, int8 ties and saturation), every leaf and the
+     selection count BIT-identical and the launch and leaf counters equal to
+     the table. The four kernels reached
      through ``kernels.ops`` only: odd shapes, misaligned pointers, special
      values, extreme codes, and for the GEMMs reductions split over N
      (S > 1) with a ragged last slice and, for gemm_fisher_int8, N = MAX_N
@@ -29,14 +35,16 @@ Phases, in order; any failure exits non-zero and prints no result line:
      seed, pre-trained here for a few hundred AdamW steps so that halting
      means something) served through ``Unlearner`` with ``use_kernel=True``:
      ensure_fisher on a retain batch, a 64-image forget request of one
-     class at chunk 8, in "ssd" mode (all 10 layers, 56 kernel launches)
-     and "ficabu" mode (checkpoint_every=2), then warm requests that must
-     build nothing — first the fp32 path, then the int8 path
+     class at chunk 8, in "ssd" mode (all 10 layers: 10 kernel launches
+     over 56 leaves, one per layer) and "ficabu" mode (checkpoint_every=2;
+     one launch per layer swept), then warm requests that must build
+     nothing — first the fp32 path, then the int8 path
      (``precision="int8"``: dampen_int8 on the codes, every leaf on its q8
      grid, per-layer error against fp32 within INT8_SWEEP_RTOL). All six
-     launch counters are zeroed just before each path and read just after:
-     an fp32 request launches only dampen, an int8 request only
-     dampen_int8;
+     launch counters and the two leaf counters are zeroed just before each
+     path and read just after: an fp32 request launches only dampen, an
+     int8 request only dampen_int8, once per layer swept over every leaf of
+     those layers;
   5. the whole ssd forget with the kernel against the same forget with the
      plain version, under deterministic cuDNN, fp32 and int8:
      bit-identical parameters;
@@ -55,13 +63,16 @@ Phases, in order; any failure exits non-zero and prints no result line:
      1024-row block of N, within INT8_SWEEP_RTOL) and dampen_int8 on the
      dequantised Fisher;
   7. times: each kernel and its plain version at the main paths' shapes
-     (and, for fimd and the GEMMs, one PyTorch library call computing the
-     same function, the GEMMs' dW alone; the GEMMs on operand sets rotated
-     beyond the L2, with their split plans), beside the bound (for
+     (the dampen sweeps as a request launches them, one grouped launch per
+     layer, with the 56 per-leaf launches beside them and the figures from
+     before the grouped kernel; and, for fimd and the GEMMs, one PyTorch
+     library call computing the same function, the GEMMs' dW alone; the
+     GEMMs on operand sets rotated beyond the L2, with their split plans),
+     beside the bound (for
      gemm_fisher the larger of its bytes and the 3xTF32 arithmetic, the
      FP32-SIMT figure beside it), printed as one ``{"kernels": [...]}``
      line, and where a warm fp32 and a warm int8 ssd request spend their
-     time.
+     time (device kernels, the dampen launches among them, idle share).
 
 The last line is the contract line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -96,6 +107,14 @@ PEAKS = {"H100 PCIe": (2.0e12, 51e12, 1513e12, 378e12),
          "H100": (3.35e12, 67e12, 1979e12, 495e12)}
 # the card's L2: timed operand sets rotate through more than this
 L2_BYTES = 50e6
+# the dampen kernels' times before the grouped launch, printed beside this
+# run's (ms, NVIDIA H100 80GB HBM3 at 700 W, from this script, PERF.md
+# sections 5-6): the sweep of 56 per-leaf launches, device and stream time,
+# and the largest leaf
+BEFORE_MS = {"source": "the per-leaf kernel, PERF.md sections 5-6",
+             "dampen": {"sweep": 0.229, "stream": 1.23, "big": 0.01517,
+                        "bf16": 0.01199},
+             "dampen_int8": {"sweep": 0.199, "big": 0.01085}}
 
 
 def log(msg: str) -> None:
@@ -143,8 +162,8 @@ def cuda_time_ms(fn, iters: int, *, queue_ahead: bool = False) -> float:
 
 def profile_request(run):
     """Device busy time of one ``run()`` from torch.profiler: the sum of
-    the CUDA kernels' self time, the number of device kernels, and the top
-    kernels by time."""
+    the CUDA kernels' self time, the number of device kernels, and every
+    kernel by time, as (name, ms, count)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -154,9 +173,9 @@ def profile_request(run):
     evs = [e for e in prof.key_averages()
            if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in evs) / 1e3
-    top = sorted(evs, key=lambda e: -e.self_device_time_total)[:6]
+    ranked = sorted(evs, key=lambda e: -e.self_device_time_total)
     return busy, sum(e.count for e in evs), [
-        (e.key[:70], e.self_device_time_total / 1e3, e.count) for e in top]
+        (e.key, e.self_device_time_total / 1e3, e.count) for e in ranked]
 
 
 def bits(t):
@@ -285,6 +304,164 @@ def check_int8_kernel_against_plain(leaf_shapes, dev):
             for lo in (0, 1, 3):   # lo > 0: pointers off the 4/16-byte grid
                 compare(th[lo:lo + n], i_f[lo:lo + n], i_g[lo:lo + n],
                         alpha, lam, f"edge n={n} lo={lo} a={alpha} l={lam}")
+    return cases, max_err
+
+
+def check_group_kernels_against_plain(layer_shapes, dev):
+    """Phase 3, grouped: dampen_group_cuda and dampen_int8_group_cuda (one
+    launch per 64 leaves) against their plain versions, bit for bit, the
+    selection count included, and the launch and leaf counters against the
+    table: each layer's table, the whole tree, tables past capacity, and
+    edge tables (empty leaves, n < 4, odd n, offset views off the 16-byte
+    grid, in-place out, NaN/inf/1e-38 entries, int8 ties and saturation).
+    Returns the tables checked per kind and the largest |err| per kernel."""
+    from repro_torch.kernels import dampen as kd
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    nan, inf = float("nan"), float("inf")
+    special = torch.tensor([0.0, -0.0, nan, inf, -inf, 1.0, 2.0, 1e-30,
+                            1e-38, 3.0], device=dev)
+    dtypes = {"f32": torch.float32, "bf16": torch.bfloat16,
+              "int8": torch.int8}
+    cases = dict.fromkeys(dtypes, 0)
+    max_err = {"dampen": 0.0, "dampen_int8": 0}
+
+    def compare(kind, thetas, i_fs, i_gs, alpha, lam, what, in_place=False):
+        int8 = kind == "int8"
+        cuda_fn = kd.dampen_int8_group_cuda if int8 else kd.dampen_group_cuda
+        ref_fn = kd.dampen_int8_group_ref if int8 else kd.dampen_group_ref
+        counters = lambda: ((kd.INT8_LAUNCHES, kd.INT8_LEAVES) if int8  # noqa: E731
+                            else (kd.LAUNCHES, kd.LEAVES))
+        want, want_m, want_n = ref_fn(thetas, i_fs, i_gs, alpha, lam)
+        (l0, v0) = counters()
+        got, got_m, got_n = cuda_fn(thetas, i_fs, i_gs, alpha, lam,
+                                    outs=thetas if in_place else None)
+        torch.cuda.synchronize()
+        (l1, v1) = counters()
+        # one launch per MAX_LEAVES leaves that hold an element
+        launches = sum(any(t.numel() for t in thetas[i:i + kd.MAX_LEAVES])
+                       for i in range(0, len(thetas), kd.MAX_LEAVES))
+        if (l1 - l0, v1 - v0) != (launches, len(thetas) if launches else 0):
+            raise AssertionError(f"grouped {kind} {what}: {l1 - l0} launches "
+                                 f"over {v1 - v0} leaves, expected "
+                                 f"{launches} over {len(thetas)}")
+        if int(got_n) != int(want_n):
+            raise AssertionError(f"grouped {kind} {what}: count "
+                                 f"{int(got_n)} != plain {int(want_n)}")
+        key = "dampen_int8" if int8 else "dampen"
+        for i, (g, w, gm, wm) in enumerate(zip(got, want, got_m, want_m)):
+            if not torch.equal(bits(g), bits(w)) or not torch.equal(gm, wm) \
+                    or (in_place and g.data_ptr() != thetas[i].data_ptr()):
+                raise AssertionError(f"grouped {kind} kernel != plain: "
+                                     f"{what}, leaf {i} {tuple(g.shape)}")
+            d = (g.double() - w.double()).abs()
+            d = d[torch.isfinite(d)]
+            if d.numel():
+                max_err[key] = max(max_err[key], type(max_err[key])(d.max()))
+        cases[kind] += 1
+
+    def operands(n, kind, extra=0):
+        if kind == "int8":
+            th = torch.randint(-128, 128, (n + extra,), generator=gen,
+                               device=dev, dtype=torch.int8)
+        else:
+            th = torch.randn(n + extra, generator=gen, device=dev).to(
+                dtypes[kind])
+        i_g = torch.rand(n + extra, generator=gen, device=dev) + 1e-6
+        i_f = torch.rand(n + extra, generator=gen, device=dev) * 20 * i_g
+        return th, i_f, i_g
+
+    def table(shapes, kind, alpha):
+        out = ([], [], [])
+        for shape in shapes:
+            n = torch.Size(shape).numel()
+            th, i_f, i_g = operands(n, kind)
+            # ties: i_f == f32(alpha) * i_g exactly, never selected
+            tie = torch.rand(n, generator=gen, device=dev) < 0.01
+            i_f = torch.where(tie, alpha * i_g, i_f)
+            for acc, t in zip(out, (th, i_f, i_g)):
+                acc.append(t.view(shape))
+        return out
+
+    every = [s for shapes in layer_shapes for s in shapes]
+    for kind in dtypes:
+        for alpha, lam in PAIRS:
+            for j, shapes in enumerate(layer_shapes):
+                compare(kind, *table(shapes, kind, alpha), alpha, lam,
+                        f"layer {j} a={alpha} l={lam}")
+            compare(kind, *table(every, kind, alpha), alpha, lam,
+                    f"all {len(every)} leaves a={alpha} l={lam}")
+        # past capacity: the tree twice (2 launches), and 150 small leaves
+        # of 0..99 elements (3 launches)
+        compare(kind, *table(every + every, kind, 10.0), 10.0, 1.0,
+                f"{2 * len(every)} leaves")
+        small = [(int(n),) for n in torch.randint(
+            0, 100, (150,), generator=gen, device=dev)]
+        compare(kind, *table(small, kind, 2.0), 2.0, 0.5, "150 small leaves")
+
+    # edge tables: every leaf an offset view (lo > 0: off the 4/16-byte
+    # grid), empty leaves among them, special values, every pair and the
+    # odd ones; in place and not
+    edge_n = (0, 1, 2, 3, 4, 5, 7, 0, 33, 1023, 4097, 64)
+    codes = torch.arange(-128, 128, device=dev).to(torch.int8)
+    ones = torch.ones(256, device=dev)
+    for kind in dtypes:
+        los = (0, 1, 3) if kind == "int8" else (0, 1)
+        for alpha, lam in PAIRS + [(2.0, nan), (2.0, inf), (0.0, 1.0),
+                                   (0.5, 0.5), (2.0, 10.0)]:
+            for in_place in (False, True):
+                ths, i_fs, i_gs = [], [], []
+                for i, n in enumerate(edge_n):
+                    lo = los[i % len(los)]
+                    th, i_f, i_g = operands(n, kind, extra=lo)
+                    pick = lambda: special[torch.randint(  # noqa: E731
+                        0, len(special), (n + lo,), generator=gen,
+                        device=dev)]
+                    hit = lambda: torch.rand(  # noqa: E731
+                        n + lo, generator=gen, device=dev) < 0.3
+                    if kind != "int8":
+                        th = torch.where(hit(), pick().to(th.dtype), th)
+                    i_f = torch.where(hit(), pick(), i_f)
+                    i_g = torch.where(hit(), pick(), i_g)
+                    ths.append(th[lo:])
+                    i_fs.append(i_f[lo:])
+                    i_gs.append(i_g[lo:])
+                if kind == "int8":
+                    # every code at beta = 0.5 (half-way products round to
+                    # even) and at beta = -10 (saturation at +-127)
+                    ths += [codes.clone(), codes.clone()]
+                    i_fs += [ones, ones]
+                    i_gs += [ones, -ones]
+                compare(kind, ths, i_fs, i_gs, alpha, lam,
+                        f"edge table a={alpha} l={lam} in_place={in_place}",
+                        in_place=in_place)
+
+    # a table that the wrapper converts before it launches, as the
+    # reference converts its operands: non-contiguous thetas and Fisher
+    # operands, the Fisher in f64 and bf16
+    for kind in dtypes:
+        ths, i_fs, i_gs = table([(64, 33), (7, 5), (130, 1)], kind, 2.0)
+        compare(kind, [t.t() for t in ths], [f.t().double() for f in i_fs],
+                [g.t().to(torch.bfloat16) for g in i_gs], 2.0, 0.5,
+                "converted table")
+    # refused before any launch: a leaf off the card, an out that the
+    # kernel cannot write
+    th, i_f, i_g = operands(64, "f32")
+    sq = lambda t: t.view(8, 8)  # noqa: E731
+    before = (kd.LAUNCHES, kd.LEAVES)
+    for what, bad in (
+            ("a leaf on the CPU", ([th, th.cpu()], [i_f, i_f], [i_g, i_g],
+                                   None)),
+            ("a non-contiguous out", ([sq(th)], [sq(i_f)], [sq(i_g)],
+                                      [sq(th).t()]))):
+        try:
+            kd.dampen_group_cuda(*bad[:3], 2.0, 0.5, outs=bad[3])
+        except ValueError:
+            continue
+        raise AssertionError(f"grouped f32: a table with {what} was not "
+                             f"refused")
+    if (kd.LAUNCHES, kd.LEAVES) != before:
+        raise AssertionError("grouped f32: a refused table launched")
     return cases, max_err
 
 
@@ -687,6 +864,21 @@ def main() -> int:
     log(f"[kernel] dampen_int8 bit-identical to dampen_int8_ref in {cases8} "
         f"cases (56 leaf shapes x 3 pairs + half-way, saturation, edges), "
         f"max |err| {max_err8} ({time.perf_counter() - t0:.1f} s)")
+    adapter = adapters.resnet_adapter(cfg, device="cuda")
+    layer_shapes = [[tuple(t.shape) for t in
+                     tree_leaves(adapter.get_layer(params, j))]
+                    for j in range(adapter.n_layers - 1, -1, -1)]
+    t0 = time.perf_counter()
+    gcases, gmax_err = check_group_kernels_against_plain(layer_shapes, dev)
+    log(f"[kernel] grouped dampen and dampen_int8 (one launch per 64 leaves) "
+        f"bit-identical to their plain versions, selection count included, "
+        f"launch and leaf counters equal to the table, in {gcases} tables "
+        f"(each of the {len(layer_shapes)} layers' tables "
+        f"({[len(s) for s in layer_shapes]} leaves) and the "
+        f"{len(shapes)}-leaf tree x 3 pairs, {2 * len(shapes)} and 150 "
+        f"leaves past capacity, edge tables of offset views x 8 pairs x "
+        f"in place or not), max |err| {gmax_err} "
+        f"({time.perf_counter() - t0:.1f} s)")
     t0 = time.perf_counter()
     edge = check_fisher_kernels_against_plain(dev)
     log(f"[kernel] fimd (rtol 1e-5, atol 0), gemm_fisher (rel L2 1e-5), "
@@ -720,7 +912,6 @@ def main() -> int:
     log(f"[slice] before: forget acc {acc(params, fx, fy):.4f}, retain acc "
         f"{acc(params, rx, ry):.4f}; tau {tau:.4f}")
     loss_fn = lambda p, b: V.cls_loss(V.resnet_forward(p, cfg, b[0]), b[1])  # noqa: E731
-    adapter = adapters.resnet_adapter(cfg, device="cuda")
     spec = lambda mode, **kw: UnlearnSpec.for_mode(  # noqa: E731
         mode, alpha=10.0, lam=1.0, tau=tau, checkpoint_every=2, chunk_size=8,
         **kw)
@@ -738,49 +929,60 @@ def main() -> int:
 
     def zero_counts():
         kd.LAUNCHES = kd.INT8_LAUNCHES = kd.ROWSCALE_LAUNCHES = 0
+        kd.LEAVES = kd.INT8_LEAVES = 0
         kf.LAUNCHES = kg.LAUNCHES = kg8.LAUNCHES = 0
 
+    def dampen_counts():
+        return (kd.LAUNCHES, kd.LEAVES, kd.INT8_LAUNCHES, kd.INT8_LEAVES)
+
     def serve(path, pairs):
-        """Drive one path: all six launch counters zeroed just before, read
-        just after; per request the launches of each kernel."""
+        """Drive one path: all six launch counters (and the two leaf
+        counters) zeroed just before, read just after; per request the
+        launches of each dampen kernel and the leaves they dampened."""
         zero_counts()                          # this path starts
         runs = []
         for name, unl in pairs:
-            l0, i0 = kd.LAUNCHES, kd.INT8_LAUNCHES
+            c0 = dampen_counts()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             new, st = unl.forget(ForgetRequest(fx, fy, tag=name),
                                  params=params)
             torch.cuda.synchronize()
-            runs.append((name, new, st, kd.LAUNCHES - l0,
-                         kd.INT8_LAUNCHES - i0, time.perf_counter() - t0))
-        counts = (kd.LAUNCHES, kd.INT8_LAUNCHES)   # this path ends
+            runs.append((name, new, st,
+                         tuple(b - a for a, b in zip(c0, dampen_counts())),
+                         time.perf_counter() - t0))
+        counts = dampen_counts()               # this path ends
         if fisher_counts() != (0, 0, 0, 0):
             raise AssertionError(f"{path} requests launched fimd/gemm_fisher/"
                                  f"gemm_fisher_int8/rowscale "
                                  f"{fisher_counts()} times")
-        for i, (name, new, st, launches, launches8, secs) in enumerate(runs):
+        for i, (name, new, st, dc, secs) in enumerate(runs):
             warm = i >= 2
+            layers = st["stopped_at_l"]
             swept = sum(len(tree_leaves(adapter.get_layer(new, 10 - l)))
-                        for l in range(1, st["stopped_at_l"] + 1))
+                        for l in range(1, layers + 1))
             log(f"[slice] {path} {name:6s} {'warm' if warm else 'cold'}: "
-                f"stopped_at_l={st['stopped_at_l']} "
+                f"stopped_at_l={layers} "
                 f"checkpoints={st['checkpoints_hit']} "
                 f"macs_vs_ssd_pct={st['macs_vs_ssd_pct']:.4f} "
-                f"launches dampen={launches} dampen_int8={launches8} "
+                f"launches dampen={dc[0]} over {dc[1]} leaves, "
+                f"dampen_int8={dc[2]} over {dc[3]} leaves "
                 f"builds={st['engine']['compiles']} "
                 f"hits={st['engine']['cache_hits']} wall={secs * 1e3:.1f} ms "
                 f"forget acc {acc(new, fx, fy):.4f} retain acc "
                 f"{acc(new, rx, ry):.4f}")
-            mine, other = ((launches, launches8) if path == "fp32"
-                           else (launches8, launches))
-            if mine != swept or other != 0:
+            # one launch per layer swept, over every leaf of those layers
+            mine, other = ((dc[:2], dc[2:]) if path == "fp32"
+                           else (dc[2:], dc[:2]))
+            if mine != (layers, swept) or other != (0, 0):
                 raise AssertionError(
-                    f"{path} {name}: {launches} dampen and {launches8} "
-                    f"dampen_int8 launches for {swept} dampened leaves")
-            if name == "ssd" and (mine != 56 or st["stopped_at_l"] != 10):
-                raise AssertionError(f"{path} ssd sweep: {mine} launches, "
-                                     f"stopped at {st['stopped_at_l']}")
+                    f"{path} {name}: {dc[0]} dampen launches over {dc[1]} "
+                    f"leaves and {dc[2]} dampen_int8 launches over {dc[3]} "
+                    f"leaves for {layers} layers of {swept} leaves")
+            if name == "ssd" and (mine != (10, 56) or layers != 10):
+                raise AssertionError(f"{path} ssd sweep: {mine[0]} launches "
+                                     f"over {mine[1]} leaves, stopped at "
+                                     f"{layers}")
             if st["engine"]["precision"] != path:
                 raise AssertionError(f"{path} {name}: the engine ran "
                                      f"{st['engine']['precision']}")
@@ -797,16 +999,18 @@ def main() -> int:
                                      f"edited {k}")
         return runs, counts
 
-    runs, (main_launches, _) = serve(
+    runs, (main_launches, main_leaves, _, _) = serve(
         "fp32", (("ssd", ssd), ("ficabu", ficabu), ("ssd", ssd),
                  ("ficabu", ficabu)))
     spec8 = lambda mode: spec(mode, use_kernel=True,  # noqa: E731
                               precision="int8", quant=QuantSpec())
     ssd8 = ssd.with_spec(spec8("ssd"))
     ficabu8 = ssd.with_spec(spec8("ficabu"))
-    runs8, (_, main_launches8) = serve(
+    runs8, (_, _, main_launches8, main_leaves8) = serve(
         "int8", (("ssd", ssd8), ("ficabu", ficabu8), ("ssd", ssd8),
                  ("ficabu", ficabu8)))
+    # launches of the warm ssd request, in its own precision
+    ssd_launches = {"fp32": runs[2][3][0], "int8": runs8[2][3][2]}
     for (name, new8, *_), (name32, new32, *_) in zip(runs8[:2], runs[:2]):
         if not on_q8_grid(bridge.paths(new8), before):
             raise AssertionError(f"int8 {name}: a leaf left its q8 grid")
@@ -1035,18 +1239,31 @@ def main() -> int:
                      f"from the fp32 dW" for k, v in int8_rel.items()
                      if not v <= INT8_SWEEP_RTOL]
 
-    # 7. times at the main paths' shapes
-    fl = bridge.paths(fisher_g)
+    # 7. times at the main paths' shapes. The sweep as a request launches
+    # it: one grouped launch per layer, back to front, on the layers' own
+    # tensors against the global Fisher; beside it the same 56 leaves one
+    # launch each, as the request launched them before the grouped kernel
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
-    sweep_ops = []
-    for k, th in bridge.paths(params).items():
-        i_f = torch.rand(th.shape, generator=gen, device=dev) * 20 * fl[k]
-        sweep_ops.append((th, i_f, fl[k]))
+    sweep_tables = []
+    for j in range(adapter.n_layers - 1, -1, -1):
+        i_gs = tree_leaves(adapter.get_layer(fisher_g, j))
+        sweep_tables.append((
+            tree_leaves(adapter.get_layer(params, j)),
+            [torch.rand(g.shape, generator=gen, device=dev) * 20 * g
+             for g in i_gs], i_gs))
+    sweep_ops = [leaf for tab in sweep_tables for leaf in zip(*tab)]
     n_sweep = sum(t.numel() for t, _, _ in sweep_ops)
+    if len(sweep_ops) != 56 or n_sweep != n_params:
+        raise AssertionError(f"the timed sweep holds {len(sweep_ops)} leaves "
+                             f"of {n_sweep} elements")
 
     def sweep(fn):
         for th, i_f, i_g in sweep_ops:
             fn(th, i_f, i_g, 10.0, 1.0)
+
+    def sweep_grouped(fn, tables=sweep_tables):
+        for ths, i_fs, i_gs in tables:
+            fn(ths, i_fs, i_gs, 10.0, 1.0)
 
     big = max(shapes, key=lambda s: torch.Size(s).numel())
     n_big = torch.Size(big).numel()
@@ -1069,12 +1286,20 @@ def main() -> int:
         fn(th, i_f, i_g, 10.0, 1.0)
 
     t = {
-        "sweep_kernel": cuda_time_ms(lambda: sweep(kd.dampen_cuda), 8,
-                                     queue_ahead=True),
-        "sweep_plain": cuda_time_ms(lambda: sweep(kd.dampen_ref), 1,
-                                    queue_ahead=True),
-        "sweep_kernel_stream": cuda_time_ms(lambda: sweep(kd.dampen_cuda), 20),
-        "sweep_plain_stream": cuda_time_ms(lambda: sweep(kd.dampen_ref), 20),
+        "sweep_kernel": cuda_time_ms(
+            lambda: sweep_grouped(kd.dampen_group_cuda), 8, queue_ahead=True),
+        "sweep_per_leaf": cuda_time_ms(lambda: sweep(kd.dampen_cuda), 8,
+                                       queue_ahead=True),
+        "sweep_plain": cuda_time_ms(
+            lambda: sweep_grouped(kd.dampen_group_ref), 1, queue_ahead=True),
+        "sweep_kernel_stream": cuda_time_ms(
+            lambda: sweep_grouped(kd.dampen_group_cuda), 20),
+        "sweep_ops_stream": cuda_time_ms(
+            lambda: sweep_grouped(ops.dampen_group), 20),
+        "sweep_per_leaf_stream": cuda_time_ms(lambda: sweep(kd.dampen_cuda),
+                                              20),
+        "sweep_plain_stream": cuda_time_ms(
+            lambda: sweep_grouped(kd.dampen_group_ref), 20),
         "big_kernel": cuda_time_ms(lambda: one_big(kd.dampen_cuda), 200,
                                    queue_ahead=True),
         "big_plain": cuda_time_ms(lambda: one_big(kd.dampen_ref), 50,
@@ -1084,23 +1309,42 @@ def main() -> int:
         "bf16_plain": cuda_time_ms(lambda: one_big_bf16(kd.dampen_ref), 40,
                                    queue_ahead=True),
     }
-    bound = {"sweep": n_sweep * 17 / rate * 1e3, "big": n_big * 17 / rate
-             * 1e3, "bf16": n_big * 13 / rate * 1e3}
-    for key in ("sweep", "big", "bf16"):
-        log(f"[time] dampen {key:5s} device: kernel {t[key + '_kernel']:.5f}"
-            f" ms, plain {t[key + '_plain']:.5f} ms, bound "
-            f"{bound[key]:.5f} ms ({bound[key] / t[key + '_kernel'] * 100:.1f}"
-            f"% of the memory bound)")
-    log(f"[time] dampen sweep stream (host launch overhead included): "
-        f"kernel {t['sweep_kernel_stream']:.5f} ms, plain "
-        f"{t['sweep_plain_stream']:.5f} ms")
-    log(f"[time] (sweep = the 56 leaves of one ssd request, {n_sweep} "
-        f"elements, f32; big = the largest leaf {big}, {n_big} elements; "
-        f"device = launches queued ahead, back to back on the card)")
+    # 17 bytes per element (theta, i_f, i_g read; theta', mask written) and
+    # each layer's 8-byte count
+    bound = {"sweep": (n_sweep * 17 + 8 * len(sweep_tables)) / rate * 1e3,
+             "big": n_big * 17 / rate * 1e3, "bf16": n_big * 13 / rate * 1e3}
 
-    # the int8 kernel at the int8 path's shapes: the same 56 leaves (and
-    # four sets of the largest, 4 x 21 MB) as int8 codes
-    sweep8_ops = [(q8_quantize(th)[0], i_f, i_g) for th, i_f, i_g in sweep_ops]
+    def time_lines(kernel, tk, bk, keys):
+        for key in keys:
+            before = BEFORE_MS[kernel].get(key)
+            log(f"[time] {kernel} {key:5s} device: kernel "
+                f"{tk[key + '_kernel']:.5f} ms, plain "
+                f"{tk[key + '_plain']:.5f} ms, bound {bk[key]:.5f} ms "
+                f"({bk[key] / tk[key + '_kernel'] * 100:.1f}% of the memory "
+                f"bound); before: {before} ms")
+        log(f"[time] {kernel} sweep per leaf (56 launches) device: "
+            f"{tk['sweep_per_leaf']:.5f} ms "
+            f"({bk['sweep'] / tk['sweep_per_leaf'] * 100:.1f}% of the bound)")
+        before = BEFORE_MS[kernel].get("stream")
+        log(f"[time] {kernel} sweep stream (host launch overhead included): "
+            f"grouped {tk['sweep_kernel_stream']:.5f} ms, through kernels.ops "
+            f"{tk['sweep_ops_stream']:.5f} ms, per leaf "
+            f"{tk['sweep_per_leaf_stream']:.5f} ms, plain "
+            f"{tk['sweep_plain_stream']:.5f} ms"
+            + (f"; before: {before} ms" if before else ""))
+
+    time_lines("dampen", t, bound, ("sweep", "big", "bf16"))
+    log(f"[time] (sweep = the {len(sweep_tables)} grouped launches of one ssd "
+        f"request, one per layer, {len(sweep_ops)} leaves, {n_sweep} "
+        f"elements, f32; big = the largest leaf {big}, {n_big} elements, "
+        f"one launch; device = launches queued ahead, back to back on the "
+        f"card; before = {BEFORE_MS['source']})")
+
+    # the int8 kernel at the int8 path's shapes: the same tables (and four
+    # sets of the largest leaf, 4 x 21 MB) as int8 codes
+    sweep8_tables = [([q8_quantize(th)[0] for th in ths], i_fs, i_gs)
+                     for ths, i_fs, i_gs in sweep_tables]
+    sweep8_ops = [leaf for tab in sweep8_tables for leaf in zip(*tab)]
     sets8 = [(q8_quantize(st[0])[0],) + st[1:] for st in sets]
 
     def sweep8(fn):
@@ -1112,32 +1356,34 @@ def main() -> int:
         fn(q, i_f, i_g, 10.0, 1.0)
 
     t8 = {
-        "sweep_kernel": cuda_time_ms(lambda: sweep8(kd.dampen_int8_cuda), 8,
-                                     queue_ahead=True),
-        "sweep_plain": cuda_time_ms(lambda: sweep8(kd.dampen_int8_ref), 1,
-                                    queue_ahead=True),
+        "sweep_kernel": cuda_time_ms(
+            lambda: sweep_grouped(kd.dampen_int8_group_cuda, sweep8_tables),
+            8, queue_ahead=True),
+        "sweep_per_leaf": cuda_time_ms(lambda: sweep8(kd.dampen_int8_cuda),
+                                       8, queue_ahead=True),
+        "sweep_plain": cuda_time_ms(
+            lambda: sweep_grouped(kd.dampen_int8_group_ref, sweep8_tables),
+            1, queue_ahead=True),
         "sweep_kernel_stream": cuda_time_ms(
+            lambda: sweep_grouped(kd.dampen_int8_group_cuda, sweep8_tables),
+            20),
+        "sweep_ops_stream": cuda_time_ms(
+            lambda: sweep_grouped(ops.dampen_int8_group, sweep8_tables), 20),
+        "sweep_per_leaf_stream": cuda_time_ms(
             lambda: sweep8(kd.dampen_int8_cuda), 20),
         "sweep_plain_stream": cuda_time_ms(
-            lambda: sweep8(kd.dampen_int8_ref), 20),
+            lambda: sweep_grouped(kd.dampen_int8_group_ref, sweep8_tables),
+            20),
         "big_kernel": cuda_time_ms(lambda: one_big8(kd.dampen_int8_cuda),
                                    200, queue_ahead=True),
         "big_plain": cuda_time_ms(lambda: one_big8(kd.dampen_int8_ref), 50,
                                   queue_ahead=True),
     }
     # 11 bytes per element: theta_q (1) + i_f (4) + i_g (4) read, codes (1)
-    # + mask (1) written
-    bound8 = {"sweep": n_sweep * 11 / rate * 1e3,
+    # + mask (1) written; and each layer's count
+    bound8 = {"sweep": (n_sweep * 11 + 8 * len(sweep_tables)) / rate * 1e3,
               "big": n_big * 11 / rate * 1e3}
-    for key in ("sweep", "big"):
-        log(f"[time] dampen_int8 {key:5s} device: kernel "
-            f"{t8[key + '_kernel']:.5f} ms, plain {t8[key + '_plain']:.5f} ms,"
-            f" bound {bound8[key]:.5f} ms "
-            f"({bound8[key] / t8[key + '_kernel'] * 100:.1f}% of the memory "
-            f"bound)")
-    log(f"[time] dampen_int8 sweep stream (host launch overhead included): "
-        f"kernel {t8['sweep_kernel_stream']:.5f} ms, plain "
-        f"{t8['sweep_plain_stream']:.5f} ms")
+    time_lines("dampen_int8", t8, bound8, ("sweep", "big"))
 
     # the four kernels reached through kernels.ops, at the largest shapes of
     # the [fisher kernels] phase (and gemm at the longest reduction too)
@@ -1293,14 +1539,18 @@ def main() -> int:
             torch.cuda.synchronize()
             walls.append((time.perf_counter() - t0) * 1e3)
         wall = sorted(walls)[1]
-        busy, n_kernels, top = profile_request(
+        busy, n_kernels, ranked = profile_request(
             lambda: unl.forget(ForgetRequest(fx, fy), params=params))
         prof[path] = (wall, busy, n_kernels)
+        damp = [(ms, count) for name, ms, count in ranked
+                if "dampen_group_kernel" in name]
         log(f"[profile] warm {path} ssd request: wall {wall:.2f} ms (median "
             f"of {[round(w, 2) for w in walls]}), device busy {busy:.3f} ms, "
-            f"idle share {1 - busy / wall:.3f}, {n_kernels} device kernels")
-        for name, ms, count in top:
-            log(f"[profile]   {ms:9.3f} ms  x{count:<5d} {name}")
+            f"idle share {1 - busy / wall:.3f}, {n_kernels} device kernels, "
+            f"of them {sum(c for _, c in damp)} dampen_group_kernel "
+            f"({sum(ms for ms, _ in damp):.4f} ms)")
+        for name, ms, count in ranked[:6]:
+            log(f"[profile]   {ms:9.3f} ms  x{count:<5d} {name[:70]}")
     log(f"[profile] int8 / fp32 warm ssd request: wall "
         f"{prof['int8'][0] / prof['fp32'][0]:.3f}x, device busy "
         f"{prof['int8'][1] / prof['fp32'][1]:.3f}x, device kernels "
@@ -1313,12 +1563,17 @@ def main() -> int:
         "name": "dampen", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/dampen.cu",
         "replaces": "src/repro/kernels/dampen.py:28",
-        "launches": main_launches, "max_abs_err": max_err,
+        "launches": main_launches, "leaves": main_leaves,
+        "launches_per_ssd_request": ssd_launches["fp32"],
+        "max_abs_err": max(max_err, gmax_err["dampen"]),
         "ms": t["sweep_kernel"], "plain_ms": t["sweep_plain"],
         "bound_ms": bound["sweep"], "bound_by": "bytes",
         "library_ms": None,
         "stream_ms": t["sweep_kernel_stream"],
+        "ops_stream_ms": t["sweep_ops_stream"],
         "plain_stream_ms": t["sweep_plain_stream"],
+        "per_leaf_ms": t["sweep_per_leaf"],
+        "per_leaf_stream_ms": t["sweep_per_leaf_stream"],
         "largest_leaf": {"n": n_big, "ms": t["big_kernel"],
                          "plain_ms": t["big_plain"],
                          "bound_ms": bound["big"],
@@ -1329,12 +1584,17 @@ def main() -> int:
         "name": "dampen_int8", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/dampen.cu",
         "replaces": "src/repro/kernels/dampen.py:39",
-        "launches": main_launches8, "max_abs_err": max_err8,
+        "launches": main_launches8, "leaves": main_leaves8,
+        "launches_per_ssd_request": ssd_launches["int8"],
+        "max_abs_err": max(max_err8, gmax_err["dampen_int8"]),
         "ms": t8["sweep_kernel"], "plain_ms": t8["sweep_plain"],
         "bound_ms": bound8["sweep"], "bound_by": "bytes",
         "library_ms": None,
         "stream_ms": t8["sweep_kernel_stream"],
+        "ops_stream_ms": t8["sweep_ops_stream"],
         "plain_stream_ms": t8["sweep_plain_stream"],
+        "per_leaf_ms": t8["sweep_per_leaf"],
+        "per_leaf_stream_ms": t8["sweep_per_leaf_stream"],
         "largest_leaf": {"n": n_big, "ms": t8["big_kernel"],
                          "plain_ms": t8["big_plain"],
                          "bound_ms": bound8["big"]},

@@ -6,13 +6,15 @@ builds on (Foster et al., AAAI'24), Eqs. (3)-(4):
 
 ``dampen_tree`` is the one-shot edit over a whole parameter tree;
 ``dampen_array`` is the per-tensor primitive that the hand-written kernel
-(``repro_torch.kernels.dampen``) implements for the card. ``dampen_q8_tree``
-and ``dampen_q8_array`` are the same edit on int8 weight codes, the
-``precision="int8"`` path, with its own kernel.
+(``repro_torch.kernels.dampen``) implements for the card, one launch over
+all the tree's leaves. ``dampen_q8_tree`` and ``dampen_q8_array`` are the
+same edit on int8 weight codes, the ``precision="int8"`` path, with its own
+kernel. ``dampen_tree_counted`` is either of them plus the kernel's count of
+selected elements, for the fused step.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -37,12 +39,11 @@ def dampen_tree(params: Params, fisher_f: Params, fisher_g: Params,
                 alpha: float, lam: float, use_kernel: bool = False, *,
                 in_place: bool = False) -> Tuple[Params, Params]:
     """Apply SSD dampening to every leaf (leaves matched by key). Returns
-    (params', selection masks). ``use_kernel`` routes every leaf through
-    ``kernels.ops.dampen`` (the CUDA kernel for tensors on the card);
-    ``in_place`` writes theta' into the caller's tensors."""
-    return _dampen_leaves("dampen_tree", kops.dampen, dampen_array, params,
-                          fisher_f, fisher_g, alpha, lam, use_kernel,
-                          in_place)
+    (params', selection masks). ``use_kernel`` dampens all leaves in one
+    ``kernels.ops.dampen_group`` call (one CUDA launch for tensors on the
+    card); ``in_place`` writes theta' into the caller's tensors."""
+    return dampen_tree_counted("fp32", params, fisher_f, fisher_g, alpha,
+                               lam, use_kernel, in_place=in_place)[:2]
 
 
 def dampen_q8_array(theta_q: torch.Tensor, i_f: torch.Tensor,
@@ -60,22 +61,28 @@ def dampen_q8_tree(q_params: Params, fisher_f: Params, fisher_g: Params,
                    in_place: bool = False) -> Tuple[Params, Params]:
     """SSD dampening over a tree of int8 weight codes (the engine's
     precision="int8" edit representation). Returns (codes', masks).
-    ``use_kernel`` routes every leaf through ``kernels.ops.dampen_int8``;
-    ``in_place`` writes the codes into the given tensors."""
-    return _dampen_leaves("dampen_q8_tree", kops.dampen_int8,
-                          dampen_q8_array, q_params, fisher_f, fisher_g,
-                          alpha, lam, use_kernel, in_place)
+    ``use_kernel`` dampens all leaves in one ``kernels.ops.dampen_int8_group``
+    call; ``in_place`` writes the codes into the given tensors."""
+    return dampen_tree_counted("int8", q_params, fisher_f, fisher_g, alpha,
+                               lam, use_kernel, in_place=in_place)[:2]
 
 
-def _dampen_leaves(name, kernel_fn, plain_fn, params, fisher_f, fisher_g,
-                   alpha, lam, use_kernel, in_place):
-    def one(t, f, g):
-        if use_kernel:
-            return kernel_fn(t, f, g, alpha, lam,
-                             out=t if in_place else None)
-        new, mask = plain_fn(t, f, g, alpha, lam)
-        return (t.copy_(new) if in_place else new), mask
+# per precision: the name in errors, the kernel over a table of leaves, and
+# the plain per-leaf version
+_EDITS = {"fp32": ("dampen_tree", kops.dampen_group, dampen_array),
+          "int8": ("dampen_q8_tree", kops.dampen_int8_group, dampen_q8_array)}
 
+
+def dampen_tree_counted(precision: str, params: Params, fisher_f: Params,
+                        fisher_g: Params, alpha: float, lam: float,
+                        use_kernel: bool = False, *, in_place: bool = False
+                        ) -> Tuple[Params, Params, Optional[torch.Tensor]]:
+    """``dampen_tree`` (precision "fp32") or ``dampen_q8_tree`` ("int8"),
+    plus the number of selected elements: (params', masks, n_selected).
+    With ``use_kernel`` the leaves go through the group kernel in one call
+    and ``n_selected`` is its int64 count from the same pass; the plain path
+    dampens leaf by leaf and returns ``n_selected`` None (sum the masks)."""
+    name, group_fn, plain_fn = _EDITS[precision]
     flat_p = tree_leaves(params)
     flat_f = tree_leaves(fisher_f)
     flat_g = tree_leaves(fisher_g)
@@ -84,10 +91,18 @@ def _dampen_leaves(name, kernel_fn, plain_fn, params, fisher_f, fisher_g,
             f"{name} needs Fisher trees shaped like the parameters, got "
             f"{len(flat_p)} parameter leaves, {len(flat_f)} forget-Fisher "
             f"and {len(flat_g)} global-Fisher leaves")
-    outs = [one(t, f, g) for t, f, g in zip(flat_p, flat_f, flat_g)]
-    new = tree_unflatten(params, [o[0] for o in outs])
-    masks = tree_unflatten(params, [o[1] for o in outs])
-    return new, masks
+    if use_kernel:
+        new, masks, count = group_fn(flat_p, flat_f, flat_g, alpha, lam,
+                                     outs=flat_p if in_place else None)
+    else:
+        outs = [plain_fn(t, f, g, alpha, lam)
+                for t, f, g in zip(flat_p, flat_f, flat_g)]
+        new = [t.copy_(o[0]) if in_place else o[0]
+               for t, o in zip(flat_p, outs)]
+        masks = [o[1] for o in outs]
+        count = None
+    return (tree_unflatten(params, new), tree_unflatten(params, masks),
+            count)
 
 
 def selection_fraction(masks: Params) -> float:

@@ -9,7 +9,8 @@ under the same key (``repro_torch.engine.programs``). Per layer it runs:
   * the Fisher square-accumulate over chunks (f32),
   * SSD/Balanced dampening, through the hand-written CUDA kernel
     (``repro_torch.kernels.dampen``) when ``use_kernel`` is set — on float
-    weights, or on int8 weight codes for ``precision="int8"``.
+    weights, or on int8 weight codes for ``precision="int8"`` — in one
+    launch over the layer's leaves, which also counts the selection.
 
 (alpha, lambda) arrive as f32-rounded Python floats, per call, so Balanced
 Dampening's per-layer S(l)-scaled values never rebuild a step. The
@@ -23,7 +24,7 @@ from typing import Any, Callable, Hashable, Optional, Tuple
 import torch
 
 from repro_torch.core.cau import _restore_excluded
-from repro_torch.core.ssd import dampen_q8_tree, dampen_tree
+from repro_torch.core.ssd import dampen_tree_counted
 from repro_torch.models.module import tree_leaves, tree_map, tree_unflatten
 
 F32 = torch.float32
@@ -132,7 +133,6 @@ def build_fused_step(apply_fn: Callable[[Params, Params, torch.Tensor],
         raise ValueError(
             f"build_fused_step precision must be 'fp32' or 'int8', got "
             f"{precision!r}")
-    edit = dampen_q8_tree if precision == "int8" else dampen_tree
     in_place = donate and exclude is None
 
     def body(ctx, ref_layer, edit_layer, fisher_g, acts_c, cot_c, scalars):
@@ -141,14 +141,19 @@ def build_fused_step(apply_fn: Callable[[Params, Params, torch.Tensor],
             lambda lp, aa: apply_fn(ctx, lp, aa), ref_layer, acts_c, cot_c,
             with_act_grad=with_act_grad)
         with torch.no_grad():
-            new_layer, masks = edit(edit_layer, fish, fisher_g, alpha, lam,
-                                    use_kernel=use_kernel, in_place=in_place)
+            new_layer, masks, n_sel = dampen_tree_counted(
+                precision, edit_layer, fish, fisher_g, alpha, lam,
+                use_kernel, in_place=in_place)
             if exclude is not None:
                 # exclusion blocks edits; for int8, quantisation is a
                 # deployment property of every leaf, so the pre-edit codes
                 # come back
                 new_layer = _restore_excluded(exclude, new_layer, edit_layer)
-            n_sel = sum(m.sum() for m in tree_leaves(masks))
+            if n_sel is None:
+                # the plain path: the masks' sum (the kernel counts in its
+                # own pass); either way before the restore, as the
+                # reference's _n_sel
+                n_sel = sum(m.sum() for m in tree_leaves(masks))
         return new_layer, g_acts, n_sel
 
     if split_edit or precision == "int8":

@@ -16,6 +16,15 @@ wrapper does. They are bound by device memory (17 bytes per element for
 f32 theta, 13 for bf16, 11 for int8 codes, 10 for rowscale); the source
 says what the design does about that.
 
+The float and int8 kernels take a table of leaves per launch:
+``dampen_group_cuda`` / ``dampen_int8_group_cuda`` dampen a layer's leaves
+(or a whole tree) in one launch per ``MAX_LEAVES`` leaves, write all masks
+into one buffer, and return the number of selected elements from the same
+pass, so a forget request launches once per layer and sums no masks.
+``table_plan`` lays the table out on the host: per leaf its pointers, its
+first block and whether it may take the 16-byte path. The per-leaf
+``dampen_cuda`` / ``dampen_int8_cuda`` are tables of one.
+
 Why CUDA C++ and not Triton: the kernel must agree with ``dampen_ref`` bit
 for bit, and Triton lowers an f32 ``/`` to the approximate
 ``div.full.f32``; nvcc's divide is correctly rounded as long as the build
@@ -23,14 +32,17 @@ never uses ``--use_fast_math`` (``build.NVCC_FLAGS`` does not).
 
 ``LAUNCHES`` counts launches of the float kernel, ``INT8_LAUNCHES`` those
 of the int8 one and ``ROWSCALE_LAUNCHES`` those of the rowscale one, and
-nothing else, so a run shows which kernel an edit took.
+nothing else, so a run shows which kernel an edit took; ``LEAVES`` and
+``INT8_LEAVES`` count the leaves that the float and int8 launches
+dampened.
 """
 from __future__ import annotations
 
 import ctypes
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.optim.compression import int8_codes
@@ -39,15 +51,31 @@ from . import build as _build
 
 F32 = torch.float32
 
-_ENTRY = {F32: "ficabu_dampen_f32", torch.bfloat16: "ficabu_dampen_bf16"}
-_ENTRY_INT8 = "ficabu_dampen_int8"
+_ENTRY = {F32: "ficabu_dampen_group_f32",
+          torch.bfloat16: "ficabu_dampen_group_bf16"}
+_ENTRY_INT8 = "ficabu_dampen_group_int8"
 _ENTRY_ROWSCALE = "ficabu_dampen_int8_rowscale"
 
+# as csrc/dampen.cu takes them: leaves in one launch's parameter table, and
+# the elements one block takes from its leaf (a multiple of 4 x 256 threads)
+MAX_LEAVES = 64
+ELEMS_PER_BLOCK = 1024
+# a grouped call puts each leaf's mask (and output) at a 16-byte boundary
+# of one buffer
+_ALIGN = 16
+# a grouped call's count is a slot of a slab of int64 zeros on the card,
+# each slot used once; a new slab (one fill kernel) every _SLOTS calls
+_SLOTS = 64
+
 LAUNCHES = 0           # float-kernel launches since the last reset
+LEAVES = 0             # leaves those launches dampened
 INT8_LAUNCHES = 0      # int8-kernel launches since the last reset
+INT8_LEAVES = 0        # leaves those launches dampened
 ROWSCALE_LAUNCHES = 0  # rowscale-kernel launches since the last reset
 BUILD_LOG = ""  # nvcc's output (register use, spills) when this process built
 _LIB: Optional[ctypes.CDLL] = None
+# (device index, stream) -> [slab of zeros, index of its next free slot]
+_COUNT_SLABS: Dict[Tuple[int, int], list] = {}
 
 
 def dampen_ref(theta: torch.Tensor, i_f: torch.Tensor, i_g: torch.Tensor,
@@ -83,6 +111,34 @@ def _select_beta(i_f, i_g, alpha, lam):
     return sel, beta
 
 
+def check_elementwise(name: str, theta: torch.Tensor, i_f: torch.Tensor,
+                      i_g: torch.Tensor) -> None:
+    """The reference's shape check (``repro.kernels.ops``), its text too."""
+    if i_f.shape != theta.shape or i_g.shape != theta.shape:
+        raise ValueError(
+            f"{name} is elementwise: Fisher operands must match theta's "
+            f"shape {tuple(theta.shape)}, got i_f={tuple(i_f.shape)}, "
+            f"i_g={tuple(i_g.shape)}")
+
+
+def check_int8_codes(theta_q: torch.Tensor) -> None:
+    """The reference's dtype check of ``dampen_int8``, its text too."""
+    if theta_q.dtype != torch.int8:
+        raise ValueError(
+            f"dampen_int8 edits int8 weight codes in place (use dampen for "
+            f"float weights), got theta_q dtype {theta_q.dtype}")
+
+
+def check_lengths(name: str, thetas, i_fs, i_gs, outs) -> None:
+    """A table holds one i_f, i_g (and out) per theta."""
+    if not len(thetas) == len(i_fs) == len(i_gs) or (
+            outs is not None and len(outs) != len(thetas)):
+        raise ValueError(
+            f"{name} takes one i_f, i_g (and out) per theta, got "
+            f"{len(thetas)} theta, {len(i_fs)} i_f, {len(i_gs)} i_g and "
+            f"{'no' if outs is None else len(outs)} out tensors")
+
+
 def dampen_int8_rowscale_ref(theta_q: torch.Tensor, i_fq: torch.Tensor,
                              f_scale: torch.Tensor, i_g: torch.Tensor,
                              alpha: float, lam: float) -> torch.Tensor:
@@ -92,6 +148,65 @@ def dampen_int8_rowscale_ref(theta_q: torch.Tensor, i_fq: torch.Tensor,
     Returns the codes only, as the reference's wrapper does."""
     i_f = i_fq.to(F32) * f_scale.to(F32)[:, None]
     return dampen_int8_ref(theta_q, i_f, i_g, alpha, lam)[0]
+
+
+def dampen_group_ref(thetas: Sequence[torch.Tensor],
+                     i_fs: Sequence[torch.Tensor],
+                     i_gs: Sequence[torch.Tensor], alpha: float, lam: float
+                     ) -> Tuple[List[torch.Tensor], List[torch.Tensor],
+                                torch.Tensor]:
+    """The plain version of one grouped launch: ``dampen_ref`` per leaf,
+    plus the number of selected elements over all leaves (an int64 scalar).
+    Returns (thetas', masks, count)."""
+    return _group_ref(dampen_ref, thetas, i_fs, i_gs, alpha, lam)
+
+
+def dampen_int8_group_ref(thetas_q: Sequence[torch.Tensor],
+                          i_fs: Sequence[torch.Tensor],
+                          i_gs: Sequence[torch.Tensor], alpha: float,
+                          lam: float
+                          ) -> Tuple[List[torch.Tensor], List[torch.Tensor],
+                                     torch.Tensor]:
+    """``dampen_group_ref`` on int8 codes: ``dampen_int8_ref`` per leaf
+    plus the count. Returns (codes', masks, count)."""
+    return _group_ref(dampen_int8_ref, thetas_q, i_fs, i_gs, alpha, lam)
+
+
+def _group_ref(fn, thetas, i_fs, i_gs, alpha, lam):
+    res = [fn(t, f, g, alpha, lam) for t, f, g in zip(thetas, i_fs, i_gs)]
+    dev = thetas[0].device if len(thetas) else "cpu"
+    count = torch.zeros((), dtype=torch.int64, device=dev)
+    for _, mask in res:
+        count = count + mask.sum()
+    return [r[0] for r in res], [r[1] for r in res], count
+
+
+def table_plan(ns: Sequence[int], ptrs: Sequence[Sequence[int]],
+               theta_size: int) -> List[Tuple[np.ndarray, int]]:
+    """The launches of one grouped call, computed on the host.
+
+    ``ns`` are the leaves' element counts and ``ptrs`` their (theta, i_f,
+    i_g, out, mask) addresses; ``theta_size`` is theta's element size in
+    bytes. The leaves go in order, at most ``MAX_LEAVES`` per launch. Per
+    launch: its table, an int64 array [k, 8] of rows (theta, i_f, i_g, out,
+    mask, n, first block, vec), as ``csrc/dampen.cu`` reads them, and its
+    block count. Leaf i of a launch owns the blocks [first block,
+    first block + ceil(n / ELEMS_PER_BLOCK)); ``vec`` is 1 when every
+    pointer is aligned for the kernel's 4-element path (16 bytes for i_f and
+    i_g, 4 elements for theta and out, 4 bytes for the mask), else the leaf
+    takes the scalar path."""
+    launches = []
+    for lo in range(0, len(ns), MAX_LEAVES):
+        rows, first = [], 0
+        for n, (th, f, g, o, m) in zip(ns[lo:lo + MAX_LEAVES],
+                                       ptrs[lo:lo + MAX_LEAVES]):
+            vec = (th % (4 * theta_size) == 0 and o % (4 * theta_size) == 0
+                   and f % 16 == 0 and g % 16 == 0 and m % 4 == 0)
+            rows.append((th, f, g, o, m, n, first, int(vec)))
+            first += -(-n // ELEMS_PER_BLOCK)
+        launches.append((np.array(rows, dtype=np.int64).reshape(-1, 8),
+                         first))
+    return launches
 
 
 def build() -> Path:
@@ -109,8 +224,9 @@ def _lib() -> ctypes.CDLL:
         build()
         lib = _build.load("dampen")
         for name in (*_ENTRY.values(), _ENTRY_INT8):
-            _build.bind(lib, name, [ctypes.c_void_p] * 5 + [
-                ctypes.c_longlong, ctypes.c_float, ctypes.c_float,
+            _build.bind(lib, name, [
+                ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
                 ctypes.c_void_p])
         _build.bind(lib, _ENTRY_ROWSCALE, [ctypes.c_void_p] * 5 + [
             ctypes.c_longlong, ctypes.c_longlong, ctypes.c_float,
@@ -123,66 +239,187 @@ def dampen_cuda(theta: torch.Tensor, i_f: torch.Tensor, i_g: torch.Tensor,
                 alpha: float, lam: float,
                 out: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the float kernel on CUDA tensors of any shape; returns
-    (theta', mask). ``out`` may be ``theta`` itself (an in-place edit).
-    Launches on the current stream and does not synchronise."""
-    global LAUNCHES
-    if theta.dtype not in _ENTRY:
-        raise ValueError(f"the dampen kernel takes f32 or bf16 theta, got "
-                         f"{theta.dtype}")
-    res = _launch(_ENTRY[theta.dtype], "dampen", theta, i_f, i_g, alpha,
-                  lam, out)
-    if theta.numel():
-        LAUNCHES += 1
-    return res
+    """Launch the float kernel on one leaf (a table of one) of any shape;
+    returns (theta', mask). ``out`` may be ``theta`` itself (an in-place
+    edit). Launches on the current stream and does not synchronise."""
+    outs, masks, _ = dampen_group_cuda([theta], [i_f], [i_g], alpha, lam,
+                                       None if out is None else [out],
+                                       count=False)
+    return outs[0], masks[0]
 
 
 def dampen_int8_cuda(theta_q: torch.Tensor, i_f: torch.Tensor,
                      i_g: torch.Tensor, alpha: float, lam: float,
                      out: Optional[torch.Tensor] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the int8 kernel on CUDA tensors of any shape; returns
-    (codes', mask). ``out`` may be ``theta_q`` itself (an in-place edit).
-    Launches on the current stream and does not synchronise."""
-    global INT8_LAUNCHES
-    if theta_q.dtype != torch.int8:
-        raise ValueError(f"the dampen_int8 kernel takes int8 codes, got "
-                         f"{theta_q.dtype}")
-    res = _launch(_ENTRY_INT8, "dampen_int8", theta_q, i_f, i_g, alpha, lam,
-                  out)
-    if theta_q.numel():
-        INT8_LAUNCHES += 1
+    """Launch the int8 kernel on one leaf (a table of one) of any shape;
+    returns (codes', mask). ``out`` may be ``theta_q`` itself (an in-place
+    edit). Launches on the current stream and does not synchronise."""
+    outs, masks, _ = dampen_int8_group_cuda([theta_q], [i_f], [i_g], alpha,
+                                            lam, None if out is None
+                                            else [out], count=False)
+    return outs[0], masks[0]
+
+
+def dampen_group_cuda(thetas: Sequence[torch.Tensor],
+                      i_fs: Sequence[torch.Tensor],
+                      i_gs: Sequence[torch.Tensor], alpha: float, lam: float,
+                      outs: Optional[Sequence[torch.Tensor]] = None, *,
+                      count: bool = True
+                      ) -> Tuple[List[torch.Tensor], List[torch.Tensor],
+                                 Optional[torch.Tensor]]:
+    """Launch the float kernel once over a table of CUDA leaves (one launch
+    per ``MAX_LEAVES``), all f32 or all bf16, any shapes; returns (thetas',
+    masks, count), ``count`` the number of selected elements as an int64
+    scalar on the card (None with ``count=False``). A Fisher operand of
+    another float dtype, or a non-contiguous theta or Fisher operand, is
+    converted first. ``outs[i]`` (contiguous) may be ``thetas[i]`` itself
+    (an in-place edit); without ``outs`` the thetas' are views into one new
+    buffer. Launches on the current stream and does not synchronise."""
+    global LAUNCHES, LEAVES
+    dt = thetas[0].dtype if len(thetas) else F32
+    if dt not in _ENTRY:
+        raise ValueError(f"the dampen kernel takes f32 or bf16 theta, got "
+                         f"{dt}")
+    res, launches = _launch(_ENTRY[dt], "dampen", thetas, i_fs, i_gs, alpha,
+                            lam, outs, count)
+    LAUNCHES += launches
+    LEAVES += len(thetas) if launches else 0
     return res
 
 
-def _launch(entry: str, what: str, theta, i_f, i_g, alpha, lam, out):
-    """Check the operands, allocate ``out`` (unless given) and the mask,
-    and launch ``entry`` unless the tensors are empty."""
-    dev = theta.device
+def dampen_int8_group_cuda(thetas_q: Sequence[torch.Tensor],
+                           i_fs: Sequence[torch.Tensor],
+                           i_gs: Sequence[torch.Tensor], alpha: float,
+                           lam: float,
+                           outs: Optional[Sequence[torch.Tensor]] = None, *,
+                           count: bool = True
+                           ) -> Tuple[List[torch.Tensor], List[torch.Tensor],
+                                      Optional[torch.Tensor]]:
+    """``dampen_group_cuda`` on int8 codes: one launch of the int8 kernel
+    per ``MAX_LEAVES`` leaves; returns (codes', masks, count)."""
+    global INT8_LAUNCHES, INT8_LEAVES
+    if len(thetas_q):
+        check_int8_codes(thetas_q[0])
+    res, launches = _launch(_ENTRY_INT8, "dampen_int8", thetas_q, i_fs, i_gs,
+                            alpha, lam, outs, count)
+    INT8_LAUNCHES += launches
+    INT8_LEAVES += len(thetas_q) if launches else 0
+    return res
+
+
+def _launch(entry: str, what: str, thetas, i_fs, i_gs, alpha, lam, outs,
+            count: bool, converted: bool = False):
+    """Check the operands (every theta of the first one's dtype), allocate
+    one buffer for all masks and, unless ``outs`` is given, one for all
+    outputs, and launch ``entry`` over the table: once per ``MAX_LEAVES``
+    leaves that hold an element. With ``count`` the launches add the
+    selected elements to one fresh zero on the card (``_count_slot``).
+    Returns ((outs, masks, count), launches).
+
+    The host's time per leaf is what a layer's launch costs beyond the
+    kernel, so this is the card path's only check of a leaf (``kernels.ops``
+    adds none), one expression per leaf. A table that fails it is converted
+    as the reference converts its operands (contiguous theta, Fisher in
+    f32) and checked again, and a leaf that still fails is refused with the
+    reference's texts (``_refuse``). The outputs and masks are views into
+    one allocation each."""
+    check_lengths(f"{what} kernel", thetas, i_fs, i_gs, outs)
+    if not len(thetas):
+        return ([], [], None), 0
+    dev, dt = thetas[0].device, thetas[0].dtype
     if dev.type != "cuda":
         raise ValueError(f"{what}_cuda takes CUDA tensors, got theta on {dev}")
-    if out is None:
-        out = torch.empty_like(theta, memory_format=torch.contiguous_format)
-    for name, t, dt in (("i_f", i_f, F32), ("i_g", i_g, F32),
-                        ("theta", theta, theta.dtype), ("out", out, theta.dtype)):
-        if t.device != dev or t.dtype != dt or not t.is_contiguous() \
+    for theta, i_f, i_g, out in zip(thetas, i_fs, i_gs,
+                                    thetas if outs is None else outs):
+        shape = theta.shape
+        if not (theta.dtype == dt and out.dtype == dt and i_f.dtype == F32
+                and i_g.dtype == F32 and i_f.shape == shape
+                and i_g.shape == shape and out.shape == shape
+                and theta.is_contiguous() and i_f.is_contiguous()
+                and i_g.is_contiguous() and out.is_contiguous()
+                and theta.device == dev and i_f.device == dev
+                and i_g.device == dev and out.device == dev):
+            if not converted:
+                return _launch(entry, what, [t.contiguous() for t in thetas],
+                               [f.to(F32).contiguous() for f in i_fs],
+                               [g.to(F32).contiguous() for g in i_gs], alpha,
+                               lam, outs, count, converted=True)
+            _refuse(what, dev, dt, theta, i_f, i_g, out)
+    ns = [t.numel() for t in thetas]
+    mask_at = _offsets(ns, _ALIGN)
+    buf = torch.empty(mask_at[-1], dtype=torch.bool, device=dev)
+    # a view per leaf at its offset (theta is contiguous: its strides are
+    # the mask's and the output's)
+    masks = [buf.as_strided(t.shape, t.stride(), o)
+             for t, o in zip(thetas, mask_at)]
+    if outs is None:
+        out_at = _offsets(ns, _ALIGN // thetas[0].element_size())
+        obuf = torch.empty(out_at[-1], dtype=dt, device=dev)
+        outs = [obuf.as_strided(t.shape, t.stride(), o)
+                for t, o in zip(thetas, out_at)]
+    base = buf.data_ptr()
+    plan = table_plan(ns, [(th.data_ptr(), f.data_ptr(), g.data_ptr(),
+                            o.data_ptr(), base + off) for th, f, g, o, off
+                           in zip(thetas, i_fs, i_gs, outs, mask_at)],
+                      thetas[0].element_size())
+    fn = getattr(_lib(), entry)
+    launches = 0
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        n_sel = _count_slot(dev, stream) if count else None
+        for rows, blocks in plan:
+            if not blocks:
+                continue
+            err = fn(rows.ctypes.data, len(rows), blocks, alpha, lam,
+                     None if n_sel is None else n_sel.data_ptr(), stream)
+            if err != 0:
+                raise RuntimeError(f"{what} kernel launch failed: cudaError "
+                                   f"{err}")
+            launches += 1
+    return (outs, masks, n_sel), launches
+
+
+def _count_slot(dev: torch.device, stream: int) -> torch.Tensor:
+    """An int64 zero on the card, owned by one call: the next slot of the
+    stream's slab of zeros. A new slab (one fill kernel on the stream) every
+    ``_SLOTS`` calls; a slot is never handed out twice, and a slab lives as
+    long as a count taken from it."""
+    key = (dev.index, stream)
+    entry = _COUNT_SLABS.get(key)
+    if entry is None or entry[1] == _SLOTS:
+        entry = _COUNT_SLABS[key] = [
+            torch.zeros(_SLOTS, dtype=torch.int64, device=dev), 0]
+    slab, i = entry
+    entry[1] = i + 1
+    return slab[i]
+
+
+def _offsets(ns: Sequence[int], align: int) -> List[int]:
+    """Each leaf's offset in a buffer that puts every leaf at a multiple of
+    ``align``; the last entry is the buffer's length."""
+    at = [0]
+    for n in ns:
+        at.append(at[-1] + -(-n // align) * align)
+    return at
+
+
+def _refuse(what, dev, dt, theta, i_f, i_g, out):
+    """Raise the ValueError that says why a leaf failed ``_launch``'s
+    check: the reference's texts for a shape or an int8 dtype, else the
+    operand that the kernel cannot take."""
+    check_elementwise(what, theta, i_f, i_g)
+    if what == "dampen_int8":
+        check_int8_codes(theta)
+    for name, t, want in (("i_f", i_f, F32), ("i_g", i_g, F32),
+                          ("theta", theta, dt), ("out", out, dt)):
+        if t.device != dev or t.dtype != want or not t.is_contiguous() \
                 or t.shape != theta.shape:
             raise ValueError(
-                f"{what} kernel operand {name} must be a contiguous {dt} "
+                f"{what} kernel operand {name} must be a contiguous {want} "
                 f"tensor of shape {tuple(theta.shape)} on {dev}, got "
                 f"{t.dtype} {tuple(t.shape)} on {t.device} "
                 f"(contiguous={t.is_contiguous()})")
-    mask = torch.empty(theta.shape, dtype=torch.uint8, device=dev)
-    n = theta.numel()
-    if n:
-        fn = getattr(_lib(), entry)
-        with torch.cuda.device(dev):
-            err = fn(theta.data_ptr(), i_f.data_ptr(), i_g.data_ptr(),
-                     out.data_ptr(), mask.data_ptr(), n, alpha, lam,
-                     torch.cuda.current_stream(dev).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"{what} kernel launch failed: cudaError {err}")
-    return out, mask.view(torch.bool)
 
 
 def dampen_int8_rowscale_cuda(theta_q: torch.Tensor, i_fq: torch.Tensor,

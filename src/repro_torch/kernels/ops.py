@@ -8,7 +8,7 @@ No TPU (8, 1024) padding: every CUDA kernel masks its own ragged edges.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -17,16 +17,9 @@ from . import dampen as _dampen
 from . import fimd as _fimd
 from . import gemm_fisher as _gf
 from . import gemm_fisher_int8 as _gf8
+from .dampen import check_elementwise as _check_elementwise
 
 F32 = torch.float32
-
-
-def _check_elementwise(name, theta, i_f, i_g):
-    if i_f.shape != theta.shape or i_g.shape != theta.shape:
-        raise ValueError(
-            f"{name} is elementwise: Fisher operands must match theta's "
-            f"shape {tuple(theta.shape)}, got i_f={tuple(i_f.shape)}, "
-            f"i_g={tuple(i_g.shape)}")
 
 
 def _path(name: str, t: torch.Tensor) -> str:
@@ -58,8 +51,8 @@ def dampen(theta: torch.Tensor, i_f: torch.Tensor, i_g: torch.Tensor,
         if out is not None:
             new = out.copy_(new)
         return new, mask
-    return _dampen.dampen_cuda(theta.contiguous(), i_f.to(F32).contiguous(),
-                               i_g.to(F32).contiguous(), alpha, lam, out=out)
+    # (the wrapper converts what the kernel cannot take as it is)
+    return _dampen.dampen_cuda(theta, i_f, i_g, alpha, lam, out=out)
 
 
 def dampen_int8(theta_q: torch.Tensor, i_f: torch.Tensor, i_g: torch.Tensor,
@@ -72,10 +65,7 @@ def dampen_int8(theta_q: torch.Tensor, i_f: torch.Tensor, i_g: torch.Tensor,
     pass, where the reference's wrapper returns codes only and
     ``dampen_q8_tree`` recomputes the mask. ``out`` receives the codes
     (pass ``theta_q`` itself for an in-place edit)."""
-    if theta_q.dtype != torch.int8:
-        raise ValueError(
-            f"dampen_int8 edits int8 weight codes in place (use dampen for "
-            f"float weights), got theta_q dtype {theta_q.dtype}")
+    _dampen.check_int8_codes(theta_q)
     _check_elementwise("dampen_int8", theta_q, i_f, i_g)
     alpha, lam = f32(alpha), f32(lam)
     if _path("dampen_int8", theta_q) == "cpu":
@@ -83,10 +73,63 @@ def dampen_int8(theta_q: torch.Tensor, i_f: torch.Tensor, i_g: torch.Tensor,
         if out is not None:
             new = out.copy_(new)
         return new, mask
-    return _dampen.dampen_int8_cuda(theta_q.contiguous(),
-                                    i_f.to(F32).contiguous(),
-                                    i_g.to(F32).contiguous(), alpha, lam,
-                                    out=out)
+    return _dampen.dampen_int8_cuda(theta_q, i_f, i_g, alpha, lam, out=out)
+
+
+def dampen_group(thetas: Sequence[torch.Tensor],
+                 i_fs: Sequence[torch.Tensor], i_gs: Sequence[torch.Tensor],
+                 alpha, lam, *, outs: Optional[Sequence[torch.Tensor]] = None
+                 ) -> Tuple[List[torch.Tensor], List[torch.Tensor],
+                            torch.Tensor]:
+    """``dampen`` over a table of leaves (a layer, or a tree), in one kernel
+    launch per 64 leaves on the card; theta f32 or bf16, one dtype for the
+    table. Returns (thetas', masks, count): per leaf what ``dampen``
+    returns, and the number of selected elements over all leaves as an
+    int64 scalar on the leaves' device, from the kernel's own pass.
+    ``outs[i]`` receives theta'[i] (pass ``thetas`` for an in-place edit).
+    Every operand lies on the first theta's device."""
+    return _group("dampen", _dampen.dampen_group_ref,
+                  _dampen.dampen_group_cuda, thetas, i_fs, i_gs, alpha, lam,
+                  outs)
+
+
+def dampen_int8_group(thetas_q: Sequence[torch.Tensor],
+                      i_fs: Sequence[torch.Tensor],
+                      i_gs: Sequence[torch.Tensor], alpha, lam, *,
+                      outs: Optional[Sequence[torch.Tensor]] = None
+                      ) -> Tuple[List[torch.Tensor], List[torch.Tensor],
+                                 torch.Tensor]:
+    """``dampen_int8`` over a table of leaves of int8 codes, in one kernel
+    launch per 64 leaves on the card. Returns (codes', masks, count) as
+    ``dampen_group`` does."""
+    return _group("dampen_int8", _dampen.dampen_int8_group_ref,
+                  _dampen.dampen_int8_group_cuda, thetas_q, i_fs, i_gs,
+                  alpha, lam, outs)
+
+
+def _group(name, plain_fn, cuda_fn, thetas, i_fs, i_gs, alpha, lam, outs):
+    """The path by the first theta's device. On the card the kernel's
+    wrapper checks each leaf, once (the host's time per leaf is the
+    sweep's bound); on the CPU the same checks run here, and every operand
+    must lie on the CPU too, so that no card tensor takes the plain
+    version."""
+    alpha, lam = f32(alpha), f32(lam)
+    if len(thetas) and _path(name, thetas[0]) == "cuda":
+        return cuda_fn(thetas, i_fs, i_gs, alpha, lam, outs=outs)
+    _dampen.check_lengths(f"{name}_group", thetas, i_fs, i_gs, outs)
+    for i, (theta, i_f, i_g) in enumerate(zip(thetas, i_fs, i_gs)):
+        if name == "dampen_int8":
+            _dampen.check_int8_codes(theta)
+        _check_elementwise(name, theta, i_f, i_g)
+        for t in (theta, i_f, i_g, *(() if outs is None else (outs[i],))):
+            if t.device.type != "cpu":
+                raise ValueError(
+                    f"{name}_group takes every operand on the first theta's "
+                    f"device, cpu, got leaf {i} with a tensor on {t.device}")
+    new, masks, count = plain_fn(thetas, i_fs, i_gs, alpha, lam)
+    if outs is not None:
+        new = [o.copy_(n) for o, n in zip(outs, new)]
+    return new, masks, count
 
 
 def fimd(g: torch.Tensor) -> torch.Tensor:

@@ -27,6 +27,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
      values, extreme codes, and for the GEMMs reductions split over N
      (S > 1) with a ragged last slice and, for gemm_fisher_int8, N = MAX_N
      with every code -128 (every sum at the int32 limit);
+     for dampen_int8_rowscale rows of 1, 2, 3 and 5 elements over several
+     blocks, rows that end inside a block, partial last blocks, leaves cut
+     into parts (small ones, cut at a small limit) and two leaves of more
+     than 2^31 elements (21.5 GB each, the host's cut into parts);
      dampen_int8_rowscale and gemm_fisher_int8 BIT-identical, fimd within
      rtol 1e-5 (atol 0), gemm_fisher within relative L2 1e-5 and
      |d| <= 1e-4 |ref| + 1e-4 max|ref|, its fish bit-equal to dw * dw and
@@ -110,11 +114,13 @@ L2_BYTES = 50e6
 # the dampen kernels' times before the grouped launch, printed beside this
 # run's (ms, NVIDIA H100 80GB HBM3 at 700 W, from this script, PERF.md
 # sections 5-6): the sweep of 56 per-leaf launches, device and stream time,
-# and the largest leaf
+# and the largest leaf; and the rowscale kernel's at its largest leaf before
+# it became a table of parts (one division per thread, a 64-bit row walk)
 BEFORE_MS = {"source": "the per-leaf kernel, PERF.md sections 5-6",
              "dampen": {"sweep": 0.229, "stream": 1.23, "big": 0.01517,
                         "bf16": 0.01199},
-             "dampen_int8": {"sweep": 0.199, "big": 0.01085}}
+             "dampen_int8": {"sweep": 0.199, "big": 0.01085},
+             "dampen_int8_rowscale": {"big": 0.01413}}
 
 
 def log(msg: str) -> None:
@@ -489,7 +495,8 @@ def check_fisher_kernels_against_plain(dev):
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
     cases = {"fimd": 0, "gemm_fisher": 0, "gemm_fisher S>1, ragged": 0,
              "gemm_fisher_int8": 0, "gemm_fisher_int8 S>1, ragged": 0,
-             "dampen_int8_rowscale": 0}
+             "dampen_int8_rowscale": 0, "dampen_int8_rowscale in parts": 0,
+             "dampen_int8_rowscale > 2^31 elements": 0}
     nan, inf = float("nan"), float("inf")
     special = torch.tensor([0.0, -0.0, nan, inf, -inf, 1.0, 2.0, 1e-30,
                             1e-38, 3.0], device=dev)
@@ -593,9 +600,18 @@ def check_fisher_kernels_against_plain(dev):
     # dampen_int8_rowscale: dampen_int8's edge cases on the dequantised
     # Fisher — zero/NaN/inf/subnormal i_fq, fs and i_g, lambda = NaN/inf,
     # alpha = 0, rows of odd length C = 1..4097, pointers off the 4/16-byte
-    # grid
+    # grid — and the shapes that the kernel's decomposition (1024 elements
+    # of a part per block, a quad's row from a multiplier) treats apart:
+    # C = 1, 2, 3, 5 over three blocks and more (every quad crosses a row
+    # end), C = 1023, 1024, 1025 and 300 (rows end inside a block), partial
+    # last blocks; each also cut into parts of at most 3000 elements (whole
+    # rows, or pieces of a row: the plan of a leaf of 2^31 elements or more,
+    # at a small size). Then one leaf of more than 2^31 elements of each
+    # kind: many rows per part, and one row longer than a part.
     for R, C in ((1, 1), (1, 4097), (3, 1), (3, 5), (2, 7), (5, 33),
-                 (4, 1023), (7, 4)):
+                 (4, 1023), (7, 4), (3500, 1), (1800, 2), (1200, 3),
+                 (721, 5), (5, 1023), (5, 1024), (5, 1025), (7, 300),
+                 (3, 1000)):
         n = R * C
         for alpha, lam in PAIRS + [(2.0, nan), (2.0, inf), (0.0, 1.0),
                                    (0.5, 0.5)]:
@@ -614,15 +630,76 @@ def check_fisher_kernels_against_plain(dev):
             for lo in (0, 1, 3):   # lo > 0: pointers off the 4/16-byte grid
                 args = (th[lo:lo + n].view(R, C), i_fq[lo:lo + n].view(R, C),
                         fs[lo:lo + R], i_g[lo:lo + n].view(R, C), alpha, lam)
-                got = kd.dampen_int8_rowscale_cuda(*args)
                 want = kd.dampen_int8_rowscale_ref(*args)
-                torch.cuda.synchronize()
-                if not torch.equal(got, want):
-                    raise AssertionError(
-                        f"dampen_int8_rowscale kernel != plain at {(R, C)} "
-                        f"lo={lo} a={alpha} l={lam}")
-                cases["dampen_int8_rowscale"] += 1
+                for limit in ((kd.PART_LIMIT, 3000) if n > 3000
+                              else (kd.PART_LIMIT,)):
+                    with part_limit(kd, limit):
+                        got = kd.dampen_int8_rowscale_cuda(*args)
+                    torch.cuda.synchronize()
+                    if not torch.equal(got, want):
+                        raise AssertionError(
+                            f"dampen_int8_rowscale kernel != plain at "
+                            f"{(R, C)} lo={lo} a={alpha} l={lam} part limit "
+                            f"{limit}")
+                    cases["dampen_int8_rowscale"] += 1
+                    cases["dampen_int8_rowscale in parts"] += (
+                        limit < kd.PART_LIMIT)
+    for R, C in ((524_289, 4096), (1, 2 ** 31 + 5)):
+        check_huge_rowscale(kd, R, C, gen, dev)
+        cases["dampen_int8_rowscale > 2^31 elements"] += 1
     return cases
+
+
+@contextlib.contextmanager
+def part_limit(kd, limit):
+    """The rowscale wrapper cuts leaves into parts of at most ``limit``
+    elements (kernels/dampen.py::PART_LIMIT, 2^31 - 1): the plan of a leaf
+    of 2^31 elements or more, at a small size."""
+    was, kd.PART_LIMIT = kd.PART_LIMIT, limit
+    try:
+        yield
+    finally:
+        kd.PART_LIMIT = was
+
+
+def check_huge_rowscale(kd, R, C, gen, dev):
+    """The rowscale kernel on one leaf [R, C] of 2^31 elements or more (21.5
+    GB of operands), cut by the host into parts of fewer and launched once,
+    against its plain version a slab at a time: bit for bit."""
+    parts = kd.rowscale_parts(R, C)
+    th = torch.randint(-128, 128, (R, C), generator=gen, device=dev,
+                       dtype=torch.int8)
+    i_fq = torch.randint(0, 128, (R, C), generator=gen, device=dev,
+                         dtype=torch.uint8).float()
+    fs = torch.rand(R, generator=gen, device=dev) * 0.05
+    i_g = torch.rand((R, C), generator=gen, device=dev)
+    launches = kd.ROWSCALE_LAUNCHES
+    got = kd.dampen_int8_rowscale_cuda(th, i_fq, fs, i_g, 0.5, 0.5)
+    torch.cuda.synchronize()
+    launches = kd.ROWSCALE_LAUNCHES - launches
+    if launches != 1:
+        raise AssertionError(f"dampen_int8_rowscale on {(R, C)}: {launches} "
+                             f"launches, expected 1")
+    step = 1 << 27          # elements per slab of the plain version
+    if R > 1:
+        rows = max(1, step // C)
+        slabs = [(slice(r, r + rows), slice(None)) for r in range(0, R, rows)]
+    else:
+        slabs = [(slice(None), slice(c, c + step)) for c in range(0, C, step)]
+    edited = 0
+    for rs, cs in slabs:
+        want = kd.dampen_int8_rowscale_ref(th[rs, cs], i_fq[rs, cs], fs[rs],
+                                           i_g[rs, cs], 0.5, 0.5)
+        if not torch.equal(got[rs, cs], want):
+            raise AssertionError(f"dampen_int8_rowscale kernel != plain on "
+                                 f"the leaf {(R, C)} at rows {rs}, columns "
+                                 f"{cs}")
+        edited += int((want != th[rs, cs]).sum())
+    log(f"[kernel] dampen_int8_rowscale on [{R}, {C}] ({R * C} elements, "
+        f"{len(parts)} parts of {[n for _, _, n, _ in parts]} elements, "
+        f"1 launch): bit-identical to plain, {edited} codes edited")
+    del th, i_fq, fs, i_g, got
+    torch.cuda.empty_cache()
 
 
 def sweep_operands(adapter, params, fx, fy, cs, dev):
@@ -1506,10 +1583,13 @@ def main() -> int:
         f"torch.linalg.vecdot(g, g, dim=0) {tf['fimd_library']:.5f} ms, bound "
         f"{bounds['fimd'][0]:.5f} ms ({bounds['fimd'][1]}, "
         f"{bounds['fimd'][0] / tf['fimd_kernel'] * 100:.1f}%)")
-    log(f"[time] dampen_int8_rowscale [{R_b}, {C_b}] device: kernel "
-        f"{tf['rs_kernel']:.5f} ms, plain {tf['rs_plain']:.5f} ms, bound "
+    log(f"[time] dampen_int8_rowscale [{R_b}, {C_b}] device, four operand "
+        f"sets rotated beyond L2: kernel {tf['rs_kernel']:.5f} ms, plain "
+        f"{tf['rs_plain']:.5f} ms, bound "
         f"{bounds['dampen_int8_rowscale'][0]:.5f} ms (bytes, "
-        f"{bounds['dampen_int8_rowscale'][0] / tf['rs_kernel'] * 100:.1f}%)")
+        f"{bounds['dampen_int8_rowscale'][0] / tf['rs_kernel'] * 100:.1f}%); "
+        f"before: {BEFORE_MS['dampen_int8_rowscale']['big']} ms (one "
+        f"division per thread and a 64-bit row walk, PERF.md section 6)")
     for name, gt in gemm_t.items():
         log(f"[time] gemm_fisher {name} (N, M, K) {gt['nmk']}, split S, rows "
             f"{gt['split']}, {gt['sets'][0]} operand sets rotated beyond L2, "

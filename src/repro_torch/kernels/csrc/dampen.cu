@@ -44,10 +44,22 @@
 // per launch (one layer, or a whole tree of up to 64 leaves) and count the
 // selected elements in the same pass: a block reduces its count in shared
 // memory and adds it to the caller's zeroed total with one atomic add, so
-// the caller needs no reduction over the masks. The rowscale kernel finds an
-// element's row by one division per thread and then steps it along with its
-// grid-stride loop (no division per element), so rows of any length C, odd
-// or not, share the 16-byte path.
+// the caller needs no reduction over the masks.
+//
+// Rowscale is the same kernel body over a table of its own (RowLeaf): a
+// block takes kElemsPerBlock contiguous elements of its part from a
+// multiple of 4, flat over the leaf whatever C is, so rows of any length
+// share the 16-byte path. The host cuts a leaf into parts of fewer than
+// 2^31 elements (whole rows, or pieces of a row longer than that), so that
+// a quad's row comes from 32-bit math: one multiply-high by a constant the
+// host computed for C (e / C = umulhi(2e, mul) >> shr, exact for
+// e < 2^31), no divide on the card. Its elements take their rows' scales
+// from there, one row on wherever the quad crosses a row end. A leaf of
+// fewer than 2^31 elements is one part, launched as a table of one whose
+// row the kernel reads at fixed offsets. (One scale load per quad that
+// lies in one row, the hardware's 32-bit divide, 2048 elements per block,
+// 16 per thread and a kernel of its own measured no faster at the largest
+// ResNet-18 leaf: tools/rowscale_variants.py.)
 //
 // Exactness: the kernel must agree with the plain PyTorch version bit for
 // bit. Build it WITHOUT --use_fast_math. The multiplies and the divide use
@@ -67,10 +79,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int64_t kMaxBlocks = int64_t(1) << 20;
 // the elements one block of the grouped kernel takes from its leaf: four per
 // thread, one 16-byte step (kernels/dampen.py::ELEMS_PER_BLOCK)
 constexpr int kElemsPerBlock = 4 * kThreads;
@@ -145,12 +158,77 @@ struct Leaf {
 };
 static_assert(sizeof(Leaf) == 56, "a leaf row is 56 bytes");
 
-constexpr int kMaxLeaves = 64;
+// A part of a rowscale leaf [R, C]: fewer than 2^31 elements from a row
+// start (whole rows), or a piece of one row (then C is the piece's length),
+// its i_f the quant-domain i_fq and fs the scale of its first row. No mask.
+struct RowLeaf {
+  const void* theta;
+  const float* i_f;
+  const float* i_g;
+  void* out;
+  const float* fs;
+  long long n;
+  int first_block;
+  int vec;
+  unsigned int C;    // row length
+  unsigned int mul;  // row of element e: umulhi(2e, mul) >> shr
+  unsigned int shr;
+};
+static_assert(sizeof(RowLeaf) == 72, "a rowscale row is 72 bytes");
 
-struct Table {
-  Leaf leaf[kMaxLeaves];
+constexpr int kMaxLeaves = 64;
+constexpr int kMaxRowLeaves = 16;
+
+template <typename L, int kMax>
+struct TableOf {
+  L leaf[kMax];
   int n_leaves;
 };
+
+// What a block needs of a part's rows, read from the table once: the scale
+// table from the part's first row, the row length and its divisor.
+struct RowMap {
+  const float* fs;
+  unsigned int C, mul, shr;
+};
+
+__device__ __forceinline__ RowMap row_map(const RowLeaf& leaf) {
+  return {leaf.fs, leaf.C, leaf.mul, leaf.shr};
+}
+__device__ __forceinline__ RowMap row_map(const Leaf&) { return {}; }
+
+__device__ __forceinline__ unsigned char* mask_of(const Leaf& leaf) {
+  return leaf.mask;
+}
+__device__ __forceinline__ unsigned char* mask_of(const RowLeaf&) {
+  return nullptr;
+}
+
+// The row of element e (< 2^31) of a part: e / C as a multiply-high by the
+// host's constant (kernels/dampen.py::fast_divisor), no divide.
+__device__ __forceinline__ unsigned row_of(const RowMap& m, unsigned e) {
+  return __umulhi(e << 1, m.mul) >> m.shr;
+}
+
+// i_fq[e .. e + 3] * fs[row], each a correctly rounded product: the row of
+// e from the multiplier, then a step to the next row wherever the quad
+// crosses a row end (C % 4 != 0 or C < 4). The scale table stays in L1.
+__device__ __forceinline__ float4 dequantise(const RowMap& m, unsigned e,
+                                             float4 f) {
+  const unsigned r = row_of(m, e);
+  unsigned c = e - r * m.C;
+  const float* fs = m.fs + r;
+  float v[4] = {f.x, f.y, f.z, f.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    v[i] = __fmul_rn(v[i], *fs);
+    if (++c == m.C) {
+      c = 0;
+      ++fs;
+    }
+  }
+  return make_float4(v[0], v[1], v[2], v[3]);
+}
 
 // theta and out may be the same buffer (an in-place edit): each element is
 // read and written by the same thread, so they are not marked __restrict__.
@@ -158,27 +236,34 @@ struct Table {
 // lies, never copied per thread. count (when not null) is an int64 that the
 // caller has zeroed: each block adds its selected elements to it with one
 // atomic add whose result nobody waits for, so no block waits on the count
-// and no launch is needed to reset it.
-template <typename T>
+// and no launch is needed to reset it. Over a table of RowLeaf parts
+// (T = int8_t) the same body dequantises i_f first and writes no mask and
+// no count.
+template <typename T, typename L, int kMax>
 __global__ void __launch_bounds__(kThreads)
-    dampen_group_kernel(const __grid_constant__ Table table, float alpha,
-                        float lam, unsigned long long* count) {
+    dampen_group_kernel(const __grid_constant__ TableOf<L, kMax> table,
+                        float alpha, float lam, unsigned long long* count) {
+  constexpr bool kRows = std::is_same<L, RowLeaf>::value;
   const int b = blockIdx.x;
-  int lo = 0, hi = table.n_leaves - 1;  // the last leaf with first_block <= b
-  while (lo < hi) {
-    const int mid = (lo + hi + 1) >> 1;
-    if (table.leaf[mid].first_block <= b) {
-      lo = mid;
-    } else {
-      hi = mid - 1;
+  int lo = 0;  // the last leaf with first_block <= b
+  if constexpr (kMax > 1) {
+    int hi = table.n_leaves - 1;
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) >> 1;
+      if (table.leaf[mid].first_block <= b) {
+        lo = mid;
+      } else {
+        hi = mid - 1;
+      }
     }
   }
-  const Leaf& leaf = table.leaf[lo];
+  const L& leaf = table.leaf[lo];
   const T* theta = static_cast<const T*>(leaf.theta);
   const float* __restrict__ i_f = leaf.i_f;
   const float* __restrict__ i_g = leaf.i_g;
   T* out = static_cast<T*>(leaf.out);
-  unsigned char* __restrict__ mask = leaf.mask;
+  unsigned char* __restrict__ mask = mask_of(leaf);
+  const RowMap rows = row_map(leaf);
   const int64_t start = int64_t(b - leaf.first_block) * kElemsPerBlock;
   const int64_t stop = start + kElemsPerBlock;
   const int64_t end = stop < leaf.n ? stop : int64_t(leaf.n);
@@ -193,8 +278,9 @@ __global__ void __launch_bounds__(kThreads)
     uchar4* m4 = reinterpret_cast<uchar4*>(mask);
     for (int64_t k = start / 4 + threadIdx.x; k < end / 4; k += kThreads) {
       const Vec4<T> t = th4[k];
-      const float4 f = f4[k];
+      float4 f = f4[k];
       const float4 g = g4[k];
+      if constexpr (kRows) f = dequantise(rows, unsigned(4 * k), f);
       Vec4<T> o;
       uchar4 m;
       o.v[0] = dampen_one(t.v[0], f.x, g.x, alpha, lam, &m.x);
@@ -202,18 +288,24 @@ __global__ void __launch_bounds__(kThreads)
       o.v[2] = dampen_one(t.v[2], f.z, g.z, alpha, lam, &m.z);
       o.v[3] = dampen_one(t.v[3], f.w, g.w, alpha, lam, &m.w);
       o4[k] = o;
-      m4[k] = m;
-      sel += m.x + m.y + m.z + m.w;
+      if constexpr (!kRows) {
+        m4[k] = m;
+        sel += m.x + m.y + m.z + m.w;
+      }
     }
     head = end / 4 * 4 > start ? end / 4 * 4 : start;
   }
   for (int64_t k = head + threadIdx.x; k < end; k += kThreads) {
+    float f = i_f[k];
+    if constexpr (kRows) f = __fmul_rn(f, rows.fs[row_of(rows, unsigned(k))]);
     unsigned char m;
-    out[k] = dampen_one(theta[k], i_f[k], i_g[k], alpha, lam, &m);
-    mask[k] = m;
-    sel += m;
+    out[k] = dampen_one(theta[k], f, i_g[k], alpha, lam, &m);
+    if constexpr (!kRows) {
+      mask[k] = m;
+      sel += m;
+    }
   }
-  if (count == nullptr) return;
+  if (kRows || count == nullptr) return;
 
   __shared__ unsigned int warp_sel[kThreads / 32];
   sel = __reduce_add_sync(0xffffffffu, sel);
@@ -226,101 +318,59 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-inline bool aligned(const void* p, uintptr_t bytes) {
-  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+inline void fill(Leaf& leaf, const long long* r) {
+  leaf.theta = reinterpret_cast<const void*>(r[0]);
+  leaf.i_f = reinterpret_cast<const float*>(r[1]);
+  leaf.i_g = reinterpret_cast<const float*>(r[2]);
+  leaf.out = reinterpret_cast<void*>(r[3]);
+  leaf.mask = reinterpret_cast<unsigned char*>(r[4]);
+  leaf.n = r[5];
+  leaf.first_block = int(r[6]);
+  leaf.vec = int(r[7]);
 }
 
-// rows: n_leaves x 8 int64 (theta, i_f, i_g, out, mask, n, first_block,
-// vec), as kernels/dampen.py::table_plan lays them out.
-template <typename T>
-int launch_group(const long long* rows, int n_leaves, long long blocks,
+inline void fill(RowLeaf& leaf, const long long* r) {
+  leaf.theta = reinterpret_cast<const void*>(r[0]);
+  leaf.i_f = reinterpret_cast<const float*>(r[1]);
+  leaf.fs = reinterpret_cast<const float*>(r[2]);
+  leaf.i_g = reinterpret_cast<const float*>(r[3]);
+  leaf.out = reinterpret_cast<void*>(r[4]);
+  leaf.n = r[5];
+  leaf.first_block = int(r[6]);
+  leaf.vec = int(r[7]);
+  leaf.C = unsigned(r[8]);
+  leaf.mul = unsigned(r[9]);
+  leaf.shr = unsigned(r[10]);
+}
+
+// rows: n_leaves rows of kCols int64, as kernels/dampen.py lays them out:
+// for Leaf (theta, i_f, i_g, out, mask, n, first_block, vec) by
+// table_plan, for RowLeaf (theta, i_fq, fs, i_g, out, n, first_block, vec,
+// C, mul, shr) by rowscale_plan. A RowLeaf must hold fewer than 2^31
+// elements (its index math is 32-bit).
+template <typename T, typename L, int kMax, int kCols>
+int launch_table(const long long* rows, int n_leaves, long long blocks,
                  float alpha, float lam, void* count, void* stream) {
-  if (n_leaves < 1 || n_leaves > kMaxLeaves || blocks < 0 ||
+  if (n_leaves < 1 || n_leaves > kMax || blocks < 0 ||
       blocks >= (1ll << 31)) {
     return int(cudaErrorInvalidValue);
   }
   if (blocks == 0) return int(cudaSuccess);  // only empty leaves
-  Table table{};
+  TableOf<L, kMax> table{};
   for (int i = 0; i < n_leaves; ++i) {
-    const long long* r = rows + 8 * i;
-    Leaf& leaf = table.leaf[i];
-    leaf.theta = reinterpret_cast<const void*>(r[0]);
-    leaf.i_f = reinterpret_cast<const float*>(r[1]);
-    leaf.i_g = reinterpret_cast<const float*>(r[2]);
-    leaf.out = reinterpret_cast<void*>(r[3]);
-    leaf.mask = reinterpret_cast<unsigned char*>(r[4]);
-    leaf.n = r[5];
-    leaf.first_block = int(r[6]);
-    leaf.vec = int(r[7]);
+    const long long* r = rows + kCols * i;
+    if constexpr (std::is_same<L, RowLeaf>::value) {
+      if (r[5] >= (1ll << 31) || r[8] < 1 || r[8] >= (1ll << 31)) {
+        return int(cudaErrorInvalidValue);
+      }
+    }
+    fill(table.leaf[i], r);
   }
   table.n_leaves = n_leaves;
-  dampen_group_kernel<T><<<unsigned(blocks), kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
+  dampen_group_kernel<T, L, kMax><<<unsigned(blocks), kThreads, 0,
+                                    static_cast<cudaStream_t>(stream)>>>(
       table, alpha, lam, static_cast<unsigned long long*>(count));
   return int(cudaGetLastError());
-}
-
-// Rowscale: element k lies in row k / C. A thread computes its first row
-// once and advances (row, column) by the grid stride after each step.
-__device__ __forceinline__ void advance(int64_t& row, int64_t& col,
-                                        int64_t rows, int64_t cols,
-                                        int64_t C) {
-  row += rows;
-  col += cols;
-  if (col >= C) {
-    col -= C;
-    row += 1;
-  }
-}
-
-__device__ __forceinline__ int8_t rowscale_one(int8_t t, float fq, float fs,
-                                               float g, float alpha,
-                                               float lam) {
-  unsigned char unused;
-  return dampen_one(t, __fmul_rn(fq, fs), g, alpha, lam, &unused);
-}
-
-__global__ void dampen_int8_rowscale_kernel(
-    const int8_t* __restrict__ theta, const float* __restrict__ i_fq,
-    const float* __restrict__ fs, const float* __restrict__ i_g,
-    int8_t* __restrict__ out,
-    int64_t n, int64_t C, float alpha, float lam, bool vec) {
-  const int64_t stride = int64_t(gridDim.x) * blockDim.x;
-  const int64_t tid = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
-  int64_t head = 0;
-  if (vec) {
-    const int64_t nv = n / 4;
-    const Vec4<int8_t>* th4 = reinterpret_cast<const Vec4<int8_t>*>(theta);
-    const float4* f4 = reinterpret_cast<const float4*>(i_fq);
-    const float4* g4 = reinterpret_cast<const float4*>(i_g);
-    Vec4<int8_t>* o4 = reinterpret_cast<Vec4<int8_t>*>(out);
-    // (row, col) of element 4 * k, and the grid stride 4 * stride in rows
-    int64_t row = (4 * tid) / C, col = 4 * tid - row * C;
-    const int64_t srows = (4 * stride) / C, scols = 4 * stride - srows * C;
-    for (int64_t k = tid; k < nv; k += stride) {
-      const Vec4<int8_t> t = th4[k];
-      const float4 f = f4[k];
-      const float4 g = g4[k];
-      const float fv[4] = {f.x, f.y, f.z, f.w};
-      const float gv[4] = {g.x, g.y, g.z, g.w};
-      Vec4<int8_t> o;
-      int64_t r = row, c = col;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        o.v[i] = rowscale_one(t.v[i], fv[i], fs[r], gv[i], alpha, lam);
-        if (++c == C) {
-          c = 0;
-          ++r;
-        }
-      }
-      o4[k] = o;
-      advance(row, col, srows, scols, C);
-    }
-    head = nv * 4;
-  }
-  for (int64_t k = head + tid; k < n; k += stride) {
-    out[k] = rowscale_one(theta[k], i_fq[k], fs[k / C], i_g[k], alpha, lam);
-  }
 }
 
 }  // namespace
@@ -332,32 +382,27 @@ __global__ void dampen_int8_rowscale_kernel(
 #define FICABU_DAMPEN_GROUP(name, T)                                        \
   extern "C" int name(const long long* rows, int n_leaves, long long blocks, \
                       float alpha, float lam, void* count, void* stream) {  \
-    return launch_group<T>(rows, n_leaves, blocks, alpha, lam, count,       \
-                           stream);                                         \
+    return launch_table<T, Leaf, kMaxLeaves, 8>(rows, n_leaves, blocks,     \
+                                                alpha, lam, count, stream); \
   }
 
 FICABU_DAMPEN_GROUP(ficabu_dampen_group_f32, float)
 FICABU_DAMPEN_GROUP(ficabu_dampen_group_bf16, __nv_bfloat16)
 FICABU_DAMPEN_GROUP(ficabu_dampen_group_int8, int8_t)
 
-// theta_q, i_fq, i_g, out: [R, C] row-major (n = R * C elements); fs: [R].
-extern "C" int ficabu_dampen_int8_rowscale(const void* theta_q,
-                                           const void* i_fq, const void* fs,
-                                           const void* i_g, void* out,
-                                           long long n, long long C,
+// One launch over the 1..16 parts of a rowscale leaf (theta_q, i_fq, i_g,
+// out [R, C] row-major int8 / f32 / f32 / int8, fs [R] f32), rows as
+// kernels/dampen.py::rowscale_plan lays them out. A leaf of fewer than 2^31
+// elements is one part: a table of one, whose row the kernel reads at fixed
+// offsets, with no search.
+extern "C" int ficabu_dampen_int8_rowscale(const long long* rows,
+                                           int n_parts, long long blocks,
                                            float alpha, float lam,
                                            void* stream) {
-  if (n <= 0 || C <= 0) return int(cudaSuccess);
-  const bool vec = aligned(theta_q, 4) && aligned(out, 4) &&
-                   aligned(i_fq, 16) && aligned(i_g, 16);
-  int64_t work = vec ? n / 4 : n;
-  if (work < 1) work = 1;
-  int64_t blocks = (work + kThreads - 1) / kThreads;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  dampen_int8_rowscale_kernel<<<unsigned(blocks), kThreads, 0,
-                                static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(theta_q), static_cast<const float*>(i_fq),
-      static_cast<const float*>(fs), static_cast<const float*>(i_g),
-      static_cast<int8_t*>(out), int64_t(n), int64_t(C), alpha, lam, vec);
-  return int(cudaGetLastError());
+  if (n_parts == 1) {
+    return launch_table<int8_t, RowLeaf, 1, 11>(rows, n_parts, blocks, alpha,
+                                                lam, nullptr, stream);
+  }
+  return launch_table<int8_t, RowLeaf, kMaxRowLeaves, 11>(
+      rows, n_parts, blocks, alpha, lam, nullptr, stream);
 }

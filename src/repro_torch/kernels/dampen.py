@@ -25,6 +25,14 @@ pass, so a forget request launches once per layer and sums no masks.
 first block and whether it may take the 16-byte path. The per-leaf
 ``dampen_cuda`` / ``dampen_int8_cuda`` are tables of one.
 
+The rowscale kernel is the same kernel body over a table of the parts of
+one leaf [R, C], one launch per leaf (``rowscale_plan``): a leaf of fewer
+than 2^31 elements is one part, a larger one is cut into parts of whole
+rows (or, for a row of 2^31 elements or more, pieces of it) that each
+hold fewer, so that the card's index math is 32-bit. Each part carries
+its row length and the multiplier and shift that divide by it
+(``fast_divisor``), so the card finds an element's row without a divide.
+
 Why CUDA C++ and not Triton: the kernel must agree with ``dampen_ref`` bit
 for bit, and Triton lowers an f32 ``/`` to the approximate
 ``div.full.f32``; nvcc's divide is correctly rounded as long as the build
@@ -60,6 +68,11 @@ _ENTRY_ROWSCALE = "ficabu_dampen_int8_rowscale"
 # the elements one block takes from its leaf (a multiple of 4 x 256 threads)
 MAX_LEAVES = 64
 ELEMS_PER_BLOCK = 1024
+# a rowscale launch's table: at most MAX_ROW_PARTS parts of one leaf, each
+# of at most PART_LIMIT elements (the kernel's index math is 32-bit); 16
+# parts hold 34 billion elements, more than a card's memory
+MAX_ROW_PARTS = 16
+PART_LIMIT = 2 ** 31 - 1
 # a grouped call puts each leaf's mask (and output) at a 16-byte boundary
 # of one buffer
 _ALIGN = 16
@@ -209,6 +222,73 @@ def table_plan(ns: Sequence[int], ptrs: Sequence[Sequence[int]],
     return launches
 
 
+def fast_divisor(d: int) -> Tuple[int, int]:
+    """The multiplier and shift that divide by ``d`` (1 <= d < 2^31) on
+    the card: ``e // d == umulhi(2 * e, mul) >> shr`` for every
+    0 <= e < 2^31, with ``umulhi`` the high 32 bits of a 32-bit product.
+    With ``shr = ceil(log2 d)`` and ``mul = ceil(2^(31 + shr) / d)`` (under
+    2^32) this is Granlund and Montgomery's round-up method for 31-bit
+    dividends; the doubled dividend folds their extra shift into the
+    multiply, so that d = 1 needs no case of its own."""
+    shr = (d - 1).bit_length()
+    return -(-(1 << (31 + shr)) // d), shr
+
+
+def rowscale_parts(R: int, C: int, limit: int = PART_LIMIT
+                   ) -> List[Tuple[int, int, int, int]]:
+    """The parts of a rowscale leaf [R, C], each (first row, first element,
+    elements, row length), in order, together every element once.
+
+    A part holds at most ``limit`` (>= 4) elements. Where a row fits, a
+    part is whole rows, as many as fit, a multiple of 4 where 4 fit, so
+    that every part starts at a multiple of 4 elements and a leaf on the
+    16-byte path stays on it; a leaf of at most ``limit`` elements is one
+    part. A longer row is cut into pieces of at most ``limit`` rounded
+    down to a multiple of 4, each a row of its own (its row length its own
+    length)."""
+    parts = []
+    if C <= limit:
+        q = limit // C
+        q -= q % 4 if q >= 4 else 0
+        for r in range(0, R, q):
+            parts.append((r, r * C, min(q, R - r) * C, C))
+    else:
+        piece = limit - limit % 4
+        for r in range(R):
+            for j in range(0, C, piece):
+                m = min(piece, C - j)
+                parts.append((r, r * C + j, m, m))
+    return parts
+
+
+def rowscale_plan(R: int, C: int, ptrs: Sequence[int],
+                  limit: int = PART_LIMIT) -> Tuple[np.ndarray, int]:
+    """The launch of one rowscale call, computed on the host.
+
+    ``ptrs`` are the leaf's (theta_q, i_fq, fs, i_g, out) addresses (int8,
+    f32, f32, f32, int8). Returns the launch's table, an int64 array
+    [k, 11] of rows (theta, i_fq, fs, i_g, out, n, first block, vec, C,
+    mul, shr), one per part of ``rowscale_parts`` in order, as
+    ``csrc/dampen.cu`` reads them, the pointers moved to the part's first
+    element and first row; and its block count. ``vec`` is 1 when the
+    part's pointers allow the 4-element path (16 bytes for i_fq and i_g, 4
+    for theta and out). More than ``MAX_ROW_PARTS`` parts raise."""
+    th, f, s, g, o = ptrs
+    parts = rowscale_parts(R, C, limit)
+    if len(parts) > MAX_ROW_PARTS:
+        raise ValueError(
+            f"dampen_int8_rowscale takes a leaf of at most {MAX_ROW_PARTS} "
+            f"parts of {limit} elements, got [{R}, {C}] in {len(parts)}")
+    rows, first = [], 0
+    for r, e, n, c in parts:
+        vec = ((th + e) % 4 == 0 and (o + e) % 4 == 0
+               and (f + 4 * e) % 16 == 0 and (g + 4 * e) % 16 == 0)
+        rows.append((th + e, f + 4 * e, s + 4 * r, g + 4 * e, o + e, n,
+                     first, int(vec), c, *fast_divisor(c)))
+        first += -(-n // ELEMS_PER_BLOCK)
+    return np.array(rows, dtype=np.int64).reshape(-1, 11), first
+
+
 def build() -> Path:
     """Compile ``csrc/dampen.cu`` for sm_90a if this exact source and flag
     set has not been built yet; returns the shared library's path."""
@@ -228,8 +308,8 @@ def _lib() -> ctypes.CDLL:
                 ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                 ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
                 ctypes.c_void_p])
-        _build.bind(lib, _ENTRY_ROWSCALE, [ctypes.c_void_p] * 5 + [
-            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_float,
+        _build.bind(lib, _ENTRY_ROWSCALE, [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float,
             ctypes.c_float, ctypes.c_void_p])
         _LIB = lib
     return _LIB
@@ -427,8 +507,10 @@ def dampen_int8_rowscale_cuda(theta_q: torch.Tensor, i_fq: torch.Tensor,
                               alpha: float, lam: float) -> torch.Tensor:
     """Launch the rowscale kernel on contiguous CUDA tensors: theta_q
     [R, C] int8, i_fq [R, C] f32, f_scale [R] f32, i_g [R, C] f32; returns
-    the codes [R, C] int8 in a new tensor. Launches on the current stream
-    and does not synchronise."""
+    the codes [R, C] int8 in a new tensor. One launch over the table of the
+    leaf's parts of at most ``PART_LIMIT`` elements (``rowscale_plan``; a
+    leaf of fewer than 2^31 elements is a table of one). Launches on the
+    current stream and does not synchronise."""
     global ROWSCALE_LAUNCHES
     dev = theta_q.device
     if dev.type != "cuda":
@@ -451,10 +533,12 @@ def dampen_int8_rowscale_cuda(theta_q: torch.Tensor, i_fq: torch.Tensor,
                 f"(contiguous={t.is_contiguous()})")
     out = torch.empty_like(theta_q)
     if theta_q.numel():
+        rows, blocks = rowscale_plan(
+            R, C, (theta_q.data_ptr(), i_fq.data_ptr(), f_scale.data_ptr(),
+                   i_g.data_ptr(), out.data_ptr()), PART_LIMIT)
         fn = getattr(_lib(), _ENTRY_ROWSCALE)
         with torch.cuda.device(dev):
-            err = fn(theta_q.data_ptr(), i_fq.data_ptr(), f_scale.data_ptr(),
-                     i_g.data_ptr(), out.data_ptr(), R * C, C, alpha, lam,
+            err = fn(rows.ctypes.data, len(rows), blocks, alpha, lam,
                      torch.cuda.current_stream(dev).cuda_stream)
         if err != 0:
             raise RuntimeError(f"dampen_int8_rowscale kernel launch failed: "

@@ -46,40 +46,45 @@ VARIANTS = {"cap8": [("constexpr int kMaxLeaves = 64;",
             "epb2048": [(EPB, "constexpr int kElemsPerBlock = 2048;")],
             "epb4096": [(EPB, "constexpr int kElemsPerBlock = 4096;")]}
 ENTRIES = {"f32": "ficabu_dampen_group_f32", "int8": "ficabu_dampen_group_int8"}
+GROUP_ARGS = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+              ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
+              ctypes.c_void_p]
 
 
-def build_variants(kb):
-    """name -> {kind: bound C entry} of every source variant, built in
-    parallel."""
+def build_variants(kb, variants=VARIANTS, entries=ENTRIES,
+                   argtypes=GROUP_ARGS, prefix="dampen"):
+    """name -> (library path, {kind: bound C entry}) of the committed
+    source and every variant, built in parallel. A variant is a list of
+    (old, new) text edits of the source; old None appends new at its
+    end."""
     out = kb.BUILD_DIR / "variants"
     out.mkdir(parents=True, exist_ok=True)
     text = (kb.CSRC / "dampen.cu").read_text()
     jobs = []
-    for name, edits in {"base": [], **VARIANTS}.items():
+    for name, edits in {"base": [], **variants}.items():
         body = text
         for old, new in edits:
+            if old is None:
+                body += new
+                continue
             if old not in body:
                 raise RuntimeError(f"dampen/{name}: source text not found")
             body = body.replace(old, new)
-        cu = out / f"dampen-{name}.cu"
+        cu = out / f"{prefix}-{name}.cu"
         cu.write_text(body)
         so = cu.with_suffix(".so")
         jobs.append((name, so, subprocess.Popen(
             [kb._nvcc(), *kb.NVCC_FLAGS, "-o", str(so), str(cu)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    fns = {}
+    built = {}
     for name, so, proc in jobs:
         log, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for dampen/{name}:\n{log}")
         lib = ctypes.CDLL(str(so))
-        fns[name] = {}
-        for kind, entry in ENTRIES.items():
-            fns[name][kind] = kb.bind(lib, entry, [
-                ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
-                ctypes.c_void_p])
-    return fns
+        built[name] = (so, {kind: kb.bind(lib, entry, argtypes)
+                            for kind, entry in entries.items()})
+    return built
 
 
 @contextlib.contextmanager
@@ -142,7 +147,7 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    fns = build_variants(kb)
+    fns = {k: v[1] for k, v in build_variants(kb).items()}
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
     stream = torch.cuda.current_stream(dev).cuda_stream

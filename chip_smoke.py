@@ -22,7 +22,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
      capacity, and edge tables (empty leaves, n < 4, odd n, offset views,
      in place, NaN/inf/1e-38, int8 ties and saturation), every leaf and the
      selection count BIT-identical and the launch and leaf counters equal to
-     the table. The four kernels reached
+     the table; the same over VIT_CIFAR20's 14 layer tables (leaves of 192
+     to 147,456 elements, the rank-3 patch/cls and patch/pos) and its
+     176-leaf tree. The four kernels reached
      through ``kernels.ops`` only: odd shapes, misaligned pointers, special
      values, extreme codes, and for the GEMMs reductions split over N
      (S > 1) with a ragged last slice and, for gemm_fisher_int8, N = MAX_N
@@ -52,7 +54,21 @@ Phases, in order; any failure exits non-zero and prints no result line:
   5. the whole ssd forget with the kernel against the same forget with the
      plain version, under deterministic cuDNN, fp32 and int8:
      bit-identical parameters;
-  6. [fisher kernels]: the ``kernels.ops`` API — the entry point of fimd,
+  6. [vit]: the paper's ViT at full width, VIT_CIFAR20 (12 blocks, d_model
+     192, 3 heads, d_ff 768, 65 tokens, 176 leaves in 14 layers, 7,120,340
+     parameters), random weights from the seed pre-trained here, through
+     ``Unlearner.forget`` on the same data with alpha 5 and b_r 5 (the
+     reference's calibration of its reduced ViT; the paper's full-size
+     ViT uses alpha 25 and b_r 10) and checkpoints every 3 blocks: "ssd" (14
+     launches over 176 leaves), "ficabu", and "ficabu" with tau = -1 (it
+     never halts) on a facade of its own (checkpoints l = 1, 3, 6, 9, 12,
+     14; two checkpoint runners built cold, the depth-operand one and depth
+     0's, none warm),
+     each cold then warm, fp32 then int8, with the counters zeroed just
+     before each path and read just after, as in phase 4; then the ssd
+     forget with the kernel against the plain one, bit for bit, in both
+     precisions;
+  7. [fisher kernels]: the ``kernels.ops`` API — the entry point of fimd,
      gemm_fisher, gemm_fisher_int8 and dampen_int8_rowscale, as in the JAX
      package — on operands of the same forget request (64 images, chunk 8):
      fimd on the 8 stacked chunk gradients of each of the 56 leaves,
@@ -66,7 +82,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
      gradient, the fp32 dW (int8, its operands quantised per column of each
      1024-row block of N, within INT8_SWEEP_RTOL) and dampen_int8 on the
      dequantised Fisher;
-  7. times: each kernel and its plain version at the main paths' shapes
+  8. times: each kernel and its plain version at the main paths' shapes
      (the dampen sweeps as a request launches them, one grouped launch per
      layer, with the 56 per-leaf launches beside them and the figures from
      before the grouped kernel; and, for fimd and the GEMMs, one PyTorch
@@ -74,9 +90,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
      GEMMs on operand sets rotated beyond the L2, with their split plans),
      beside the bound (for
      gemm_fisher the larger of its bytes and the 3xTF32 arithmetic, the
-     FP32-SIMT figure beside it), printed as one ``{"kernels": [...]}``
-     line, and where a warm fp32 and a warm int8 ssd request spend their
-     time (device kernels, the dampen launches among them, idle share).
+     FP32-SIMT figure beside it), the ViT's 14-launch sweeps beside their
+     byte bound, printed as one ``{"kernels": [...]}`` line, and where a
+     warm fp32 and a warm int8 ssd request spend their time, ResNet-18 and
+     ViT (device kernels, the dampen launches among them, idle share).
 
 The last line is the contract line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -313,14 +330,15 @@ def check_int8_kernel_against_plain(leaf_shapes, dev):
     return cases, max_err
 
 
-def check_group_kernels_against_plain(layer_shapes, dev):
+def check_group_kernels_against_plain(layer_shapes, dev, edges=True):
     """Phase 3, grouped: dampen_group_cuda and dampen_int8_group_cuda (one
     launch per 64 leaves) against their plain versions, bit for bit, the
     selection count included, and the launch and leaf counters against the
-    table: each layer's table, the whole tree, tables past capacity, and
-    edge tables (empty leaves, n < 4, odd n, offset views off the 16-byte
-    grid, in-place out, NaN/inf/1e-38 entries, int8 ties and saturation).
-    Returns the tables checked per kind and the largest |err| per kernel."""
+    table: each layer's table and the whole tree, then (``edges``) tables
+    past capacity and edge tables (empty leaves, n < 4, odd n, offset views
+    off the 16-byte grid, in-place out, NaN/inf/1e-38 entries, int8 ties
+    and saturation). Returns the tables checked per kind and the largest
+    |err| per kernel."""
     from repro_torch.kernels import dampen as kd
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 7)
@@ -397,6 +415,8 @@ def check_group_kernels_against_plain(layer_shapes, dev):
                         f"layer {j} a={alpha} l={lam}")
             compare(kind, *table(every, kind, alpha), alpha, lam,
                     f"all {len(every)} leaves a={alpha} l={lam}")
+        if not edges:
+            continue
         # past capacity: the tree twice (2 launches), and 150 small leaves
         # of 0..99 elements (3 launches)
         compare(kind, *table(every + every, kind, 10.0), 10.0, 1.0,
@@ -404,6 +424,8 @@ def check_group_kernels_against_plain(layer_shapes, dev):
         small = [(int(n),) for n in torch.randint(
             0, 100, (150,), generator=gen, device=dev)]
         compare(kind, *table(small, kind, 2.0), 2.0, 0.5, "150 small leaves")
+    if not edges:
+        return cases, max_err
 
     # edge tables: every leaf an offset view (lo > 0: off the 4/16-byte
     # grid), empty leaves among them, special values, every pair and the
@@ -853,10 +875,10 @@ def layer_rel_l2(adapter, p8, p32):
     return out
 
 
-def pretrain(params, x, y, steps, batch, dev):
-    """A few hundred AdamW steps on the synthetic classes, so the forget
-    class is learnt and the checkpoints have something to halt on."""
-    from repro_torch.configs import RESNET18_CIFAR20 as cfg
+def pretrain(params, forward, x, y, steps, batch, dev):
+    """A few hundred AdamW steps of ``forward(params, images) -> logits`` on
+    the synthetic classes, so the forget class is learnt and the
+    checkpoints have something to halt on."""
     from repro_torch.models import vision as V
     from repro_torch.models.module import tree_leaves, tree_map
 
@@ -865,7 +887,7 @@ def pretrain(params, x, y, steps, batch, dev):
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     for _ in range(steps):
         idx = torch.randint(0, x.shape[0], (batch,), generator=gen, device=dev)
-        loss = V.cls_loss(V.resnet_forward(params, cfg, x[idx]), y[idx])
+        loss = V.cls_loss(forward(params, x[idx]), y[idx])
         opt.zero_grad(set_to_none=True)
         loss.backward()
         opt.step()
@@ -882,6 +904,7 @@ def main() -> int:
     from repro_torch.api import (ForgetRequest, QuantSpec, Unlearner,
                                  UnlearnSpec)
     from repro_torch.configs import RESNET18_CIFAR20 as cfg
+    from repro_torch.configs import VIT_CIFAR20 as vcfg
     from repro_torch.core import adapters
     from repro_torch.data import synthetic as syn
     from repro_torch.kernels import build as kbuild
@@ -956,6 +979,32 @@ def main() -> int:
         f"leaves past capacity, edge tables of offset views x 8 pairs x "
         f"in place or not), max |err| {gmax_err} "
         f"({time.perf_counter() - t0:.1f} s)")
+    # the same over VIT_CIFAR20's 14 layer tables: leaves of 192 elements,
+    # the rank-3 patch/cls and patch/pos, 147,456-element MLP weights
+    vparams = V.init_vit(torch.Generator().manual_seed(SEED), vcfg,
+                         device="cuda")
+    vsizes = [t.numel() for t in bridge.paths(vparams).values()]
+    if len(vsizes) != 176 or sum(vsizes) != 7_120_340:
+        raise AssertionError(f"VIT_CIFAR20 has {len(vsizes)} leaves and "
+                             f"{sum(vsizes)} parameters, expected 176 / "
+                             f"7120340")
+    vadapter = adapters.vit_adapter(vcfg, device="cuda")
+    vlayer_shapes = [[tuple(t.shape) for t in
+                      tree_leaves(vadapter.get_layer(vparams, j))]
+                     for j in range(vadapter.n_layers - 1, -1, -1)]
+    t0 = time.perf_counter()
+    vcases, vmax_err = check_group_kernels_against_plain(vlayer_shapes, dev,
+                                                         edges=False)
+    for k in gmax_err:
+        gmax_err[k] = max(gmax_err[k], vmax_err[k])
+    log(f"[kernel] grouped dampen and dampen_int8 over VIT_CIFAR20's "
+        f"{len(vlayer_shapes)} layer tables "
+        f"({[len(s) for s in vlayer_shapes]} leaves of {min(vsizes)} to "
+        f"{max(vsizes)} elements, rank-3 patch/cls and patch/pos) and its "
+        f"{len(vsizes)}-leaf tree (3 launches) x 3 pairs: bit-identical to "
+        f"their plain versions, selection count, launch and leaf counters "
+        f"included, in {vcases} tables, max |err| {vmax_err} "
+        f"({time.perf_counter() - t0:.1f} s)")
     t0 = time.perf_counter()
     edge = check_fisher_kernels_against_plain(dev)
     log(f"[kernel] fimd (rtol 1e-5, atol 0), gemm_fisher (rel L2 1e-5), "
@@ -969,7 +1018,9 @@ def main() -> int:
         seed=SEED))
     xd, yd = torch.as_tensor(x, device=dev), torch.as_tensor(y, device=dev)
     t0 = time.perf_counter()
-    params, loss = pretrain(params, xd, yd, steps=300, batch=128, dev=dev)
+    params, loss = pretrain(params,
+                            lambda p, im: V.resnet_forward(p, cfg, im),
+                            xd, yd, steps=300, batch=128, dev=dev)
     torch.cuda.synchronize()
     log(f"[train] 300 AdamW steps at batch 128 in "
         f"{time.perf_counter() - t0:.1f} s, last loss {loss:.4f}")
@@ -979,11 +1030,15 @@ def main() -> int:
     fx, fy = fx[:64], fy[:64]
     rx, ry = splits["retain"]
 
-    def acc(p, xs, ys):
-        with torch.no_grad():
-            xs = torch.as_tensor(xs, device=dev)
-            ys = torch.as_tensor(ys, device=dev)
-            return float(V.cls_accuracy(V.resnet_forward(p, cfg, xs), ys))
+    def accuracy_of(forward):
+        def acc(p, xs, ys):
+            with torch.no_grad():
+                xs = torch.as_tensor(xs, device=dev)
+                ys = torch.as_tensor(ys, device=dev)
+                return float(V.cls_accuracy(forward(p, xs), ys))
+        return acc
+
+    acc = accuracy_of(lambda p, im: V.resnet_forward(p, cfg, im))
 
     tau = 1.0 / cfg.n_classes + 0.03
     log(f"[slice] before: forget acc {acc(params, fx, fy):.4f}, retain acc "
@@ -1012,14 +1067,18 @@ def main() -> int:
     def dampen_counts():
         return (kd.LAUNCHES, kd.LEAVES, kd.INT8_LAUNCHES, kd.INT8_LEAVES)
 
-    def serve(path, pairs):
-        """Drive one path: all six launch counters (and the two leaf
-        counters) zeroed just before, read just after; per request the
-        launches of each dampen kernel and the leaves they dampened."""
+    def serve(path, pairs, m):
+        """Drive one path of model ``m``: all six launch counters (and the
+        two leaf counters) zeroed just before, read just after; per request
+        the launches of each dampen kernel, the leaves they dampened and the
+        checkpoint runners built."""
+        adapter, params, acc = m["adapter"], m["params"], m["acc"]
+        L = adapter.n_layers
         zero_counts()                          # this path starts
         runs = []
         for name, unl in pairs:
             c0 = dampen_counts()
+            p0 = unl.stats.get("partial_compiles", 0)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             new, st = unl.forget(ForgetRequest(fx, fy, tag=name),
@@ -1027,25 +1086,28 @@ def main() -> int:
             torch.cuda.synchronize()
             runs.append((name, new, st,
                          tuple(b - a for a, b in zip(c0, dampen_counts())),
-                         time.perf_counter() - t0))
+                         time.perf_counter() - t0,
+                         unl.stats["partial_compiles"] - p0))
         counts = dampen_counts()               # this path ends
         if fisher_counts() != (0, 0, 0, 0):
             raise AssertionError(f"{path} requests launched fimd/gemm_fisher/"
                                  f"gemm_fisher_int8/rowscale "
                                  f"{fisher_counts()} times")
-        for i, (name, new, st, dc, secs) in enumerate(runs):
-            warm = i >= 2
+        acc_before = acc(params, fx, fy)
+        for i, (name, new, st, dc, secs, partial) in enumerate(runs):
+            warm = any(n == name for n, *_ in runs[:i])
             layers = st["stopped_at_l"]
-            swept = sum(len(tree_leaves(adapter.get_layer(new, 10 - l)))
+            swept = sum(len(tree_leaves(adapter.get_layer(new, L - l)))
                         for l in range(1, layers + 1))
-            log(f"[slice] {path} {name:6s} {'warm' if warm else 'cold'}: "
+            log(f"[{m['tag']}] {path} {name:6s} {'warm' if warm else 'cold'}: "
                 f"stopped_at_l={layers} "
                 f"checkpoints={st['checkpoints_hit']} "
                 f"macs_vs_ssd_pct={st['macs_vs_ssd_pct']:.4f} "
                 f"launches dampen={dc[0]} over {dc[1]} leaves, "
                 f"dampen_int8={dc[2]} over {dc[3]} leaves "
                 f"builds={st['engine']['compiles']} "
-                f"hits={st['engine']['cache_hits']} wall={secs * 1e3:.1f} ms "
+                f"hits={st['engine']['cache_hits']} partial builds={partial} "
+                f"wall={secs * 1e3:.1f} ms "
                 f"forget acc {acc(new, fx, fy):.4f} retain acc "
                 f"{acc(new, rx, ry):.4f}")
             # one launch per layer swept, over every leaf of those layers
@@ -1056,7 +1118,8 @@ def main() -> int:
                     f"{path} {name}: {dc[0]} dampen launches over {dc[1]} "
                     f"leaves and {dc[2]} dampen_int8 launches over {dc[3]} "
                     f"leaves for {layers} layers of {swept} leaves")
-            if name == "ssd" and (mine != (10, 56) or layers != 10):
+            if name == "ssd" and (mine != (L, m["n_leaves"])
+                                  or layers != L):
                 raise AssertionError(f"{path} ssd sweep: {mine[0]} launches "
                                      f"over {mine[1]} leaves, stopped at "
                                      f"{layers}")
@@ -1068,24 +1131,26 @@ def main() -> int:
                                      f"{st['engine']['compiles']} steps")
             if not all(torch.isfinite(t).all() for t in tree_leaves(new)):
                 raise AssertionError(f"{path} {name}: non-finite parameters")
-            if acc(new, fx, fy) > acc(params, fx, fy):
+            if acc(new, fx, fy) > acc_before:
                 raise AssertionError(f"{path} {name}: forget accuracy rose")
         for k, t in bridge.paths(params).items():
-            if not torch.equal(t, before[k]):
+            if not torch.equal(t, m["before"][k]):
                 raise AssertionError(f"{path} forget without donation "
                                      f"edited {k}")
         return runs, counts
 
+    rn = {"tag": "slice", "adapter": adapter, "params": params, "acc": acc,
+          "n_leaves": len(shapes), "before": before}
     runs, (main_launches, main_leaves, _, _) = serve(
         "fp32", (("ssd", ssd), ("ficabu", ficabu), ("ssd", ssd),
-                 ("ficabu", ficabu)))
+                 ("ficabu", ficabu)), rn)
     spec8 = lambda mode: spec(mode, use_kernel=True,  # noqa: E731
                               precision="int8", quant=QuantSpec())
     ssd8 = ssd.with_spec(spec8("ssd"))
     ficabu8 = ssd.with_spec(spec8("ficabu"))
     runs8, (_, _, main_launches8, main_leaves8) = serve(
         "int8", (("ssd", ssd8), ("ficabu", ficabu8), ("ssd", ssd8),
-                 ("ficabu", ficabu8)))
+                 ("ficabu", ficabu8)), rn)
     # launches of the warm ssd request, in its own precision
     ssd_launches = {"fp32": runs[2][3][0], "int8": runs8[2][3][2]}
     for (name, new8, *_), (name32, new32, *_) in zip(runs8[:2], runs[:2]):
@@ -1113,7 +1178,94 @@ def main() -> int:
         log(f"[slice] {path} ssd forget with the kernel == plain forget, bit "
             f"for bit, all 56 leaves")
 
-    # 6. [fisher kernels]: the kernels.ops API, the entry point of fimd,
+    # 6. [vit]: the paper's ViT at full width (VIT_CIFAR20, the random
+    # weights of phase 3 pre-trained here) through the same entry point, on
+    # the same data, with alpha 5, b_r 5 (benchmarks/common.py: the
+    # reference's calibration of its reduced ViT; the paper's full-size
+    # ViT uses alpha 25, b_r 10) and checkpoints every 3 blocks. The third
+    # request never halts (tau = -1: a request halts where the forget
+    # accuracy is <= tau, and tau = 0 halts wherever the head's edit alone
+    # takes it to 0), so it passes every checkpoint; it has a facade of its
+    # own, so that its cold run builds the checkpoint runners: the
+    # depth-operand one and the one of depth 0.
+    t0 = time.perf_counter()
+    vparams, vloss = pretrain(vparams,
+                              lambda p, im: V.vit_forward(p, vcfg, im),
+                              xd, yd, steps=300, batch=128, dev=dev)
+    torch.cuda.synchronize()
+    log(f"[vit] 300 AdamW steps at batch 128 in "
+        f"{time.perf_counter() - t0:.1f} s, last loss {vloss:.4f}")
+    vacc = accuracy_of(lambda p, im: V.vit_forward(p, vcfg, im))
+    vit = {"tag": "vit", "adapter": vadapter, "params": vparams,
+           "acc": vacc, "n_leaves": len(vsizes),
+           "before": {k: v.clone() for k, v in bridge.paths(vparams).items()}}
+    log(f"[vit] before: forget acc {vacc(vparams, fx, fy):.4f}, retain acc "
+        f"{vacc(vparams, rx, ry):.4f}; tau {tau:.4f}")
+
+    def vspec(mode, use_kernel=True, **kw):
+        return UnlearnSpec.for_mode(
+            mode, **{"alpha": 5.0, "lam": 1.0, "b_r": 5.0, "tau": tau,
+                     "checkpoint_every": 3, "chunk_size": 8,
+                     "use_kernel": use_kernel, **kw})
+
+    vssd = Unlearner(vadapter, spec=vspec("ssd"), device="cuda")
+    t0 = time.perf_counter()
+    vssd.ensure_fisher(lambda p, b: V.cls_loss(V.vit_forward(p, vcfg, b[0]),
+                                               b[1]),
+                       vparams, (rx[:256], ry[:256]))
+    torch.cuda.synchronize()
+    log(f"[vit] ensure_fisher on 256 retain images (chunk 8) in "
+        f"{time.perf_counter() - t0:.2f} s")
+    vfisher = vssd.fisher_global
+    int8_kw = {"precision": "int8", "quant": QuantSpec()}
+    vruns = {}
+    for path, kw in (("fp32", {}), ("int8", int8_kw)):
+        order = (("ssd", vssd.with_spec(vspec("ssd", **kw))),
+                 ("ficabu", vssd.with_spec(vspec("ficabu", **kw))),
+                 ("ficabu-nohalt", Unlearner(vadapter, vfisher,
+                                             vspec("ficabu", tau=-1.0, **kw),
+                                             device="cuda")))
+        vruns[path] = serve(path, order + order, vit)
+        for i, (name, new, st, dc, secs, partial) in enumerate(
+                vruns[path][0]):
+            if name == "ficabu-nohalt" and (
+                    st["checkpoints_hit"] != [1, 3, 6, 9, 12, 14]
+                    or st["stopped_at_l"] != 14
+                    or partial != (0 if i >= 3 else 2)):
+                raise AssertionError(
+                    f"vit {path} {name} ({'warm' if i >= 3 else 'cold'}): "
+                    f"checkpoints {st['checkpoints_hit']}, stopped at "
+                    f"{st['stopped_at_l']}, {partial} checkpoint runners "
+                    f"built")
+    # the warm ssd request's (launches, leaves) in its own precision
+    vit_ssd = {"fp32": vruns["fp32"][0][3][3][:2],
+               "int8": vruns["int8"][0][3][3][2:]}
+    for (name, new8, *_), (_, new32, *_) in zip(vruns["int8"][0][:3],
+                                                vruns["fp32"][0][:3]):
+        if not on_q8_grid(bridge.paths(new8), vit["before"]):
+            raise AssertionError(f"vit int8 {name}: a leaf left its q8 grid")
+        rel = layer_rel_l2(vadapter, new8, new32)
+        log(f"[vit] int8 {name} vs fp32 {name}, per-layer relative L2 "
+            f"(j = 0..13): {[round(r, 6) for r in rel]}")
+        if not all(0.0 < r <= INT8_SWEEP_RTOL for r in rel):
+            raise AssertionError(f"vit int8 {name}: per-layer error {rel} "
+                                 f"outside (0, {INT8_SWEEP_RTOL}]")
+    # the whole forget, kernel vs plain (no TF32, deterministic cuDNN)
+    for path, kw in (("fp32", {}), ("int8", int8_kw)):
+        p_kernel, _ = vssd.with_spec(vspec("ssd", **kw)).forget(
+            ForgetRequest(fx, fy), params=vparams)
+        p_plain, _ = vssd.with_spec(vspec("ssd", use_kernel=False, **kw)
+                                    ).forget(ForgetRequest(fx, fy),
+                                             params=vparams)
+        a, b = bridge.paths(p_kernel), bridge.paths(p_plain)
+        diff = [k for k in a if not torch.equal(bits(a[k]), bits(b[k]))]
+        if diff:
+            raise AssertionError(f"vit {path} kernel forget != plain forget "
+                                 f"at {diff}")
+        log(f"[vit] {path} ssd forget with the kernel == plain forget, bit "
+            f"for bit, all {len(a)} leaves")
+
+    # 7. [fisher kernels]: the kernels.ops API, the entry point of fimd,
     # gemm_fisher, gemm_fisher_int8 and dampen_int8_rowscale (as in the JAX
     # package), on operands of the same 64-image forget request at chunk 8
     from repro_torch.kernels import ops
@@ -1316,7 +1468,7 @@ def main() -> int:
                      f"from the fp32 dW" for k, v in int8_rel.items()
                      if not v <= INT8_SWEEP_RTOL]
 
-    # 7. times at the main paths' shapes. The sweep as a request launches
+    # 8. times at the main paths' shapes. The sweep as a request launches
     # it: one grouped launch per layer, back to front, on the layers' own
     # tensors against the global Fisher; beside it the same 56 leaves one
     # launch each, as the request launched them before the grouped kernel
@@ -1461,6 +1613,42 @@ def main() -> int:
     bound8 = {"sweep": (n_sweep * 11 + 8 * len(sweep_tables)) / rate * 1e3,
               "big": n_big * 11 / rate * 1e3}
     time_lines("dampen_int8", t8, bound8, ("sweep", "big"))
+
+    # the ViT sweep as its ssd request launches it: 14 grouped launches, back
+    # to front, on the pre-trained layers against the ViT's global Fisher,
+    # in f32 and as int8 codes
+    vit_tables = []
+    for j in range(vadapter.n_layers - 1, -1, -1):
+        i_gs = tree_leaves(vadapter.get_layer(vfisher, j))
+        vit_tables.append((
+            tree_leaves(vadapter.get_layer(vparams, j)),
+            [torch.rand(g.shape, generator=gen, device=dev) * 20 * g
+             for g in i_gs], i_gs))
+    vit_tables8 = [([q8_quantize(th)[0] for th in ths], i_fs, i_gs)
+                   for ths, i_fs, i_gs in vit_tables]
+    n_vit = sum(t.numel() for ths, _, _ in vit_tables for t in ths)
+    tv = {
+        "fp32": cuda_time_ms(
+            lambda: sweep_grouped(kd.dampen_group_cuda, vit_tables), 8,
+            queue_ahead=True),
+        "fp32_plain": cuda_time_ms(
+            lambda: sweep_grouped(kd.dampen_group_ref, vit_tables), 1,
+            queue_ahead=True),
+        "int8": cuda_time_ms(
+            lambda: sweep_grouped(kd.dampen_int8_group_cuda, vit_tables8), 8,
+            queue_ahead=True),
+        "int8_plain": cuda_time_ms(
+            lambda: sweep_grouped(kd.dampen_int8_group_ref, vit_tables8), 1,
+            queue_ahead=True),
+    }
+    # the same bytes per element as the ResNet sweeps, and each layer's count
+    vbound = {"fp32": (n_vit * 17 + 8 * len(vit_tables)) / rate * 1e3,
+              "int8": (n_vit * 11 + 8 * len(vit_tables)) / rate * 1e3}
+    for kernel, path in (("dampen", "fp32"), ("dampen_int8", "int8")):
+        log(f"[time] {kernel} vit sweep device ({len(vit_tables)} grouped "
+            f"launches, {n_vit} elements): kernel {tv[path]:.5f} ms, plain "
+            f"{tv[path + '_plain']:.5f} ms, bound {vbound[path]:.5f} ms "
+            f"({vbound[path] / tv[path] * 100:.1f}% of the memory bound)")
 
     # the four kernels reached through kernels.ops, at the largest shapes of
     # the [fisher kernels] phase (and gemm at the longest reduction too)
@@ -1608,19 +1796,23 @@ def main() -> int:
             f"{gt['bound8'][0]:.5f} ms ({gt['bound8'][1]}, "
             f"{gt['bound8'][0] / gt['kernel8'] * 100:.1f}%)")
 
-    # where one warm ssd request spends its time on the card, per path
+    # where one warm ssd request spends its time on the card, per model and
+    # path
     prof = {}
-    for path, unl in (("fp32", ssd), ("int8", ssd8)):
+    vssd8 = vssd.with_spec(vspec("ssd", **int8_kw))
+    for path, unl, prm in (("fp32", ssd, params), ("int8", ssd8, params),
+                           ("vit fp32", vssd, vparams),
+                           ("vit int8", vssd8, vparams)):
         walls = []
         for _ in range(3):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            unl.forget(ForgetRequest(fx, fy), params=params)
+            unl.forget(ForgetRequest(fx, fy), params=prm)
             torch.cuda.synchronize()
             walls.append((time.perf_counter() - t0) * 1e3)
         wall = sorted(walls)[1]
         busy, n_kernels, ranked = profile_request(
-            lambda: unl.forget(ForgetRequest(fx, fy), params=params))
+            lambda: unl.forget(ForgetRequest(fx, fy), params=prm))
         prof[path] = (wall, busy, n_kernels)
         damp = [(ms, count) for name, ms, count in ranked
                 if "dampen_group_kernel" in name]
@@ -1631,11 +1823,13 @@ def main() -> int:
             f"({sum(ms for ms, _ in damp):.4f} ms)")
         for name, ms, count in ranked[:6]:
             log(f"[profile]   {ms:9.3f} ms  x{count:<5d} {name[:70]}")
-    log(f"[profile] int8 / fp32 warm ssd request: wall "
-        f"{prof['int8'][0] / prof['fp32'][0]:.3f}x, device busy "
-        f"{prof['int8'][1] / prof['fp32'][1]:.3f}x, device kernels "
-        f"{prof['int8'][2]} vs {prof['fp32'][2]} "
-        f"(+{prof['int8'][2] - prof['fp32'][2]})")
+    for model, p32, p8 in (("", "fp32", "int8"),
+                           ("vit ", "vit fp32", "vit int8")):
+        log(f"[profile] {model}int8 / fp32 warm ssd request: wall "
+            f"{prof[p8][0] / prof[p32][0]:.3f}x, device busy "
+            f"{prof[p8][1] / prof[p32][1]:.3f}x, device kernels "
+            f"{prof[p8][2]} vs {prof[p32][2]} "
+            f"(+{prof[p8][2] - prof[p32][2]})")
 
     if late_failures:
         raise AssertionError("; ".join(late_failures))
@@ -1645,6 +1839,11 @@ def main() -> int:
         "replaces": "src/repro/kernels/dampen.py:28",
         "launches": main_launches, "leaves": main_leaves,
         "launches_per_ssd_request": ssd_launches["fp32"],
+        "vit_launches": vruns["fp32"][1][0],
+        "vit_launches_per_ssd_request": vit_ssd["fp32"][0],
+        "vit_leaves": vit_ssd["fp32"][1],
+        "vit_sweep_ms": tv["fp32"], "vit_sweep_plain_ms": tv["fp32_plain"],
+        "vit_sweep_bound_ms": vbound["fp32"],
         "max_abs_err": max(max_err, gmax_err["dampen"]),
         "ms": t["sweep_kernel"], "plain_ms": t["sweep_plain"],
         "bound_ms": bound["sweep"], "bound_by": "bytes",
@@ -1666,6 +1865,11 @@ def main() -> int:
         "replaces": "src/repro/kernels/dampen.py:39",
         "launches": main_launches8, "leaves": main_leaves8,
         "launches_per_ssd_request": ssd_launches["int8"],
+        "vit_launches": vruns["int8"][1][2],
+        "vit_launches_per_ssd_request": vit_ssd["int8"][0],
+        "vit_leaves": vit_ssd["int8"][1],
+        "vit_sweep_ms": tv["int8"], "vit_sweep_plain_ms": tv["int8_plain"],
+        "vit_sweep_bound_ms": vbound["int8"],
         "max_abs_err": max(max_err8, gmax_err["dampen_int8"]),
         "ms": t8["sweep_kernel"], "plain_ms": t8["sweep_plain"],
         "bound_ms": bound8["sweep"], "bound_by": "bytes",

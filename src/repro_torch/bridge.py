@@ -5,7 +5,9 @@ example ``jax.tree_util.tree_map(np.asarray, params)``); this module never
 imports JAX. The keys are the same on both sides. The one layout change is
 the conv weights: HWIO ([kh, kw, cin, cout]) in the reference, OIHW
 ([cout, cin, kh, kw]) in the port, so every 4-D leaf is transposed. Dense
-weights keep the reference's [d_in, d_out] layout.
+weights keep the reference's [d_in, d_out] layout. The ViT has no 4-D
+leaf: its 3-D ``patch/cls`` [1, 1, D] and ``patch/pos`` [1, T, D] cross
+unchanged.
 
 Leaves are matched BY PATH ('blocks/0/conv1'): ``jax.tree_util`` sorts dict
 keys while a dict built in code keeps insertion order, so positions in two

@@ -1,8 +1,8 @@
 """ModelAdapter constructors: uniform per-layer views over the port's models.
 
 MAC formulas are per-sample forward multiply-accumulates — the hardware
-proxy the paper reports. (The ViT, LM and encoder-decoder adapters come
-with later slices.)
+proxy the paper reports. The paper's two vision models, ResNet-18 and ViT,
+are served. (The LM and encoder-decoder adapters come with the LM slice.)
 """
 from __future__ import annotations
 
@@ -65,5 +65,46 @@ def resnet_adapter(cfg: V.ResNetConfig, *, device="cuda") -> ModelAdapter:
         set_layer=V.resnet_set_layer,
         loss=V.cls_loss, acc=accuracy,
         layer_fwd_macs=_resnet_macs(cfg),
+        layer_key=layer_key, layer_ctx=lambda p, j: None,
+        device=dev)
+
+
+# ---------------------------------------------------------------------------
+# ViT
+# ---------------------------------------------------------------------------
+def _vit_macs(cfg: V.ViTConfig) -> List[int]:
+    T, D, F = cfg.n_tokens, cfg.d_model, cfg.d_ff
+    pdim = cfg.patch * cfg.patch * 3
+    block = 4 * T * D * D + 2 * T * T * D + 3 * T * D * F
+    return ([(T - 1) * pdim * D] + [block] * cfg.n_layers
+            + [D * cfg.n_classes])
+
+
+def vit_adapter(cfg: V.ViTConfig, *, device="cuda") -> ModelAdapter:
+    """The per-layer view of the ViT whose parameters live on ``device``
+    (raises without a card unless device="cpu")."""
+    dev = resolve_device(device)
+
+    def fc(params, images):
+        return V.vit_forward(params, cfg, images, collect=True)
+
+    def apply_layer(params, j, layer_p, act):
+        return V.vit_apply_layer(layer_p, j, act, cfg)
+
+    def layer_key(j):
+        if j == 0:
+            return ("patch",)
+        if j == cfg.n_layers + 1:
+            return ("head",)
+        return ("blk",)  # every encoder block shares one fused step
+
+    return ModelAdapter(
+        name=cfg.name, n_layers=cfg.n_layers + 2,
+        forward_collect=fc,
+        apply_layer=apply_layer,
+        get_layer=lambda p, j: V.vit_layer_params(p, j, cfg),
+        set_layer=lambda p, j, s: V.vit_set_layer(p, j, s, cfg),
+        loss=V.cls_loss, acc=accuracy,
+        layer_fwd_macs=_vit_macs(cfg),
         layer_key=layer_key, layer_ctx=lambda p, j: None,
         device=dev)

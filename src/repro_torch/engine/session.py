@@ -7,9 +7,12 @@ cache, so a serving process builds each step ONCE:
   * fused per-layer steps are cached by (layer kind, shape signature): all
     layers sharing a block shape within one sweep reuse one step, and the
     2nd..Nth forget request builds nothing;
-  * checkpoint partial inference runs one cached runner per start depth
-    (the reference's per-depth form, which it also takes for ResNet, whose
-    activations are not shape-uniform);
+  * checkpoint partial inference is ONE cached runner with the start depth
+    j as an operand when the layer activations are shape-uniform (ViT):
+    blocks j..L-2, then the head, for every j >= 1 (the reference's
+    traced-depth program); models whose activations change shape (ResNet)
+    and depth j = 0 take one cached runner per start depth, as in the
+    reference;
   * the int8 path (``precision="int8"``) adds its own step family
     ("gfused8") and the whole-tree fake-quant entry step ("quant"), with
     their own build/hit counters.
@@ -139,8 +142,8 @@ class UnlearnSession:
     # -- checkpoint partial inference ---------------------------------------
     def _uniform_suffix(self, acts: List[torch.Tensor]) -> bool:
         """True when every block input (depths 1..L-2) and the head input
-        share shape+dtype (the reference then runs one traced-depth
-        program; the port's runners are per depth either way)."""
+        share shape+dtype, so one runner with the depth as an operand
+        covers every checkpoint at j >= 1."""
         L = self.adapter.n_layers
         if L < 3:
             return False
@@ -148,17 +151,18 @@ class UnlearnSession:
         return all(a.shape == ref.shape and a.dtype == ref.dtype
                    for a in acts[1:L])
 
-    def _perj_program(self, j: int, params, act, labels) -> Callable:
+    def _runner(self, key: Hashable) -> Callable:
+        """The checkpoint runner cached under ``key``: ``run(prm, a, lbl,
+        j)`` pushes the activation ``a`` at depth j through layers j..L-1
+        and returns the accuracy on ``lbl``."""
         adapter = self.adapter
         L = adapter.n_layers
-        key = ("partial", j, shape_signature(params), shape_signature(act),
-               shape_signature(labels))
 
         def builder():
-            def run(prm, a, lbl, _j=j):
+            def run(prm, a, lbl, j):
                 with torch.no_grad():
                     x = a
-                    for jj in range(_j, L):
+                    for jj in range(j, L):
                         x = adapter.apply_layer(prm, jj,
                                                 adapter.get_layer(prm, jj), x)
                     return adapter.acc(x, lbl)
@@ -167,13 +171,30 @@ class UnlearnSession:
 
         return self._cached("partial", key, builder)
 
-    def partial_acc(self, j: int, params, act, labels) -> torch.Tensor:
+    def _suffix_program(self, params, act, labels) -> Callable:
+        """ONE runner for every depth j >= 1 (blocks j..L-2, then the head),
+        the depth an operand: the reference's traced-depth program."""
+        return self._runner(("suffix", shape_signature(params),
+                             shape_signature(act), shape_signature(labels)))
+
+    def _perj_program(self, j: int, params, act, labels) -> Callable:
+        """The runner of depth j alone."""
+        return self._runner(("partial", j, shape_signature(params),
+                             shape_signature(act), shape_signature(labels)))
+
+    def partial_acc(self, j: int, params, act, labels,
+                    uniform: bool) -> torch.Tensor:
         """Forget accuracy by partial inference: the cached activation at
-        depth j pushed through the already-edited suffix j..L-1.
+        depth j pushed through the already-edited suffix j..L-1 — by the
+        one depth-operand runner when the activations are shape-uniform
+        and j >= 1, else by the runner of depth j.
 
         Returns the DEVICE scalar; the drive loop reads it on the host
         exactly once, where it branches on it."""
-        return self._perj_program(j, params, act, labels)(params, act, labels)
+        prog = (self._suffix_program(params, act, labels)
+                if uniform and j >= 1
+                else self._perj_program(j, params, act, labels))
+        return prog(params, act, labels, j)
 
     def _family_counters(self) -> Tuple[int, int]:
         """(builds, cache hits) summed over the request-serving families:
@@ -271,7 +292,8 @@ class UnlearnSession:
 
             if l in cps:
                 # the checkpoint's single host sync
-                a_forget = float(self.partial_acc(j, params, acts[j], labels))
+                a_forget = float(self.partial_acc(j, params, acts[j], labels,
+                                                  uniform))
                 macs.add_partial_inference(j, L)
                 stats["checkpoints_hit"].append(l)
                 stats["forget_acc_trace"].append((l, a_forget))

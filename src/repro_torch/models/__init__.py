@@ -1,2 +1,2 @@
-from . import module, vision  # noqa: F401
-from .vision import ResNetConfig  # noqa: F401
+from . import layers, module, vision  # noqa: F401
+from .vision import ResNetConfig, ViTConfig  # noqa: F401

@@ -1,0 +1,148 @@
+"""Transformer layers of the port: the half of ``repro.models.layers`` that
+the ViT classifier runs.
+
+  * LayerNorm (eps 1e-5, population variance, ``rsqrt``);
+  * bidirectional multi-head attention with q/k/v biases: three projections
+    (``wq``, ``wk``, ``wv``, three leaves, never one fused weight), the
+    score divided by sqrt(Dh) AFTER the q.k product, softmax, the product
+    with v and the output projection ``wo`` (no bias);
+  * the SiLU-gated MLP (``w_gate``, ``w_up``, ``w_down``).
+
+Every product and the softmax run in f32, written out as the reference
+writes them: not ``F.scaled_dot_product_attention``, whose fused backends
+sum in another order and would move the Fisher for nothing. Dense weights
+keep the JAX layout [d_in, d_out].
+
+(RMSNorm, RoPE, causal and windowed masks, cross attention, decode with a
+KV cache and MoE come with the LM slice.)
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from .module import dense_init, ones, zeros
+
+F32 = torch.float32
+# queries per block of the reference's query-chunked attention; sequences
+# longer than 2 * Q_CHUNK (and a multiple of it) take that path there
+Q_CHUNK = 512
+
+
+# ---------------------------------------------------------------------------
+# LayerNorm
+# ---------------------------------------------------------------------------
+def init_layernorm(d: int, *, device, dtype=F32) -> Dict:
+    return {"scale": ones((d,), device=device, dtype=dtype),
+            "bias": zeros((d,), device=device, dtype=dtype)}
+
+
+def layernorm(p: Dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    xf = x.to(F32)
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, unbiased=False, keepdim=True)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    out = out * p["scale"].to(F32) + p["bias"].to(F32)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention (bidirectional)
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class AttnConfig:
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    qkv_bias: bool = False
+
+
+def init_attention(gen: torch.Generator, cfg: AttnConfig, *, device,
+                   dtype=F32) -> Dict:
+    d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    p = {
+        "wq": dense_init(gen, d, h * dh, device=device, dtype=dtype),
+        "wk": dense_init(gen, d, kv * dh, device=device, dtype=dtype),
+        "wv": dense_init(gen, d, kv * dh, device=device, dtype=dtype),
+        "wo": dense_init(gen, h * dh, d, device=device, dtype=dtype),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = zeros((h * dh,), device=device, dtype=dtype)
+        p["bk"] = zeros((kv * dh,), device=device, dtype=dtype)
+        p["bv"] = zeros((kv * dh,), device=device, dtype=dtype)
+    return p
+
+
+def _proj(x: torch.Tensor, w: torch.Tensor,
+          b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    y = x.to(F32) @ w.to(F32)
+    if b is not None:
+        y = y + b.to(F32)
+    return y.to(x.dtype)
+
+
+def _qkv(p: Dict, cfg: AttnConfig, x: torch.Tensor):
+    B = x.shape[0]
+    h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = _proj(x, p["wq"], p.get("bq")).reshape(B, -1, h, dh)
+    k = _proj(x, p["wk"], p.get("bk")).reshape(B, -1, kv, dh)
+    v = _proj(x, p["wv"], p.get("bv")).reshape(B, -1, kv, dh)
+    return q, k, v
+
+
+def _sdpa_block(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                dtype) -> torch.Tensor:
+    """Attention over one block of queries, with no mask.
+    q [B, Sq, H, Dh]; k, v [B, Sk, KV, Dh] (H a multiple of KV)."""
+    B, Sq, H, Dh = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    qf = q.to(F32).reshape(B, Sq, KV, G, Dh)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qf, k.to(F32)) / math.sqrt(Dh)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs, v.to(F32))
+    return out.reshape(B, Sq, H, Dh).to(dtype)
+
+
+def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+          dtype) -> torch.Tensor:
+    Sq = q.shape[1]
+    if Sq <= Q_CHUNK * 2 or Sq % Q_CHUNK != 0:
+        return _sdpa_block(q, k, v, dtype)
+    raise NotImplementedError(
+        f"attention over {Sq} queries takes the reference's query-chunked "
+        f"path (more than {2 * Q_CHUNK} queries, a multiple of {Q_CHUNK}), "
+        f"which comes with the port's LM slice (ROADMAP Queue 1, slice 7)")
+
+
+def attention(p: Dict, cfg: AttnConfig, x: torch.Tensor) -> torch.Tensor:
+    """Full-sequence bidirectional self-attention, x [B, S, D]."""
+    B, S = x.shape[0], x.shape[1]
+    q, k, v = _qkv(p, cfg, x)
+    out = _sdpa(q, k, v, x.dtype)
+    return _proj(out.reshape(B, S, -1), p["wo"])
+
+
+# ---------------------------------------------------------------------------
+# Dense MLP (SiLU-gated)
+# ---------------------------------------------------------------------------
+def init_mlp(gen: torch.Generator, d: int, d_ff: int, *, device,
+             dtype=F32) -> Dict:
+    return {
+        "w_gate": dense_init(gen, d, d_ff, device=device, dtype=dtype),
+        "w_up": dense_init(gen, d, d_ff, device=device, dtype=dtype),
+        "w_down": dense_init(gen, d_ff, d, device=device, dtype=dtype),
+    }
+
+
+def mlp(p: Dict, x: torch.Tensor) -> torch.Tensor:
+    xf = x.to(F32)
+    g = xf @ p["w_gate"].to(F32)
+    u = xf @ p["w_up"].to(F32)
+    h = (F.silu(g) * u).to(x.dtype)
+    return (h.to(F32) @ p["w_down"].to(F32)).to(x.dtype)

@@ -1,23 +1,29 @@
-"""Paper-faithful vision model, ResNet-18 (CIFAR stem), on PyTorch.
+"""Paper-faithful vision models on PyTorch: ResNet-18 (CIFAR stem) and the
+ViT classifier.
 
-Port of the ResNet half of ``repro.models.vision``. Unlearn layers,
-front-to-back:
+Port of ``repro.models.vision``. Unlearn layers, front-to-back:
 
-  j=0 stem conv | j=1..8 basic blocks (2 convs each -> "16 conv layers")
-  | j=9 fc classifier
+  ResNet-18: j=0 stem conv | j=1..8 basic blocks (2 convs each -> "16 conv
+  layers") | j=9 fc classifier
+  ViT: j=0 patch embedding | j=1..n_layers encoder blocks | j=n_layers+1
+  head
 
 Layout. Images enter as [B, H, W, 3], as in the JAX package, so the same
-data pipeline feeds both; the stem turns them channels-first and every
-later activation is [B, C, H, W], PyTorch's native convolution layout.
-Conv weights are OIHW ([cout, cin, kh, kw]); ``repro_torch.bridge``
-converts the reference's HWIO weights. The fc weight keeps the JAX layout
-[C, n_classes].
+data pipeline feeds both. The ResNet stem turns them channels-first and
+every later activation is [B, C, H, W], PyTorch's native convolution
+layout; conv weights are OIHW ([cout, cin, kh, kw]) and
+``repro_torch.bridge`` converts the reference's HWIO weights. The ViT cuts
+the NHWC image into patches exactly as the reference does, so a patch
+vector runs (p_h, p_w, c) and the ``patch/w`` leaf [P*P*3, D] is shared
+unchanged; its activations are [B, T, D] tokens. Dense weights keep the
+JAX layout [d_in, d_out].
 
 Padding. JAX's ``"SAME"`` padding is asymmetric where the total is odd:
 the stride-2 3x3 convs pad (0, 1), not (1, 1). ``conv2d`` reproduces that
 rule for every conv.
 
-Norms are GroupNorm (the reference's documented deviation from BatchNorm).
+Norms are GroupNorm in the ResNet (the reference's documented deviation
+from BatchNorm) and LayerNorm in the ViT.
 """
 from __future__ import annotations
 
@@ -30,6 +36,7 @@ import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
 
+from . import layers as L
 from .module import Params, dense_init, ones, zeros
 
 F32 = torch.float32
@@ -193,6 +200,131 @@ def resnet_set_layer(params: Params, j: int, sub: Params) -> Params:
         params["stem"] = sub
     elif j == RESNET_N_LAYERS - 1:
         params["fc"] = sub
+    else:
+        blocks = dict(params["blocks"])
+        blocks[str(j - 1)] = sub
+        params["blocks"] = blocks
+    return params
+
+
+# ---------------------------------------------------------------------------
+# ViT classifier
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class ViTConfig:
+    name: str = "vit"
+    n_classes: int = 20
+    n_layers: int = 12
+    d_model: int = 192
+    n_heads: int = 3
+    d_ff: int = 768
+    patch: int = 4
+    img_size: int = 32
+    param_dtype: str = "float32"
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return getattr(torch, self.param_dtype)
+
+    @property
+    def n_tokens(self) -> int:
+        return (self.img_size // self.patch) ** 2 + 1  # + cls
+
+    def attn_cfg(self) -> L.AttnConfig:
+        return L.AttnConfig(self.d_model, self.n_heads, self.n_heads,
+                            self.d_model // self.n_heads, qkv_bias=True)
+
+
+def _init_vit_block(gen, cfg: ViTConfig, device, dtype) -> Params:
+    return {"ln1": L.init_layernorm(cfg.d_model, device=device, dtype=dtype),
+            "attn": L.init_attention(gen, cfg.attn_cfg(), device=device,
+                                     dtype=dtype),
+            "ln2": L.init_layernorm(cfg.d_model, device=device, dtype=dtype),
+            "ffn": L.init_mlp(gen, cfg.d_model, cfg.d_ff, device=device,
+                              dtype=dtype)}
+
+
+def init_vit(gen: torch.Generator, cfg: ViTConfig, *,
+             device="cuda") -> Params:
+    """Random ViT parameters drawn from ``gen`` (a CPU generator) and placed
+    on ``device`` (raises without a card unless device="cpu")."""
+    dev = resolve_device(device)
+    dt = cfg.dtype
+    D = cfg.d_model
+    pdim = cfg.patch * cfg.patch * 3
+
+    def small_normal(*shape):
+        w = torch.randn(*shape, generator=gen, dtype=F32) * 0.02
+        return w.to(device=dev, dtype=dt)
+
+    return {
+        "patch": {"w": dense_init(gen, pdim, D, device=dev, dtype=dt),
+                  "b": zeros((D,), device=dev, dtype=dt),
+                  "cls": small_normal(1, 1, D),
+                  "pos": small_normal(1, cfg.n_tokens, D)},
+        "blocks": {str(i): _init_vit_block(gen, cfg, dev, dt)
+                   for i in range(cfg.n_layers)},
+        "head": {"ln": L.init_layernorm(D, device=dev, dtype=dt),
+                 "w": dense_init(gen, D, cfg.n_classes, device=dev,
+                                 dtype=dt),
+                 "b": zeros((cfg.n_classes,), device=dev, dtype=dt)},
+    }
+
+
+def vit_apply_layer(p_layer: Params, j: int, x: torch.Tensor,
+                    cfg: ViTConfig) -> torch.Tensor:
+    """Unlearn layer j: 0 = patch embedding (takes [B, H, W, 3] images,
+    returns [B, T, D] with the cls token first), 1..n_layers encoder
+    blocks, n_layers+1 = head (the cls token's LayerNorm, then a dense
+    layer; returns f32 logits)."""
+    if j == 0:
+        B, H, W, C = x.shape
+        P = cfg.patch
+        patches = x.reshape(B, H // P, P, W // P, P, C).permute(
+            0, 1, 3, 2, 4, 5).reshape(B, (H // P) * (W // P), P * P * C)
+        t = (patches.to(F32) @ p_layer["w"].to(F32)
+             + p_layer["b"].to(F32)).to(cfg.dtype)
+        cls = p_layer["cls"].to(cfg.dtype).expand(B, 1, cfg.d_model)
+        return torch.cat([cls, t], dim=1) + p_layer["pos"].to(cfg.dtype)
+    if j == cfg.n_layers + 1:
+        h = L.layernorm(p_layer["ln"], x)[:, 0]
+        return h.to(F32) @ p_layer["w"].to(F32) + p_layer["b"].to(F32)
+    p = p_layer
+    h = L.layernorm(p["ln1"], x)
+    x = x + L.attention(p["attn"], cfg.attn_cfg(), h)
+    h = L.layernorm(p["ln2"], x)
+    return x + L.mlp(p["ffn"], h)
+
+
+def vit_forward(params: Params, cfg: ViTConfig, images: torch.Tensor,
+                collect: bool = False):
+    """images [B,H,W,3] -> logits [B,n_classes] (f32); optionally the input
+    activation of every layer (acts[0] is the image batch)."""
+    acts: List[torch.Tensor] = []
+    x = images
+    for j in range(cfg.n_layers + 2):
+        if collect:
+            acts.append(x)
+        x = vit_apply_layer(vit_layer_params(params, j, cfg), j, x, cfg)
+    return (x, acts) if collect else x
+
+
+def vit_layer_params(params: Params, j: int, cfg: ViTConfig) -> Params:
+    if j == 0:
+        return params["patch"]
+    if j == cfg.n_layers + 1:
+        return params["head"]
+    return params["blocks"][str(j - 1)]
+
+
+def vit_set_layer(params: Params, j: int, sub: Params,
+                  cfg: ViTConfig) -> Params:
+    """A new tree with layer j replaced; the caller's dicts are untouched."""
+    params = dict(params)
+    if j == 0:
+        params["patch"] = sub
+    elif j == cfg.n_layers + 1:
+        params["head"] = sub
     else:
         blocks = dict(params["blocks"])
         blocks[str(j - 1)] = sub

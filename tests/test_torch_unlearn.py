@@ -460,3 +460,17 @@ def test_int8_forget_leaves_caller_tensors_untouched(setting, results8):
     """The int8 forget works on its own fake-quantised copy."""
     for k, t in bridge.paths(setting["tparams"]).items():
         assert torch.equal(t, results8["before"][k]), k
+
+
+def test_resnet_checkpoints_keep_per_depth_runners(results):
+    """ResNet's activations change shape from stage to stage, so the
+    depth-operand checkpoint runner never applies: every checkpoint depth
+    builds its own runner in the cold tau = 0 request and hits it in the
+    warm one, as the reference counts."""
+    _, jst, _, jcounts = results["ficabu-tau0"]["j"]
+    _, tst, _, tcounts = results["ficabu-tau0"]["t"]
+    assert tst["engine"]["uniform_suffix"] is False
+    assert jst["engine"]["uniform_suffix"] is False
+    n_cps = len(tst["checkpoints_hit"])
+    assert tcounts["partial_compiles"] == jcounts["partial_compiles"] == n_cps
+    assert tcounts["partial_hits"] == jcounts["partial_hits"] == n_cps

@@ -68,7 +68,24 @@ Phases, in order; any failure exits non-zero and prints no result line:
      before each path and read just after, as in phase 4; then the ssd
      forget with the kernel against the plain one, bit for bit, in both
      precisions;
-  7. [fisher kernels]: the ``kernels.ops`` API — the entry point of fimd,
+  7. [scanned]: the scanned whole-sweep program (``sweep_mode="scanned"``,
+     ``repro_torch.engine.sweep``) on the [vit] phase's weights and Fisher,
+     inside one ``repro_torch.obs.telemetry`` capture: ssd, the
+     never-halting ficabu and the ficabu that halts at l = 1, each cold
+     then warm, fp32 then int8, the counters zeroed just before each path
+     and read just after. Every request equals the layerwise request of
+     [vit] bit for bit (parameters and stats) and launches its dampen
+     kernel 14 times over all 176 leaves (the program masks a halted
+     request's edits on the card instead of stopping); a sweep program is
+     built on a request's first use of its key and never warm, once per
+     request, and each warm program call runs under
+     ``torch.cuda.set_sync_debug_mode("error")``. Then a K = 2 ssd
+     ``forget_group`` of two classes' 64-image batches, scanned (cold and
+     warm), equal to the layerwise drain of the same sets bit for bit, 28
+     launches over 352 leaves, in both precisions; and a ResNet-18 K = 2
+     group asked for as scanned: plan None, the layerwise drain, 20
+     launches over 112 leaves. The telemetry events are counted by kind;
+  8. [fisher kernels]: the ``kernels.ops`` API — the entry point of fimd,
      gemm_fisher, gemm_fisher_int8 and dampen_int8_rowscale, as in the JAX
      package — on operands of the same forget request (64 images, chunk 8):
      fimd on the 8 stacked chunk gradients of each of the 56 leaves,
@@ -82,7 +99,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
      gradient, the fp32 dW (int8, its operands quantised per column of each
      1024-row block of N, within INT8_SWEEP_RTOL) and dampen_int8 on the
      dequantised Fisher;
-  8. times: each kernel and its plain version at the main paths' shapes
+  9. times: each kernel and its plain version at the main paths' shapes
      (the dampen sweeps as a request launches them, one grouped launch per
      layer, with the 56 per-leaf launches beside them and the figures from
      before the grouped kernel; and, for fimd and the GEMMs, one PyTorch
@@ -93,7 +110,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
      FP32-SIMT figure beside it), the ViT's 14-launch sweeps beside their
      byte bound, printed as one ``{"kernels": [...]}`` line, and where a
      warm fp32 and a warm int8 ssd request spend their time, ResNet-18 and
-     ViT (device kernels, the dampen launches among them, idle share).
+     ViT (device kernels, the dampen launches among them, idle share),
+     and the ViT's warm scanned requests beside layerwise ones (ssd and
+     the halting ficabu, fp32 and int8) and its fp32 K = 2 ssd drains
+     beside two single requests. The dampen entries of the
+     ``kernels`` line carry the [scanned] phase's launches and leaves.
 
 The last line is the contract line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -114,6 +135,8 @@ ROOT = Path(__file__).resolve().parent
 PAIRS = [(2.0, 0.5), (10.0, 1.0), (0.5, 0.1)]
 SEED = 0
 FORGET_CLASS = 3
+# the second set of the coalesced drains in the [scanned] phase
+OTHER_CLASS = 5
 # rows of one gemm_fisher_int8 call in the [fisher kernels] phase: its int8
 # operands carry one scale per column of each such block of N
 Q8_GEMM_ROWS = 1024
@@ -899,6 +922,7 @@ def main() -> int:
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
               "False); nothing was run", file=sys.stderr)
         return 1
+    t_main = time.perf_counter()
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import bridge
     from repro_torch.api import (ForgetRequest, QuantSpec, Unlearner,
@@ -1265,7 +1289,195 @@ def main() -> int:
         log(f"[vit] {path} ssd forget with the kernel == plain forget, bit "
             f"for bit, all {len(a)} leaves")
 
-    # 7. [fisher kernels]: the kernels.ops API, the entry point of fimd,
+    # 7. [scanned]: the scanned whole-sweep program (sweep_mode="scanned")
+    # on the [vit] phase's pre-trained weights and Fisher, inside one
+    # telemetry capture. Each request must equal the layerwise request of
+    # [vit] bit for bit, parameters and stats; the program walks every
+    # layer (a halted request's edits are masked on the card), so every
+    # request launches its dampen kernel 14 times over all 176 leaves. A
+    # warm program call runs with CUDA's sync debug mode at "error": it
+    # may not read the card on the host.
+    from repro_torch.engine import plan_scanned_sweep
+    from repro_torch.obs import telemetry
+    stat_keys = ("stopped_at_l", "checkpoints_hit", "selected_per_layer",
+                 "forget_acc_trace", "macs", "macs_ssd", "macs_vs_ssd_pct")
+    guarded_calls = [0]
+
+    def same_bits(p, q):
+        a, b = bridge.paths(p), bridge.paths(q)
+        return sorted(a) == sorted(b) and all(
+            torch.equal(bits(a[k]), bits(b[k])) for k in a)
+
+    def guard_syncs(unl):
+        """Wrap each cached sweep program of ``unl``'s session so that its
+        call runs under torch.cuda.set_sync_debug_mode("error")."""
+        progs = unl.session.programs._progs
+        for key, prog in list(progs.items()):
+            if key[1] != "sweep" or getattr(prog, "guarded", False):
+                continue
+
+            def guarded(*args, _prog=prog):
+                guarded_calls[0] += 1
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    return _prog(*args)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            guarded.guarded = True
+            progs[key] = guarded
+
+    vlayer = {p: {name: (new, st) for name, new, st, *_ in vruns[p][0][:3]}
+              for p in vruns}
+    n_vit = len(vsizes)
+    L_vit = vadapter.n_layers
+    scanned = {}
+    fx2, fy2 = syn.split_forget_retain(x, y, forget_class=OTHER_CLASS)[
+        "forget"]
+    group = [ForgetRequest(fx, fy, tag=FORGET_CLASS),
+             ForgetRequest(fx2[:64], fy2[:64], tag=OTHER_CLASS)]
+    t0 = time.perf_counter()
+    with telemetry.capture() as tel:
+        for path, kw in (("fp32", {}), ("int8", int8_kw)):
+            fam = "int8_sweep" if path == "int8" else "sweep"
+            unls = {name: vssd.with_spec(vspec(mode, sweep_mode="scanned",
+                                               **extra, **kw))
+                    for name, mode, extra in (
+                        ("ssd", "ssd", {}),
+                        ("ficabu-nohalt", "ficabu", {"tau": -1.0}),
+                        ("ficabu", "ficabu", {}))}
+            zero_counts()                      # this path starts
+            for i, name in enumerate(list(unls) * 2):
+                warm = i >= len(unls)
+                unl = unls[name]
+                if warm:
+                    guard_syncs(unl)
+                c0, s0, g0 = dampen_counts(), dict(unl.stats), guarded_calls[0]
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                new, st = unl.forget(ForgetRequest(fx, fy), params=vparams)
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t1
+                dc = tuple(b - a for a, b in zip(c0, dampen_counts()))
+                built = unl.stats[f"{fam}_compiles"] - s0[f"{fam}_compiles"]
+                mine, other = ((dc[:2], dc[2:]) if path == "fp32"
+                               else (dc[2:], dc[:2]))
+                want_new, want_st = vlayer[path][name]
+                log(f"[scanned] {path} {name:13s} {'warm' if warm else 'cold'}"
+                    f": stopped_at_l={st['stopped_at_l']} checkpoints="
+                    f"{st['checkpoints_hit']} launches {mine[0]} over "
+                    f"{mine[1]} leaves, sweep programs built {built}, "
+                    f"program launches "
+                    f"{unl.stats[f'{fam}_launches'] - s0[f'{fam}_launches']}"
+                    f", builds={st['engine']['compiles']} hits="
+                    f"{st['engine']['cache_hits']}, guarded calls "
+                    f"{guarded_calls[0] - g0}, wall {secs * 1e3:.1f} ms")
+                # the halting ficabu shares the never-halting one's program
+                # (the same checkpoints; tau is an operand)
+                want_built = 0 if warm or name == "ficabu" else 1
+                if (st["engine"]["sweep_mode"] != "scanned"
+                        or st["engine"]["precision"] != path
+                        or st["engine"]["sweep_launches"] != 1
+                        or built != want_built
+                        or (warm and st["engine"]["compiles"] != 0)
+                        or guarded_calls[0] - g0 != int(warm)
+                        or mine != (L_vit, n_vit) or other != (0, 0)):
+                    raise AssertionError(f"scanned {path} {name} "
+                                         f"({'warm' if warm else 'cold'}): "
+                                         f"{st['engine']}, {built} built, "
+                                         f"launches {dc}")
+                diff = [k for k in stat_keys if st[k] != want_st[k]]
+                if diff or not same_bits(new, want_new):
+                    raise AssertionError(f"scanned {path} {name} != the "
+                                         f"layerwise request of [vit]: "
+                                         f"stats {diff}")
+                scanned[(path, name)] = mine
+            if fisher_counts() != (0, 0, 0, 0):    # this path ends
+                raise AssertionError(f"scanned {path}: fimd/gemm/rowscale "
+                                     f"launched {fisher_counts()}")
+            log(f"[scanned] {path}: every request == the layerwise request "
+                f"of [vit], bit for bit (all {n_vit} leaves and stats); "
+                f"{fam}_compiles {unls['ssd'].stats[f'{fam}_compiles']} "
+                f"(ssd's program and ficabu's), dampen counters over the "
+                f"path {dampen_counts()}")
+            # a K = 2 drain: two classes' 64-image batches, ssd, scanned
+            # (cold, then warm under the guard) against the layerwise
+            # forget_many of the same sets
+            lw = vssd.with_spec(vspec("ssd", **kw))
+            sc = vssd.with_spec(vspec("ssd", sweep_mode="scanned", **kw))
+            drains = {}
+            for name, unl in (("layerwise", lw), ("scanned", sc),
+                              ("scanned warm", sc)):
+                if name == "scanned warm":
+                    guard_syncs(sc)
+                zero_counts()
+                p_g, st_g, g = unl.forget_group(group, params=vparams)
+                torch.cuda.synchronize()
+                dc = dampen_counts()
+                drains[name] = (p_g, st_g, g,
+                                dc[:2] if path == "fp32" else dc[2:])
+                log(f"[scanned] {path} K=2 ssd drain {name}: sweep_mode "
+                    f"{g['engine']['sweep_mode']}, stopped_at_l "
+                    f"{g['stopped_at_l']}, launches {drains[name][3][0]} "
+                    f"over {drains[name][3][1]} leaves, builds "
+                    f"{g['engine']['compiles']}")
+            for name in ("scanned", "scanned warm"):
+                p_g, st_g, g, lv = drains[name]
+                q_g, qt_g, h, lv_lw = drains["layerwise"]
+                if (g["engine"]["sweep_mode"] != "scanned"
+                        or h["engine"]["sweep_mode"] != "layerwise"
+                        or lv != lv_lw or lv != (2 * L_vit, 2 * n_vit)
+                        or (name == "scanned warm"
+                            and g["engine"]["compiles"] != 0)
+                        or not same_bits(p_g, q_g)
+                        or any(a[k] != b[k] for a, b in zip(st_g, qt_g)
+                               for k in stat_keys)):
+                    raise AssertionError(f"scanned {path} K=2 drain "
+                                         f"({name}) != layerwise: "
+                                         f"{g['engine']}, launches {lv} vs "
+                                         f"{lv_lw}")
+            scanned[(path, "group")] = drains["scanned"][3]
+        # ResNet-18 cannot be scanned (its stages change shape): a K = 2
+        # group asked for as scanned runs the layerwise drain
+        rplan = plan_scanned_sweep(adapter, params,
+                                   torch.as_tensor(fx, device=dev))
+        rsc = ssd.with_spec(spec("ssd", use_kernel=True,
+                                 sweep_mode="scanned"))
+        zero_counts()
+        p_r, _, g_r = rsc.forget_group(group, params=params)
+        torch.cuda.synchronize()
+        rcounts = dampen_counts()
+        q_r, _, _ = ssd.forget_group(group, params=params)
+        if (rplan is not None or g_r["engine"]["sweep_mode"] != "layerwise"
+                or rcounts != (20, 112, 0, 0) or not same_bits(p_r, q_r)):
+            raise AssertionError(f"ResNet-18 K=2 scanned group: plan {rplan}"
+                                 f", {g_r['engine']}, counters {rcounts}")
+        scanned[("fp32", "resnet group")] = rcounts[:2]
+        log(f"[scanned] ResNet-18 K=2 ssd group asked for as scanned: plan "
+            f"{rplan}, sweep_mode {g_r['engine']['sweep_mode']}, launches "
+            f"{rcounts[0]} over {rcounts[1]} leaves, == the layerwise group "
+            f"bit for bit")
+    if guarded_calls[0] != 2 * 3 + 2:
+        raise AssertionError(f"{guarded_calls[0]} sweep program calls ran "
+                             f"under the sync guard, expected 8")
+    # the guard itself: a host read under it must raise
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        float(torch.ones((), device=dev))
+        caught = False
+    except RuntimeError:
+        caught = True
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    if not caught:
+        raise AssertionError("set_sync_debug_mode('error') let a host read "
+                             "of the card pass")
+    log(f"[scanned] telemetry events by kind: "
+        f"{dict(sorted(tel.counts.items()))}; {guarded_calls[0]} warm "
+        f"program calls under "
+        f"set_sync_debug_mode('error'), none synchronised "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    # 8. [fisher kernels]: the kernels.ops API, the entry point of fimd,
     # gemm_fisher, gemm_fisher_int8 and dampen_int8_rowscale (as in the JAX
     # package), on operands of the same 64-image forget request at chunk 8
     from repro_torch.kernels import ops
@@ -1468,7 +1680,7 @@ def main() -> int:
                      f"from the fp32 dW" for k, v in int8_rel.items()
                      if not v <= INT8_SWEEP_RTOL]
 
-    # 8. times at the main paths' shapes. The sweep as a request launches
+    # 9. times at the main paths' shapes. The sweep as a request launches
     # it: one grouped launch per layer, back to front, on the layers' own
     # tensors against the global Fisher; beside it the same 56 leaves one
     # launch each, as the request launched them before the grouped kernel
@@ -1798,29 +2010,44 @@ def main() -> int:
 
     # where one warm ssd request spends its time on the card, per model and
     # path
+    def warm_profile(unl, prm, group=None, profiled=True):
+        """Wall time of a warm request (or of a warm drain of ``group``):
+        the median of 3 on the host's clock, ending in a synchronize, and
+        (``profiled``) one profiled run: device busy time, device kernels,
+        the dampen kernels among them, the top kernels."""
+        def run():
+            if group is None:
+                unl.forget(ForgetRequest(fx, fy), params=prm)
+            else:
+                unl.forget_group(group, params=prm)
+
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        if not profiled:
+            return sorted(walls)[1], walls
+        busy, n_kernels, ranked = profile_request(run)
+        damp = [(ms, count) for name, ms, count in ranked
+                if "dampen_group_kernel" in name]
+        return (sorted(walls)[1], walls, busy, n_kernels,
+                sum(c for _, c in damp), sum(ms for ms, _ in damp), ranked)
+
     prof = {}
     vssd8 = vssd.with_spec(vspec("ssd", **int8_kw))
     for path, unl, prm in (("fp32", ssd, params), ("int8", ssd8, params),
                            ("vit fp32", vssd, vparams),
                            ("vit int8", vssd8, vparams)):
-        walls = []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            unl.forget(ForgetRequest(fx, fy), params=prm)
-            torch.cuda.synchronize()
-            walls.append((time.perf_counter() - t0) * 1e3)
-        wall = sorted(walls)[1]
-        busy, n_kernels, ranked = profile_request(
-            lambda: unl.forget(ForgetRequest(fx, fy), params=prm))
-        prof[path] = (wall, busy, n_kernels)
-        damp = [(ms, count) for name, ms, count in ranked
-                if "dampen_group_kernel" in name]
+        wall, walls, busy, n_kernels, n_damp, damp_ms, ranked = \
+            warm_profile(unl, prm)
+        prof[path] = (wall, busy, n_kernels, n_damp, damp_ms)
         log(f"[profile] warm {path} ssd request: wall {wall:.2f} ms (median "
             f"of {[round(w, 2) for w in walls]}), device busy {busy:.3f} ms, "
             f"idle share {1 - busy / wall:.3f}, {n_kernels} device kernels, "
-            f"of them {sum(c for _, c in damp)} dampen_group_kernel "
-            f"({sum(ms for ms, _ in damp):.4f} ms)")
+            f"of them {n_damp} dampen_group_kernel ({damp_ms:.4f} ms)")
         for name, ms, count in ranked[:6]:
             log(f"[profile]   {ms:9.3f} ms  x{count:<5d} {name[:70]}")
     for model, p32, p8 in (("", "fp32", "int8"),
@@ -1830,9 +2057,65 @@ def main() -> int:
             f"{prof[p8][1] / prof[p32][1]:.3f}x, device kernels "
             f"{prof[p8][2]} vs {prof[p32][2]} "
             f"(+{prof[p8][2] - prof[p32][2]})")
+    # the scanned whole-sweep program against the layerwise loop: warm ViT
+    # requests, ssd and the ficabu that halts at l = 1, side by side (the
+    # layerwise ssd request's device figures are those of its profile
+    # above; its wall is taken again here, beside the scanned one)
+    sprof = {}
+    for path, kw in (("fp32", {}), ("int8", int8_kw)):
+        for name in ("ssd", "ficabu"):
+            for mode in ("layerwise", "scanned"):
+                unl = vssd.with_spec(vspec(name, sweep_mode=mode, **kw))
+                if (name, mode) == ("ssd", "layerwise"):
+                    wall, walls = warm_profile(unl, vparams, profiled=False)
+                    _, busy, n_kernels, n_damp, damp_ms = prof["vit " + path]
+                else:
+                    wall, walls, busy, n_kernels, n_damp, damp_ms, _ = \
+                        warm_profile(unl, vparams)
+                sprof[(path, name, mode)] = (wall, busy, n_kernels, n_damp)
+                log(f"[profile] warm vit {path} {name} {mode} request: wall "
+                    f"{wall:.2f} ms (median of "
+                    f"{[round(w, 2) for w in walls]}), device busy "
+                    f"{busy:.3f} ms, idle share {1 - busy / wall:.3f}, "
+                    f"{n_kernels} device kernels, {n_damp} dampen launches "
+                    f"({damp_ms:.4f} ms)")
+            a, b = sprof[(path, name, "scanned")], sprof[(path, name,
+                                                          "layerwise")]
+            log(f"[profile] vit {path} {name} scanned / layerwise: wall "
+                f"{a[0] / b[0]:.3f}x, device busy {a[1] / b[1]:.3f}x, device "
+                f"kernels {a[2]} vs {b[2]}, dampen launches {a[3]} vs "
+                f"{b[3]}")
+    # the fp32 K = 2 ssd drain of [scanned] against two single requests
+    for path, kw in (("fp32", {}),):
+        for mode in ("layerwise", "scanned"):
+            wall, walls, busy, n_kernels, n_damp, damp_ms, _ = warm_profile(
+                vssd.with_spec(vspec("ssd", sweep_mode=mode, **kw)),
+                vparams, group)
+            one = sprof[(path, "ssd", mode)]
+            log(f"[profile] warm vit {path} K=2 ssd {mode} drain: wall "
+                f"{wall:.2f} ms (median of {[round(w, 2) for w in walls]}), "
+                f"device busy {busy:.3f} ms, idle share "
+                f"{1 - busy / wall:.3f}, {n_kernels} device kernels, "
+                f"{n_damp} dampen launches; / two single {mode} requests: "
+                f"wall {wall / (2 * one[0]):.3f}x, device busy "
+                f"{busy / (2 * one[1]):.3f}x, device kernels "
+                f"{n_kernels / (2 * one[2]):.3f}x")
 
     if late_failures:
         raise AssertionError("; ".join(late_failures))
+    log(f"[done] every phase passed in {time.perf_counter() - t_main:.1f} s")
+
+    def scanned_keys(path):
+        """(launches, leaves) of the [scanned] phase's warm requests and
+        drains in ``path``'s kernel."""
+        keys = {f"vit_scanned_{name}_launches_leaves": list(
+            scanned[(path, name)]) for name in ("ssd", "ficabu-nohalt",
+                                                "ficabu", "group")}
+        if path == "fp32":
+            keys["resnet_group_k2_launches_leaves"] = list(
+                scanned[("fp32", "resnet group")])
+        return keys
+
     print(json.dumps({"kernels": [{
         "name": "dampen", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/dampen.cu",
@@ -1844,6 +2127,7 @@ def main() -> int:
         "vit_leaves": vit_ssd["fp32"][1],
         "vit_sweep_ms": tv["fp32"], "vit_sweep_plain_ms": tv["fp32_plain"],
         "vit_sweep_bound_ms": vbound["fp32"],
+        **scanned_keys("fp32"),
         "max_abs_err": max(max_err, gmax_err["dampen"]),
         "ms": t["sweep_kernel"], "plain_ms": t["sweep_plain"],
         "bound_ms": bound["sweep"], "bound_by": "bytes",
@@ -1870,6 +2154,7 @@ def main() -> int:
         "vit_leaves": vit_ssd["int8"][1],
         "vit_sweep_ms": tv["int8"], "vit_sweep_plain_ms": tv["int8_plain"],
         "vit_sweep_bound_ms": vbound["int8"],
+        **scanned_keys("int8"),
         "max_abs_err": max(max_err8, gmax_err["dampen_int8"]),
         "ms": t8["sweep_kernel"], "plain_ms": t8["sweep_plain"],
         "bound_ms": bound8["sweep"], "bound_by": "bytes",

@@ -13,13 +13,14 @@ Owns the three long-lived pieces of the FiCABU service:
 The facade is bound to one device (``device=``, default ``"cuda"``; it
 raises without a card). Requests are ``ForgetRequest``s (or bare
 ``(inputs, labels)`` pairs of numpy arrays or tensors, moved to the
-device); configuration is an ``UnlearnSpec``. (Coalesced groups, streamed
-Fisher refresh and mesh placement come with later slices.)
+device), served one at a time (``forget``) or as one coalesced sweep
+(``forget_group``); configuration is an ``UnlearnSpec``. (Streamed Fisher
+refresh and mesh placement come with later slices.)
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -54,8 +55,8 @@ def _coerce_request(req) -> ForgetRequest:
 
 
 class Unlearner:
-    """The unlearning service facade: ``forget``, configured by one
-    ``UnlearnSpec``.
+    """The unlearning service facade: ``forget`` / ``forget_group``, both
+    configured by one ``UnlearnSpec``.
 
     >>> unl = Unlearner(adapter, fisher_global,
     ...                 UnlearnSpec.for_mode("ficabu"), device="cuda")
@@ -203,3 +204,32 @@ class Unlearner:
         if req.tag is not None:
             stats["tag"] = req.tag
         return new_params, stats
+
+    def forget_group(self, requests: Sequence, *, params: Params,
+                     reference: Optional[Params] = None,
+                     cfg: Optional[UnlearnConfig] = None
+                     ) -> Tuple[Params, List[Dict], Dict]:
+        """Serve a GROUP of forget requests as ONE coalesced back-end-first
+        sweep (a serving drain). Returns ``(params', [stats per request],
+        group_stats)``; per-request halting/MAC accounting is preserved.
+        ``reference`` (default: ``params``) is the snapshot every set's
+        vjp and Fisher run on. A group never donates: the caller's tensors
+        are left untouched."""
+        reqs = [_coerce_request(r) for r in requests]
+        if not reqs:
+            raise ValueError("forget_group needs at least one forget "
+                             "request; an empty drain should be skipped by "
+                             "the caller")
+        sess = self._ensure_session()
+        cfg = self.spec.to_config() if cfg is None else cfg
+        sets = [(torch.as_tensor(r.inputs, device=self.device),
+                 torch.as_tensor(r.labels, device=self.device))
+                for r in reqs]
+        new_params, stats_k, group_stats = sess.forget_many(
+            params, sets, cfg, reference=reference)
+        for r, st in zip(reqs, stats_k):
+            st["mode"] = self.spec.mode
+            if r.tag is not None:
+                st["tag"] = r.tag
+        group_stats["mode"] = self.spec.mode
+        return new_params, stats_k, group_stats

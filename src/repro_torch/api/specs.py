@@ -27,7 +27,7 @@ import json
 import math
 from typing import Any, Dict, Optional
 
-from repro_torch.core.cau import UnlearnConfig, check_engine_modes
+from repro_torch.core.cau import PRECISIONS, SWEEP_MODES, UnlearnConfig
 
 MODES = ("ssd", "cau", "bd", "ficabu")
 
@@ -154,9 +154,15 @@ class ExecSpec:
     (their plain PyTorch versions for tensors on the CPU). ``donate``
     defaults to None = NO donation (callers may keep references to the
     pre-edit parameter tree); ``donate=True`` lets the fused steps write the
-    edited layers into the caller's tensors. ``sweep_mode`` takes
-    "layerwise" in this port so far; the scanned sweep raises a ValueError
-    naming the slice that brings it.
+    edited layers into the caller's tensors (coalesced group sweeps never
+    donate: the snapshot must survive the drain).
+
+    ``sweep_mode`` picks the engine's drive loop: ``"layerwise"`` (the
+    host-driven per-layer oracle) or ``"scanned"`` — the whole
+    back-end-first sweep as ONE cached program with on-device halting
+    (``repro_torch.engine.sweep``); shape-heterogeneous stacks (ResNet) fall
+    back to the layerwise driver automatically, so ``"scanned"`` is always
+    safe to request.
 
     ``precision`` picks the numeric path: ``"fp32"`` (default) or
     ``"int8"`` — int8 weight codes with f32 scale tables, dequant-free
@@ -168,7 +174,7 @@ class ExecSpec:
     chunk_size: int = 8
     use_kernel: bool = False          # CUDA dampening kernels
     donate: Optional[bool] = None     # None: no donation
-    sweep_mode: str = "layerwise"
+    sweep_mode: str = "layerwise"     # "layerwise" | "scanned"
     precision: str = "fp32"           # "fp32" | "int8"
     quant: Optional[QuantSpec] = None  # int8 calibration (int8 only)
 
@@ -183,7 +189,15 @@ class ExecSpec:
         _require(self.donate is None or isinstance(self.donate, bool),
                  f"ExecSpec.donate must be None (no donation) or a bool, "
                  f"got {self.donate!r}")
-        check_engine_modes(self.sweep_mode, self.precision, "ExecSpec")
+        _require(self.sweep_mode in SWEEP_MODES,
+                 f"ExecSpec.sweep_mode must be one of {SWEEP_MODES} "
+                 f'("scanned" lowers the whole sweep as one compiled '
+                 f'program where the stack allows it), '
+                 f"got {self.sweep_mode!r}")
+        _require(self.precision in PRECISIONS,
+                 f"ExecSpec.precision must be one of {PRECISIONS} "
+                 f'("int8" routes through the quantised program family), '
+                 f"got {self.precision!r}")
         if isinstance(self.quant, dict):  # convenience: accept mappings
             object.__setattr__(self, "quant",
                                _from_dict(QuantSpec, self.quant, "quant"))

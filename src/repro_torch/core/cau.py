@@ -30,25 +30,8 @@ from repro_torch.models.module import (flatten_with_paths, map_with_paths,
 
 Params = Any
 
-# What the port implements so far; the rest names the slice to come.
-SWEEP_MODES = ("layerwise",)
+SWEEP_MODES = ("layerwise", "scanned")
 PRECISIONS = ("fp32", "int8")
-
-
-def check_engine_modes(sweep_mode: str, precision: str, owner: str) -> None:
-    """Reject engine modes the port does not have (yet), naming the slice
-    that brings the scanned sweep (a mistyped or missing mode must never
-    silently run the layerwise fp32 loop)."""
-    if sweep_mode not in SWEEP_MODES:
-        raise ValueError(
-            f"{owner}.sweep_mode must be 'layerwise', got {sweep_mode!r} — "
-            f"the scanned whole-sweep program comes with the port's "
-            f"scanned-sweep slice (ROADMAP Queue 1, Slice 6)")
-    if precision not in PRECISIONS:
-        raise ValueError(
-            f"{owner}.precision must be one of {PRECISIONS}, got "
-            f"{precision!r} — a mistyped precision would silently run the "
-            f"fp32 path")
 
 
 @dataclasses.dataclass
@@ -96,7 +79,11 @@ class UnlearnConfig:
     chunk_size: int = 8               # Fisher gradient chunking
     use_kernel: bool = False          # hand-written CUDA dampening kernel
     max_layers: Optional[int] = None  # optionally bound the sweep
-    sweep_mode: str = "layerwise"     # the host drives the per-layer loop
+    # "layerwise": the host drives the per-layer loop (the oracle path);
+    # "scanned": the whole back-end-first sweep as ONE cached program with
+    # on-device halting (repro_torch.engine.sweep) when the layer stack is
+    # shape-uniform — heterogeneous stacks fall back automatically.
+    sweep_mode: str = "layerwise"
     # "fp32" (the default) or "int8": int8 weight codes with f32 scale
     # tables, dampening on the codes, halting on the fake-quantised
     # weights (DESIGN.md §12); within optim.compression.INT8_SWEEP_RTOL of
@@ -106,7 +93,16 @@ class UnlearnConfig:
     quant_min_scale: float = 1e-12
 
     def __post_init__(self):
-        check_engine_modes(self.sweep_mode, self.precision, "UnlearnConfig")
+        if self.sweep_mode not in SWEEP_MODES:
+            raise ValueError(
+                f"UnlearnConfig.sweep_mode must be 'layerwise' or "
+                f"'scanned', got {self.sweep_mode!r} — a mistyped mode "
+                f"would silently run the layerwise loop")
+        if self.precision not in PRECISIONS:
+            raise ValueError(
+                f"UnlearnConfig.precision must be 'fp32' or 'int8', got "
+                f"{self.precision!r} — a mistyped precision would silently "
+                f"run the fp32 path")
         if not (isinstance(self.quant_min_scale, float)
                 and math.isfinite(self.quant_min_scale)
                 and self.quant_min_scale > 0.0):

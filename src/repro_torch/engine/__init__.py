@@ -1,5 +1,8 @@
-"""Unlearning engine: fused per-layer step + cross-request step cache."""
-from .fused import (build_fused_step, grad_fisher_chunks,  # noqa: F401
-                    shape_signature)
+"""Unlearning engine: fused per-layer step + cross-request step cache + the
+scanned whole-sweep program."""
+from .fused import (TRACE_LOG, build_fused_step,  # noqa: F401
+                    grad_fisher_chunks, shape_signature)
 from .programs import ProgramCache  # noqa: F401
 from .session import UnlearnSession  # noqa: F401
+from .sweep import (SweepPlan, build_sweep_program,  # noqa: F401
+                    effective_tau32, plan_scanned_sweep)

@@ -15,11 +15,17 @@ under the same key (``repro_torch.engine.programs``). Per layer it runs:
 (alpha, lambda) arrive as f32-rounded Python floats, per call, so Balanced
 Dampening's per-layer S(l)-scaled values never rebuild a step. The
 split-edit variant (vjp reference apart from the edit target) is the int8
-step's signature; its fp32 form waits for the coalesced ``forget_many``.
+step's signature and, in fp32, the coalesced ``forget_many``'s.
+
+``TRACE_LOG`` is the reference's retrace log: where the reference appends
+a tag each time a program body is TRACED, the port appends the same tag
+each time a builder runs (a step, a checkpoint runner, the fake-quant
+entry step or a scanned sweep program), so tests pin "no warm rebuild" on
+the same list.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Hashable, Optional, Tuple
+from typing import Any, Callable, Hashable, List, Optional, Tuple
 
 import torch
 
@@ -29,6 +35,14 @@ from repro_torch.models.module import tree_leaves, tree_map, tree_unflatten
 
 F32 = torch.float32
 Params = Any
+
+# Appended (a tag string) every time a step, runner or sweep program is
+# BUILT; tests count entries here to prove the step cache removes rebuilds.
+TRACE_LOG: List[str] = []
+
+
+def _note_trace(tag: str) -> None:
+    TRACE_LOG.append(tag)
 
 
 def shape_signature(tree: Params) -> Hashable:
@@ -93,7 +107,8 @@ def build_fused_step(apply_fn: Callable[[Params, Params, torch.Tensor],
                      exclude: Optional[Callable[[str], bool]] = None,
                      donate: bool = False,
                      split_edit: bool = False,
-                     precision: str = "fp32"):
+                     precision: str = "fp32",
+                     tag: str = "fused"):
     """Build the fused per-layer step.
 
     ``apply_fn(ctx, layer_p, act) -> out`` is the layer forward; ``ctx`` is
@@ -127,13 +142,14 @@ def build_fused_step(apply_fn: Callable[[Params, Params, torch.Tensor],
     ``donate=True`` writes the edit into the edit target's own tensors
     (after the vjp has read them) unless ``exclude`` must restore some of
     them; otherwise the step allocates new ones and the caller's tensors
-    stay untouched.
+    stay untouched. ``tag`` goes to ``TRACE_LOG`` once, here.
     """
     if precision not in ("fp32", "int8"):
         raise ValueError(
             f"build_fused_step precision must be 'fp32' or 'int8', got "
             f"{precision!r}")
     in_place = donate and exclude is None
+    _note_trace(tag)
 
     def body(ctx, ref_layer, edit_layer, fisher_g, acts_c, cot_c, scalars):
         alpha, lam = scalars

@@ -1,5 +1,5 @@
 """UnlearnSession — the warm unlearning engine (port of
-``repro.engine.session``, the layerwise path, fp32 and int8).
+``repro.engine.session``, fp32 and int8).
 
 Holds the adapter, the global Fisher importance, and a cross-request step
 cache, so a serving process builds each step ONCE:
@@ -15,15 +15,20 @@ cache, so a serving process builds each step ONCE:
     reference;
   * the int8 path (``precision="int8"``) adds its own step family
     ("gfused8") and the whole-tree fake-quant entry step ("quant"), with
-    their own build/hit counters.
+    their own build/hit counters;
+  * ``sweep_mode="scanned"`` runs the whole sweep as ONE cached program
+    with on-device halting (``repro_torch.engine.sweep``; "sweep" and
+    "int8_sweep" families) where the stack is shape-uniform, for one
+    request or a coalesced group (``forget_many``).
 
-The host drives the layer loop / checkpoint decisions / early stop exactly
-as the RISC-V core drives the paper's processor. (The coalesced
-``forget_many``, the scanned sweep and telemetry come with later slices.)
+In the layerwise loop the host drives the layer walk / checkpoint decisions
+/ early stop exactly as the RISC-V core drives the paper's processor. Every
+request emits one ``engine.sweep`` telemetry event, and the step cache one
+``program.compile`` or ``program.hit`` per lookup (``repro_torch.obs``).
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Hashable, List, Tuple
+from typing import Any, Callable, Dict, Hashable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -33,12 +38,15 @@ from repro_torch.core.cau import (ModelAdapter, UnlearnConfig, _chunk,
 from repro_torch.core.metrics import MacCounter
 from repro_torch.core.schedule import checkpoint_set, sigmoid_profile
 from repro_torch.kernels.ops import f32
+from repro_torch.obs import telemetry as _t
 from repro_torch.optim.compression import (q8_dequantize_tree,
                                            q8_fakequant_tree,
                                            q8_quantize_tree)
 
-from .fused import build_fused_step, shape_signature
+from .fused import _note_trace, build_fused_step, shape_signature
 from .programs import ProgramCache
+from .sweep import (build_sweep_program, effective_tau32, plan_scanned_sweep,
+                    sweep_cache_key)
 
 Params = Any
 
@@ -53,19 +61,30 @@ class UnlearnSession:
     This is the ENGINE layer: call sites should drive it through the
     ``repro_torch.api.Unlearner`` facade, which owns the Fisher lifecycle
     and the session's warmth across requests.
+
+    ``programs=`` shares a process-level ``ProgramCache`` between
+    sessions: keys are namespaced by the adapter FAMILY (name + depth) and
+    the donation regime, so sharing never crosses families.
     """
 
     def __init__(self, adapter: ModelAdapter, fisher_global: Params,
-                 *, donate: bool = False):
+                 *, donate: bool = False,
+                 programs: Optional[ProgramCache] = None):
         self.adapter = adapter
         self.fisher_global = fisher_global
         self.donate = donate
-        self.programs = ProgramCache()
+        self.programs = programs if programs is not None else ProgramCache()
+        self.programs.sessions += 1
         self._ns: Hashable = (adapter.name, adapter.n_layers, donate)
         self.stats: Dict[str, int] = {
-            "requests": 0,
+            "requests": 0, "group_sweeps": 0,
             "fused_compiles": 0, "fused_hits": 0,
             "partial_compiles": 0, "partial_hits": 0,
+            "sweep_compiles": 0, "sweep_hits": 0, "sweep_launches": 0,
+            # the int8 program family keeps its own counters so a silent
+            # fp32 fallback is visible
+            "int8_sweep_compiles": 0, "int8_sweep_hits": 0,
+            "int8_sweep_launches": 0,
             "quant_compiles": 0, "quant_hits": 0,
         }
 
@@ -83,6 +102,17 @@ class UnlearnSession:
     def _layer_key(self, j: int) -> Hashable:
         lk = self.adapter.layer_key
         return ("j", j) if lk is None else lk(j)
+
+    def _emit_sweep(self, engine: Dict, stops: List[int]) -> None:
+        """One ``engine.sweep`` telemetry event per sweep — the halt depths
+        are the paper's context-adaptivity signal, the build/hit deltas the
+        warmth signal."""
+        _t.emit("engine.sweep", adapter=str(self.adapter.name),
+                sets=len(stops), stopped_at_l=list(stops),
+                sweep_mode=engine["sweep_mode"],
+                precision=engine["precision"],
+                compiles=engine["compiles"],
+                cache_hits=engine["cache_hits"])
 
     def _layer_ctx(self, params: Params, j: int) -> Params:
         """Context the layer forward needs beyond its own params. Adapters
@@ -114,16 +144,26 @@ class UnlearnSession:
             def apply_fn(c, lp, a, _j=j):
                 return adapter.apply_layer(c, _j, lp, a)
 
-            # a split step's edit target is not the caller's layer
-            # (int8: codes the session made for this step), so it never
-            # donates
+            # split steps never donate: in a coalesced drain the first
+            # set's edit target IS the snapshot later sets still read
             return build_fused_step(
                 apply_fn, with_act_grad=with_act, use_kernel=cfg.use_kernel,
                 exclude=adapter.exclude,
                 donate=False if split_edit else self.donate,
-                split_edit=split_edit, precision=cfg.precision)
+                split_edit=split_edit, precision=cfg.precision,
+                tag=f"{kind}:{self._layer_key(j)}")
 
         return self._cached("fused", key, builder)
+
+    def sweep_program(self, key: Hashable, builder: Callable[[], Callable],
+                      *, family: str = "sweep") -> Callable:
+        """The scanned whole-sweep family (``repro_torch.engine.sweep``):
+        one program per (set count, stack structure, shape signature,
+        halting schedule). ``(alpha, lam, tau)`` and the Fisher values are
+        call operands, so a warm process reuses one program per drain shape.
+        ``family`` selects the build/hit counter pair — "sweep" (fp32) or
+        "int8_sweep"."""
+        return self._cached(family, key, builder)
 
     def _fakequant_program(self, tree: Params, min_scale: float) -> Callable:
         """Whole-tree fake-quant as ONE cached step: the int8 drive loop's
@@ -131,6 +171,8 @@ class UnlearnSession:
         key = ("quant", shape_signature(tree), float(min_scale))
 
         def builder():
+            _note_trace("quant")
+
             def run(t, _ms=float(min_scale)):
                 with torch.no_grad():
                     return q8_fakequant_tree(t, min_scale=_ms)
@@ -151,7 +193,7 @@ class UnlearnSession:
         return all(a.shape == ref.shape and a.dtype == ref.dtype
                    for a in acts[1:L])
 
-    def _runner(self, key: Hashable) -> Callable:
+    def _runner(self, key: Hashable, tag: str) -> Callable:
         """The checkpoint runner cached under ``key``: ``run(prm, a, lbl,
         j)`` pushes the activation ``a`` at depth j through layers j..L-1
         and returns the accuracy on ``lbl``."""
@@ -159,6 +201,8 @@ class UnlearnSession:
         L = adapter.n_layers
 
         def builder():
+            _note_trace(tag)
+
             def run(prm, a, lbl, j):
                 with torch.no_grad():
                     x = a
@@ -175,12 +219,14 @@ class UnlearnSession:
         """ONE runner for every depth j >= 1 (blocks j..L-2, then the head),
         the depth an operand: the reference's traced-depth program."""
         return self._runner(("suffix", shape_signature(params),
-                             shape_signature(act), shape_signature(labels)))
+                             shape_signature(act), shape_signature(labels)),
+                            "suffix")
 
     def _perj_program(self, j: int, params, act, labels) -> Callable:
         """The runner of depth j alone."""
         return self._runner(("partial", j, shape_signature(params),
-                             shape_signature(act), shape_signature(labels)))
+                             shape_signature(act), shape_signature(labels)),
+                            f"partial:{j}")
 
     def partial_acc(self, j: int, params, act, labels,
                     uniform: bool) -> torch.Tensor:
@@ -196,20 +242,131 @@ class UnlearnSession:
                 else self._perj_program(j, params, act, labels))
         return prog(params, act, labels, j)
 
+    # -- the scanned whole-sweep program (repro_torch.engine.sweep) ---------
     def _family_counters(self) -> Tuple[int, int]:
         """(builds, cache hits) summed over the request-serving families:
-        fused per-layer steps, checkpoint runners and the fake-quant entry
-        step."""
+        fused per-layer steps, checkpoint runners, the fp32 and int8 scanned
+        whole-sweep families, and the fake-quant entry step."""
         s = self.stats
         return (s["fused_compiles"] + s["partial_compiles"]
+                + s["sweep_compiles"] + s["int8_sweep_compiles"]
                 + s["quant_compiles"],
-                s["fused_hits"] + s["partial_hits"] + s["quant_hits"])
+                s["fused_hits"] + s["partial_hits"] + s["sweep_hits"]
+                + s["int8_sweep_hits"] + s["quant_hits"])
+
+    def _try_scanned(self, params: Params,
+                     forget_sets: List[Tuple[Any, torch.Tensor]],
+                     cfg: UnlearnConfig,
+                     reference: Optional[Params] = None
+                     ) -> Optional[Tuple[Params, List[Dict]]]:
+        """Run the whole back-end-first sweep as ONE cached program when
+        the layer stack is scannable; None means "fall back to the layerwise
+        driver" (heterogeneous stacks like ResNet, adapters without a
+        compact layer_ctx, or a ragged drain group). Per-set halting, MAC
+        accounting and the checkpoint trace are reconstructed on the host
+        from the program's outputs — read once, after the program."""
+        adapter = self.adapter
+        K = len(forget_sets)
+        sig0 = shape_signature(forget_sets[0])
+        if any(shape_signature(s) != sig0 for s in forget_sets[1:]):
+            return None  # ragged group: per-set shapes must agree
+        pk = (self._ns, "plan", shape_signature(params), sig0)
+        plan = self.programs.plan_or_build(
+            pk, lambda: plan_scanned_sweep(adapter, params,
+                                           forget_sets[0][0]))
+        if plan is None:
+            return None
+
+        L = adapter.n_layers
+        cps = (tuple(checkpoint_set(L, cfg.checkpoint_every))
+               if 0 < cfg.checkpoint_every <= L else ())
+        limit = min(L, cfg.max_layers or L)
+        S = (sigmoid_profile(L, cfg.b_r, cfg.c_m) if cfg.balanced
+             else np.ones(L))
+        # the same host arithmetic as the layerwise loop: a Python-double
+        # product rounded to f32, one (alpha, lam) row per paper layer
+        scal = np.empty((limit, 2), np.float32)
+        for l in range(1, limit + 1):
+            s = float(S[l - 1])
+            scal[l - 1, 0] = cfg.alpha * s
+            scal[l - 1, 1] = cfg.lam * s
+
+        int8 = cfg.precision == "int8"
+        family = "int8_sweep" if int8 else "sweep"
+        key = sweep_cache_key(
+            plan, adapter, n_sets=K, params=params,
+            fisher=self.fisher_global, sets=forget_sets, cps=cps,
+            limit=limit, chunk_size=cfg.chunk_size,
+            use_kernel=cfg.use_kernel, precision=cfg.precision,
+            quant_min_scale=cfg.quant_min_scale)
+        prog = self.sweep_program(key, lambda: build_sweep_program(
+            adapter, plan, n_sets=K, cps=cps, limit=limit,
+            chunk_size=cfg.chunk_size, use_kernel=cfg.use_kernel,
+            precision=cfg.precision, quant_min_scale=cfg.quant_min_scale,
+            tag=f"sweep{'8' if int8 else ''}:K{K}"), family=family)
+
+        ref_tree = params if reference is None else reference
+        if int8:
+            # the program's int8 contract: the reference arrives already
+            # fake-quantised, materialised by the cached fake-quant step
+            ref_tree = self._fakequant_program(
+                ref_tree, cfg.quant_min_scale)(ref_tree)
+        inputs_k = tuple(s[0] for s in forget_sets)
+        labels_k = tuple(s[1] for s in forget_sets)
+        new_params, stop, n_sel, acc = prog(
+            ref_tree, params, self.fisher_global, inputs_k, labels_k,
+            scal, effective_tau32(cfg.tau))
+        self.stats["sweep_launches"] += 1
+        if int8:
+            self.stats["int8_sweep_launches"] += 1
+        # ONE host read for the whole drain: the halting, selection and
+        # trace outputs of every set, packed (exactly) into one f64 table
+        host = torch.cat([stop[:, None].double(), n_sel.double(),
+                          acc.double()], dim=1).cpu().numpy()
+        stop = host[:, 0]
+        n_sel = host[:, 1:1 + limit]
+        acc = host[:, 1 + limit:]
+
+        prm_counts = _layer_param_counts(adapter, ref_tree)
+        stats_k: List[Dict] = []
+        for k in range(K):
+            sl = int(stop[k])
+            hit = [c for c in cps if c <= sl]
+            macs = MacCounter(adapter.layer_fwd_macs, prm_counts,
+                              batch=int(labels_k[k].shape[0]))
+            macs.add_forward_all()
+            for l in range(1, sl + 1):
+                j = L - l
+                macs.add_backward_layer(j)
+                macs.add_fisher_layer(j)
+                macs.add_dampen_layer(j)
+            for c in hit:
+                macs.add_partial_inference(L - c, L)
+            st: Dict[str, Any] = {
+                "stopped_at_l": sl,
+                "checkpoints_hit": hit,
+                "selected_per_layer": {l: int(n_sel[k, l - 1])
+                                       for l in range(1, sl + 1)},
+                "forget_acc_trace": [(c, float(acc[k, c - 1])) for c in hit],
+                "profile_S": S.tolist(),
+                "macs": macs.total,
+                "macs_ssd": MacCounter.ssd_total(adapter.layer_fwd_macs,
+                                                 prm_counts, macs.batch),
+            }
+            st["macs_vs_ssd_pct"] = 100.0 * st["macs"] / max(st["macs_ssd"], 1)
+            stats_k.append(st)
+        return new_params, stats_k
 
     # -- the drive loop -----------------------------------------------------
     def forget(self, params: Params, inputs: Any, labels: torch.Tensor,
                cfg: UnlearnConfig) -> Tuple[Params, Dict]:
-        """One forget request: Algorithm 1 (+ optional Balanced Dampening),
-        the host driving the per-layer loop. Returns (params', stats).
+        """One forget request: Algorithm 1 (+ optional Balanced Dampening).
+        Returns (params', stats).
+
+        ``cfg.sweep_mode == "scanned"`` routes through the whole-sweep
+        program (``repro_torch.engine.sweep``) when the layer stack is
+        scannable; otherwise (and for ``"layerwise"``) the host drives the
+        per-layer loop below, which stays the bit-exactness oracle.
 
         With ``donate`` off the caller's tensors are left untouched: every
         edited layer is a new tensor and the returned tree shares only the
@@ -225,6 +382,22 @@ class UnlearnSession:
         adapter = self.adapter
         self.stats["requests"] += 1
         comp0, hits0 = self._family_counters()
+        launch0 = self.stats["sweep_launches"]
+
+        if cfg.sweep_mode == "scanned":
+            res = self._try_scanned(params, [(inputs, labels)], cfg)
+            if res is not None:
+                new_params, stats_k = res
+                comp1, hits1 = self._family_counters()
+                st = stats_k[0]
+                st["engine"] = {
+                    "compiles": comp1 - comp0, "cache_hits": hits1 - hits0,
+                    "uniform_suffix": True, "sweep_mode": "scanned",
+                    "precision": cfg.precision,
+                    "sweep_launches": self.stats["sweep_launches"] - launch0,
+                }
+                self._emit_sweep(st["engine"], [st["stopped_at_l"]])
+                return new_params, st
 
         L = adapter.n_layers
         int8 = cfg.precision == "int8"
@@ -315,4 +488,191 @@ class UnlearnSession:
             "sweep_mode": "layerwise",
             "precision": cfg.precision,
         }
+        self._emit_sweep(stats["engine"], [stats["stopped_at_l"]])
         return params, stats
+
+    # -- coalesced multi-set sweep ------------------------------------------
+    def forget_many(self, params: Params,
+                    forget_sets: List[Tuple[Any, torch.Tensor]],
+                    cfg: UnlearnConfig, *,
+                    reference: Optional[Params] = None
+                    ) -> Tuple[Params, List[Dict], Dict]:
+        """One back-to-front sweep serving a GROUP of forget sets (the
+        reference's fault-injection shell around it comes with the port's
+        robustness slice).
+
+        ``forget_sets`` is a list of (inputs, labels) pairs — e.g. every
+        forget request due at a serving drain point. The layer stack is
+        walked ONCE: at each layer every still-active set runs the
+        split-edit fused step (vjp/Fisher against the drain-point snapshot
+        ``reference``, dampening composed onto the group-edited layer), so
+        K coalesced requests pay one layer walk and one set of cached steps.
+
+        Per-set halting accounting is preserved: each set keeps its own
+        cotangent stream, MAC counter, checkpoint trace and ``stopped_at_l``
+        — checkpoints are evaluated against the composed suffix (the weights
+        that would actually be deployed), and a set that reaches tau stops
+        contributing edits to more frontal layers while the others continue.
+
+        ``reference`` (default: ``params`` at entry) is the statistics
+        snapshot. ``cfg.sweep_mode == "scanned"`` runs the group as ONE
+        program where the stack is scannable and the sets' shapes agree.
+
+        Returns (params', [stats per set], group_stats).
+        """
+        adapter = self.adapter
+        K = len(forget_sets)
+        if K < 1:
+            raise ValueError("forget_many needs at least one (inputs, "
+                             "labels) forget set; skip the drain instead of "
+                             "passing an empty group")
+        ref_tree = params if reference is None else reference
+        self.stats["requests"] += K
+        self.stats["group_sweeps"] += 1
+        comp0, hits0 = self._family_counters()
+        launch0 = self.stats["sweep_launches"]
+
+        if cfg.sweep_mode == "scanned":
+            res = self._try_scanned(params, forget_sets, cfg,
+                                    reference=reference)
+            if res is not None:
+                new_params, stats_k = res
+                comp1, hits1 = self._family_counters()
+                group_stats = {
+                    "sets": K, "sweeps": 1,
+                    "stopped_at_l": [st["stopped_at_l"] for st in stats_k],
+                    "macs": sum(st["macs"] for st in stats_k),
+                    "engine": {
+                        "compiles": comp1 - comp0,
+                        "cache_hits": hits1 - hits0,
+                        "uniform_suffix": True,
+                        "sweep_mode": "scanned",
+                        "precision": cfg.precision,
+                        "sweep_launches":
+                            self.stats["sweep_launches"] - launch0,
+                    },
+                }
+                self._emit_sweep(group_stats["engine"],
+                                 group_stats["stopped_at_l"])
+                return new_params, stats_k, group_stats
+
+        L = adapter.n_layers
+        cps = (set(checkpoint_set(L, cfg.checkpoint_every))
+               if 0 < cfg.checkpoint_every <= L else set())
+        S = (sigmoid_profile(L, cfg.b_r, cfg.c_m) if cfg.balanced
+             else np.ones(L))
+        int8 = cfg.precision == "int8"
+        if int8:
+            # the fq snapshot is the deployed reference every set backprops
+            # through; edit codes come from the PRISTINE edit tree, quantised
+            # once per layer, composed across the K sets in the q domain,
+            # and dequantised once into the fq working tree
+            fqp = self._fakequant_program(ref_tree, cfg.quant_min_scale)
+            ref_run = fqp(ref_tree)
+            pristine_edit = params
+            params = ref_run if reference is None else fqp(params)
+        else:
+            ref_run = ref_tree
+        prm_counts = _layer_param_counts(adapter, ref_tree)
+        cs = cfg.chunk_size
+
+        acts_k: List[List[torch.Tensor]] = []
+        cot_k: List[Any] = []
+        labels_k: List[torch.Tensor] = []
+        macs_k: List[MacCounter] = []
+        stats_k: List[Dict] = []
+        for inputs, labels in forget_sets:
+            with torch.no_grad():
+                logits, acts = adapter.forward_collect(ref_run, inputs)
+            macs = MacCounter(adapter.layer_fwd_macs, prm_counts,
+                              batch=int(labels.shape[0]))
+            macs.add_forward_all()
+            cot_k.append(_logit_cotangents(adapter.loss, _chunk(logits, cs),
+                                           _chunk(labels, cs)))
+            acts_k.append(acts)
+            labels_k.append(labels)
+            macs_k.append(macs)
+            stats_k.append({
+                "stopped_at_l": L, "checkpoints_hit": [],
+                "selected_per_layer": {}, "forget_acc_trace": [],
+                "profile_S": S.tolist(),
+            })
+        uniform = self._uniform_suffix(acts_k[0])
+
+        active = [True] * K
+        sweep_limit = cfg.max_layers or L
+
+        for l in range(1, min(L, sweep_limit) + 1):  # paper index, back->front
+            j = L - l
+            ref_layer = adapter.get_layer(ref_run, j)   # snapshot == original
+            ctx = self._layer_ctx(ref_run, j)
+            if int8:
+                cur, cur_s = q8_quantize_tree(
+                    adapter.get_layer(pristine_edit, j),
+                    min_scale=cfg.quant_min_scale)
+            else:
+                cur = adapter.get_layer(params, j)
+            s = float(S[l - 1])
+            scalars = (f32(cfg.alpha * s), f32(cfg.lam * s))
+            fg_layer = adapter.get_layer(self.fisher_global, j)
+
+            for k in range(K):
+                if not active[k]:
+                    continue
+                acts_c = _chunk(acts_k[k][j], cs)
+                step = self.fused_program(j, ctx, ref_layer, acts_c,
+                                          cot_k[k], cfg, split_edit=True)
+                cur, g_acts, n_sel = step(ctx, ref_layer, cur, fg_layer,
+                                          acts_c, cot_k[k], scalars)
+                macs_k[k].add_backward_layer(j)
+                macs_k[k].add_fisher_layer(j)
+                macs_k[k].add_dampen_layer(j)
+                stats_k[k]["selected_per_layer"][l] = int(n_sel)
+                cot_k[k] = g_acts if j > 0 else None
+
+            if int8:
+                # beta <= 1 keeps the scale table valid across all K edits
+                cur = q8_dequantize_tree(
+                    cur, cur_s, like=adapter.get_layer(pristine_edit, j))
+            params = adapter.set_layer(params, j, cur)
+
+            if l in cps:
+                for k in range(K):
+                    if not active[k]:
+                        continue
+                    a_forget = float(self.partial_acc(j, params, acts_k[k][j],
+                                                      labels_k[k], uniform))
+                    macs_k[k].add_partial_inference(j, L)
+                    stats_k[k]["checkpoints_hit"].append(l)
+                    stats_k[k]["forget_acc_trace"].append((l, a_forget))
+                    if a_forget <= cfg.tau:
+                        stats_k[k]["stopped_at_l"] = l
+                        active[k] = False
+                if not any(active):
+                    break
+        else:
+            for k in range(K):
+                if active[k]:
+                    stats_k[k]["stopped_at_l"] = min(L, sweep_limit)
+
+        for k in range(K):
+            st = stats_k[k]
+            st["macs"] = macs_k[k].total
+            st["macs_ssd"] = MacCounter.ssd_total(adapter.layer_fwd_macs,
+                                                  prm_counts, macs_k[k].batch)
+            st["macs_vs_ssd_pct"] = 100.0 * st["macs"] / max(st["macs_ssd"], 1)
+        comp1, hits1 = self._family_counters()
+        group_stats = {
+            "sets": K, "sweeps": 1,
+            "stopped_at_l": [st["stopped_at_l"] for st in stats_k],
+            "macs": sum(st["macs"] for st in stats_k),
+            "engine": {
+                "compiles": comp1 - comp0,
+                "cache_hits": hits1 - hits0,
+                "uniform_suffix": uniform,
+                "sweep_mode": "layerwise",
+                "precision": cfg.precision,
+            },
+        }
+        self._emit_sweep(group_stats["engine"], group_stats["stopped_at_l"])
+        return params, stats_k, group_stats

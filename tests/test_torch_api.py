@@ -1,6 +1,6 @@
 """The port's request vocabulary and facade lifecycle against the JAX
 package's: spec lowering and JSON round trip (the int8 ``QuantSpec``
-included), the slices not ported yet refused by name, the structure-locked
+included), the engine modes and their refusals, the structure-locked
 global Fisher, and the metrics."""
 import json
 
@@ -69,9 +69,9 @@ def test_spec_json_round_trip_and_validation():
     ({"precision": "int8"}, "int8 slice")],
     ids=["kw0-scanned-sweep slice", "kw1-int8 slice"])
 def test_unported_modes_raise_naming_their_slice(kw, slice_word):
-    """The scanned sweep is refused, naming its slice. The int8 path came
-    with its slice: it is accepted and lowered, and an unknown precision is
-    refused, as the reference refuses it."""
+    """Both modes came with their slices (the int8 path, then the scanned
+    sweep): each is accepted and lowered, and a mistyped value is refused
+    with the reference's text."""
     if "precision" in kw:
         assert UnlearnSpec.for_mode("ficabu", **kw).to_config().precision \
             == UnlearnConfig(**kw).precision == "int8"
@@ -83,10 +83,19 @@ def test_unported_modes_raise_naming_their_slice(kw, slice_word):
             with pytest.raises(ValueError, match="mistyped precision"):
                 jcau.UnlearnConfig(precision=bad)
         return
-    with pytest.raises(ValueError, match=slice_word):
-        UnlearnSpec.for_mode("ficabu", **kw)
-    with pytest.raises(ValueError, match=slice_word):
-        UnlearnConfig(**kw)
+    assert UnlearnSpec.for_mode("ficabu", **kw).to_config().sweep_mode \
+        == UnlearnConfig(**kw).sweep_mode == "scanned"
+    for bad in ("Scanned", "fused"):
+        with pytest.raises(ValueError) as got:
+            UnlearnConfig(sweep_mode=bad)
+        with pytest.raises(ValueError) as want:
+            jcau.UnlearnConfig(sweep_mode=bad)
+        assert str(got.value) == str(want.value)
+        with pytest.raises(ValueError) as got:
+            ExecSpec(sweep_mode=bad)
+        with pytest.raises(ValueError) as want:
+            JExecSpec(sweep_mode=bad)
+        assert str(got.value) == str(want.value)
 
 
 @pytest.mark.parametrize("kw", [{"bits": 4}, {"channel_axis": 1},

@@ -1,6 +1,7 @@
-"""The port stands alone: no module of ``repro_torch`` and not the chip
-smoke script imports ``jax`` or the JAX package ``repro``, the port serves
-a forget request with both blocked,
+"""The port stands alone: no module of ``repro_torch`` (``obs`` and
+``engine.sweep`` included) and not the chip smoke script imports ``jax``
+or the JAX package ``repro``, the port serves a forget request, and a
+scanned coalesced group under a telemetry capture, with both blocked,
 and its entry points refuse to run on an absent card instead of quietly
 falling back to the host."""
 import ast
@@ -101,6 +102,23 @@ unl8 = unl.with_spec(UnlearnSpec.for_mode("ssd", chunk_size=4,
 new8, st8 = unl8.forget(ForgetRequest(x[y == 1][:8], y[y == 1][:8]),
                         params=params)
 assert st8["engine"]["precision"] == "int8" and st8["stopped_at_l"] == 10
+# the scanned whole-sweep program and its telemetry, on a tiny ViT
+from repro_torch.obs import telemetry
+vcfg = V.ViTConfig(n_layers=2, d_model=16, n_heads=2, d_ff=32, n_classes=4,
+                   img_size=8, patch=4)
+vparams = V.init_vit(torch.Generator().manual_seed(0), vcfg, device="cpu")
+vloss = lambda p, b: V.cls_loss(V.vit_forward(p, vcfg, b[0]), b[1])
+vunl = Unlearner(adapters.vit_adapter(vcfg, device="cpu"),
+                 spec=UnlearnSpec.for_mode("ficabu", checkpoint_every=1,
+                                           chunk_size=4, use_kernel=True,
+                                           sweep_mode="scanned"),
+                 device="cpu")
+vunl.ensure_fisher(vloss, vparams, (x[:16], y[:16]))
+with telemetry.capture() as tel:
+    _, _, g = vunl.forget_group([(x[:8], y[:8]), (x[8:16], y[8:16])],
+                                params=vparams)
+assert g["engine"]["sweep_mode"] == "scanned", g
+assert tel.counts["engine.sweep"] == 1 and tel.counts["program.compile"] == 1
 leaked = [m for m in sys.modules
           if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
 print("MODULES", len(mods), "LEAKED", leaked, "STOP", st["stopped_at_l"])

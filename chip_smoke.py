@@ -99,7 +99,34 @@ Phases, in order; any failure exits non-zero and prints no result line:
      gradient, the fp32 dW (int8, its operands quantised per column of each
      1024-row block of N, within INT8_SWEEP_RTOL) and dampen_int8 on the
      dequantised Fisher;
-  9. times: each kernel and its plain version at the main paths' shapes
+  9. [lm]: the dense decoder LM at full width, gemma3-1b FULL (26 blocks
+     of five local (window 512) to one global attention block, d_model
+     1152, 4 heads over 1 KV head of 256, d_ff 6912, vocab 262,144, tied
+     embeddings; 999,812,736 bf16 parameters in 74 stored leaves, 236
+     layer leaves in 28 unlearn layers), random weights from a CUDA
+     generator seeded with 0. Token data from ``make_lm_domains`` (data
+     vocabulary 512, S = 1024 tokens, longer than the window); a request
+     is 8 sequences of one domain at chunk 2, labelled with the model's own
+     argmax, and the global Fisher comes from ``Unlearner.ensure_fisher``
+     over 4 retain sequences labelled the same way; alpha 25, lambda 1,
+     checkpoints every 4 layers. Served with the [lm] path's counters
+     zeroed before and read after: ssd (28 launches over 236 leaves) cold
+     and warm, ficabu with tau = -1 (every checkpoint), a ficabu whose tau
+     is the forget accuracy that one read at its middle checkpoint (it
+     halts partway), int8 ssd and ficabu (every layer on the grid the
+     reference gives it, per-layer error against fp32 within
+     INT8_SWEEP_RTOL), ssd and the halting ficabu with
+     ``sweep_mode="scanned"`` (each == its layerwise request bit for bit),
+     a K = 2 ficabu drain over two domains, layerwise and scanned (== bit
+     for bit, each set halting at its first checkpoint at or below tau,
+     beside single-set requests), and the ssd forget with the kernel
+     against the plain one in both precisions (bit for bit on all 74
+     stored leaves). Every parameter finite, the caller's tree unchanged;
+     the peak of ``torch.cuda.max_memory_allocated``; warm ssd requests'
+     wall, device busy time, idle share and device kernels; the 28-launch
+     sweeps' device time against their byte bounds (13 bytes per element
+     with bf16 theta, 11 with int8 codes);
+ 10. times: each kernel and its plain version at the main paths' shapes
      (the dampen sweeps as a request launches them, one grouped launch per
      layer, with the 56 per-leaf launches beside them and the figures from
      before the grouped kernel; and, for fimd and the GEMMs, one PyTorch
@@ -114,7 +141,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
      and the ViT's warm scanned requests beside layerwise ones (ssd and
      the halting ficabu, fp32 and int8) and its fp32 K = 2 ssd drains
      beside two single requests. The dampen entries of the
-     ``kernels`` line carry the [scanned] phase's launches and leaves.
+     ``kernels`` line carry the [scanned] phase's launches and leaves and
+     the [lm] phase's (``lm_*`` keys).
 
 The last line is the contract line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -151,6 +179,16 @@ PEAKS = {"H100 PCIe": (2.0e12, 51e12, 1513e12, 378e12),
          "H100": (3.35e12, 67e12, 1979e12, 495e12)}
 # the card's L2: timed operand sets rotate through more than this
 L2_BYTES = 50e6
+# the [lm] phase: the arch served at full width, its sequence length (more
+# than the 512-token window, within the unchunked attention path), the data
+# vocabulary of make_lm_domains (every id valid in the model's table; the
+# generator draws a dense span x span transition matrix per domain) and the
+# two forget domains
+LM_ARCH = "gemma3-1b"
+LM_SEQ = 1024
+LM_DATA_VOCAB = 512
+LM_FORGET = 1
+LM_OTHER = 2
 # the dampen kernels' times before the grouped launch, printed beside this
 # run's (ms, NVIDIA H100 80GB HBM3 at 700 W, from this script, PERF.md
 # sections 5-6): the sweep of 56 per-leaf launches, device and stream time,
@@ -917,6 +955,392 @@ def pretrain(params, forward, x, y, steps, batch, dev):
     return tree_map(lambda t: t.detach(), params), float(loss.detach())
 
 
+def lm_tables(adapter, params, fisher, gen, dev):
+    """One ssd request's dampen tables, back to front, one per layer: the
+    layer's leaves, a forget Fisher drawn around the global one, and the
+    global Fisher's leaves."""
+    from repro_torch.models.module import tree_leaves
+    tables = []
+    for j in range(adapter.n_layers - 1, -1, -1):
+        i_gs = tree_leaves(adapter.get_layer(fisher, j))
+        tables.append((tree_leaves(adapter.get_layer(params, j)),
+                       [torch.rand(g.shape, generator=gen, device=dev) * 20 * g
+                        for g in i_gs], i_gs))
+    return tables
+
+
+def lm_on_q8_grid(adapter, new, pristine, stopped):
+    """True when every layer of the int8 deployment ``new`` lies on the grid
+    the reference gives it: a layer the sweep reached on the per-row scale
+    table of its own pristine leaves (the edit codes' grouping), a layer it
+    did not reach exactly as the whole-tree fake quantisation left it (one
+    scale per period on a stacked leaf)."""
+    from repro_torch.models.module import tree_leaves
+    from repro_torch.optim.compression import q8_fakequant_tree, q8_scales
+    fq = None
+    L = adapter.n_layers
+    for j in range(L):
+        got = tree_leaves(adapter.get_layer(new, j))
+        if L - j > stopped:
+            if fq is None:
+                fq = q8_fakequant_tree(pristine)
+            want = tree_leaves(adapter.get_layer(fq, j))
+            if not all(torch.equal(bits(a), bits(b))
+                       for a, b in zip(got, want)):
+                return False
+            continue
+        for a, p in zip(got, tree_leaves(adapter.get_layer(pristine, j))):
+            s = q8_scales(p)
+            q = torch.round(a.float() / s)
+            if q.abs().max() > 127 or not torch.equal(
+                    bits((q * s).to(a.dtype)), bits(a)):
+                return False
+    return True
+
+
+def lm_phase(dev, rate, zero_counts, dampen_counts, fisher_counts):
+    """Phase 9, [lm]: the dense decoder LM at full width (module docstring).
+    Returns the figures the kernels line carries."""
+    from repro_torch import bridge
+    from repro_torch.api import ForgetRequest, QuantSpec, Unlearner, UnlearnSpec
+    from repro_torch.configs import get as get_arch
+    from repro_torch.core import adapters
+    from repro_torch.core.schedule import checkpoint_set
+    from repro_torch.data import synthetic as syn
+    from repro_torch.engine import plan_scanned_sweep
+    from repro_torch.kernels import dampen as kd
+    from repro_torch.models import lm as LM
+    from repro_torch.models.module import tree_leaves
+    from repro_torch.optim.compression import INT8_SWEEP_RTOL, q8_quantize
+
+    t_phase = time.perf_counter()
+    gib = 2.0 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_arch(LM_ARCH).full
+    t0 = time.perf_counter()
+    params = LM.init_lm(torch.Generator(device=dev).manual_seed(SEED), cfg,
+                        device="cuda")
+    adapter = adapters.lm_adapter(cfg, LM_SEQ, device="cuda")
+    torch.cuda.synchronize()
+    L = adapter.n_layers
+    stored = bridge.paths(params)
+    n_params = sum(t.numel() for t in stored.values())
+    n_bytes = sum(t.numel() * t.element_size() for t in stored.values())
+    layer_leaves = [len(tree_leaves(adapter.get_layer(params, j)))
+                    for j in range(L)]
+    n_leaves = sum(layer_leaves)
+    log(f"[lm] {cfg.name} FULL ({cfg.n_layers} blocks {cfg.block_pattern}, "
+        f"d_model {cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} KV of "
+        f"{cfg.dh}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, window {cfg.window}, "
+        f"tied, {cfg.param_dtype}) from torch.Generator('cuda') seed {SEED} "
+        f"in {time.perf_counter() - t0:.1f} s: {n_params} parameters, "
+        f"{n_bytes} bytes in {len(stored)} stored leaves; {n_leaves} layer "
+        f"leaves in {L} unlearn layers")
+    if (n_params, len(stored), n_leaves, L) != (999_812_736, 74, 236, 28):
+        raise AssertionError(f"{cfg.name}: {n_params} parameters, "
+                             f"{len(stored)} stored leaves, {n_leaves} layer "
+                             f"leaves, {L} layers; expected 999812736 / 74 "
+                             f"/ 236 / 28")
+    t0 = time.perf_counter()
+    toks, doms = syn.make_lm_domains(syn.LMDataConfig(
+        vocab=LM_DATA_VOCAB, n_domains=4, seq_len=LM_SEQ, n_per_domain=8,
+        seed=SEED))
+    splits = {d: syn.lm_split_forget_retain(toks, doms, d)
+              for d in (LM_FORGET, LM_OTHER)}
+
+    def request(seqs, tag):
+        """Sequences [N, S + 1] as a request of their first S tokens,
+        labelled with the model's own argmax (accuracy 1.0 before an
+        edit)."""
+        inputs = torch.as_tensor(seqs[:, :-1], device=dev).long().contiguous()
+        with torch.no_grad():
+            labels = LM.forward(params, cfg, inputs)[0].argmax(-1)
+        return ForgetRequest(inputs, labels, tag=tag)
+
+    req = request(splits[LM_FORGET]["forget"][:8], LM_FORGET)
+    req2 = request(splits[LM_OTHER]["forget"][:8], LM_OTHER)
+    retain = request(splits[LM_FORGET]["retain"][:4], "retain")
+    log(f"[lm] make_lm_domains (vocab {LM_DATA_VOCAB}, 4 domains x 8, "
+        f"S = {LM_SEQ}) and the argmax labels of two 8-sequence forget "
+        f"requests (domains {LM_FORGET}, {LM_OTHER}) in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # alpha 25 (the paper's full-size ViT setting), lambda 1, checkpoints
+    # every 4 layers, chunk 2. The retain Fisher takes the model's argmax
+    # labels too: with the next tokens as labels, a random model's retain
+    # gradients are incoherent, I_g is far below I_f, and 80% of the entries
+    # were selected at alpha 5 (measured on an H100): the int8 and fp32
+    # paths then differ by 0.18 per layer, outside INT8_SWEEP_RTOL
+    def spec(mode, **kw):
+        return UnlearnSpec.for_mode(mode, **{
+            "alpha": 25.0, "lam": 1.0, "tau": -1.0, "checkpoint_every": 4,
+            "chunk_size": 2, "use_kernel": True, **kw})
+
+    lssd = Unlearner(adapter, spec=spec("ssd"), device="cuda")
+    t0 = time.perf_counter()
+    lssd.ensure_fisher(lambda p, b: LM.lm_loss(p, cfg, b[0], b[1]), params,
+                       (retain.inputs, retain.labels), chunk_size=2)
+    torch.cuda.synchronize()
+    fisher = lssd.fisher_global
+    log(f"[lm] ensure_fisher on 4 retain sequences of domain {LM_FORGET}'s "
+        f"split, argmax-labelled as the requests (chunk 2, lm_loss with "
+        f"z-loss 1e-4), in {time.perf_counter() - t0:.1f} s; peak "
+        f"{torch.cuda.max_memory_allocated() / gib:.2f} GiB")
+    before = {k: v.clone() for k, v in stored.items()}
+    cps = checkpoint_set(L, 4)
+
+    def swept_leaves(stop):
+        return sum(layer_leaves[L - l] for l in range(1, stop + 1))
+
+    runs = {}
+
+    def serve(name, unl, path, *, group=None, want=None, keep=False):
+        """One request (or a drain of ``group``) with its dampen launches
+        and leaves, checked: one launch per layer swept over that layer's
+        leaves in the path's own kernel (every layer for a scanned
+        program), none in the other, every parameter finite."""
+        c0 = dampen_counts()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        if group is None:
+            new, st = unl.forget(req, params=params)
+            sts = [st]
+        else:
+            new, sts, st = unl.forget_group(group, params=params)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t1
+        dc = tuple(b - a for a, b in zip(c0, dampen_counts()))
+        mine, other = (dc[:2], dc[2:]) if path == "fp32" else (dc[2:], dc[:2])
+        eng = st["engine"]
+        if eng["sweep_mode"] == "scanned":
+            want_l = (len(sts) * L, len(sts) * n_leaves)
+        else:
+            want_l = (sum(s["stopped_at_l"] for s in sts),
+                      sum(swept_leaves(s["stopped_at_l"]) for s in sts))
+        log(f"[lm] {path} {name:22s}: stopped_at_l="
+            f"{[s['stopped_at_l'] for s in sts]} checkpoints="
+            f"{[s['checkpoints_hit'] for s in sts]} macs_vs_ssd_pct="
+            f"{[round(s['macs_vs_ssd_pct'], 4) for s in sts]} "
+            f"{eng['sweep_mode']}, launches {mine[0]} over {mine[1]} leaves, "
+            f"builds={eng['compiles']} hits={eng['cache_hits']} wall="
+            f"{secs * 1e3:.1f} ms, peak "
+            f"{torch.cuda.max_memory_allocated() / gib:.2f} GiB")
+        if (mine != want_l or other != (0, 0) or eng["precision"] != path
+                or (want is not None and eng["sweep_mode"] != want)):
+            raise AssertionError(f"lm {path} {name}: {eng}, launches {dc}, "
+                                 f"expected {want_l} in {path}")
+        if not all(torch.isfinite(t).all() for t in tree_leaves(new)):
+            raise AssertionError(f"lm {path} {name}: non-finite parameters")
+        # a result tree is kept only where a later check reads it
+        runs[(path, name)] = (new if keep else None, sts, mine, secs)
+        return new, sts
+
+    zero_counts()                                   # the [lm] path starts
+    serve("ssd cold", lssd, "fp32")
+    _, (st_ssd,) = serve("ssd warm", lssd, "fp32", keep=True)
+    _, (st_nh,) = serve("ficabu tau=-1", lssd.with_spec(spec("ficabu")),
+                        "fp32")
+    if (st_ssd["stopped_at_l"], runs[("fp32", "ssd warm")][2]) != \
+            (L, (L, n_leaves)) or st_nh["stopped_at_l"] != L \
+            or st_nh["checkpoints_hit"] != cps:
+        raise AssertionError(f"lm ssd stopped at {st_ssd['stopped_at_l']}, "
+                             f"ficabu tau=-1 at {st_nh['stopped_at_l']} "
+                             f"through {st_nh['checkpoints_hit']}")
+    # tau for the request that halts partway: the forget accuracy the
+    # never-halting request read at its middle checkpoint
+    trace = st_nh["forget_acc_trace"]
+    tau = trace[len(trace) // 2][1]
+    ficabu = lssd.with_spec(spec("ficabu", tau=tau))
+    serve("ficabu cold", ficabu, "fp32")
+    _, (st_h,) = serve("ficabu warm", ficabu, "fp32", keep=True)
+    log(f"[lm] ficabu tau=-1 forget-accuracy trace {trace}; the halting "
+        f"request's tau {tau} (the trace at its middle checkpoint): stopped "
+        f"at l = {st_h['stopped_at_l']} of {L}")
+    if not st_h["stopped_at_l"] < L:
+        raise AssertionError("lm ficabu did not halt partway")
+    for name in ("ssd warm", "ficabu warm"):
+        if runs[("fp32", name)][1][0]["engine"]["compiles"] != 0:
+            raise AssertionError(f"lm {name} request built steps")
+    # int8: ssd and the halting ficabu, each on its q8 grid
+    int8_kw = {"precision": "int8", "quant": QuantSpec()}
+    lssd8 = lssd.with_spec(spec("ssd", **int8_kw))
+    serve("ssd", lssd8, "int8", keep=True)
+    serve("ficabu", lssd.with_spec(spec("ficabu", tau=tau, **int8_kw)),
+          "int8", keep=True)
+    for name, name32 in (("ssd", "ssd warm"), ("ficabu", "ficabu warm")):
+        new8, (st8,), *_ = runs[("int8", name)]
+        new32, (st32,), *_ = runs[("fp32", name32)]
+        if not lm_on_q8_grid(adapter, new8, params, st8["stopped_at_l"]):
+            raise AssertionError(f"lm int8 {name}: a leaf left its q8 grid")
+        rel = layer_rel_l2(adapter, new8, new32)
+        log(f"[lm] int8 {name} (stopped at {st8['stopped_at_l']}) vs fp32 "
+            f"(stopped at {st32['stopped_at_l']}): every leaf on its q8 grid;"
+            f" per-layer relative L2 (j = 0..{L - 1}) "
+            f"{[round(r, 6) for r in rel]}")
+        if st8["stopped_at_l"] == st32["stopped_at_l"] and not all(
+                0.0 < r <= INT8_SWEEP_RTOL for r in rel):
+            raise AssertionError(f"lm int8 {name}: per-layer error {rel} "
+                                 f"outside (0, {INT8_SWEEP_RTOL}]")
+    runs[("int8", "ficabu")] = None
+    # scanned: the same ssd and halting ficabu as one program each, equal
+    # to their layerwise requests bit for bit
+    plan = plan_scanned_sweep(adapter, params, req.inputs)
+    if plan is None or len(plan.kinds) != 2:
+        raise AssertionError(f"lm scanned plan {plan}")
+    stat_keys = ("stopped_at_l", "checkpoints_hit", "selected_per_layer",
+                 "forget_acc_trace", "macs", "macs_ssd", "macs_vs_ssd_pct")
+
+    def same(p, q):
+        a, b = bridge.paths(p), bridge.paths(q)
+        return sorted(a) == sorted(b) and all(
+            torch.equal(bits(a[k]), bits(b[k])) for k in a)
+
+    for name, mode, kw in (("ssd", "ssd", {}),
+                           ("ficabu", "ficabu", {"tau": tau})):
+        new, (st,) = serve(f"{name} scanned",
+                           lssd.with_spec(spec(mode, sweep_mode="scanned",
+                                               **kw)), "fp32",
+                           want="scanned")
+        want_new, (want_st,), *_ = runs[("fp32", f"{name} warm")]
+        diff = [k for k in stat_keys if st[k] != want_st[k]]
+        if diff or not same(new, want_new):
+            raise AssertionError(f"lm scanned {name} != layerwise: {diff}")
+    log(f"[lm] scanned ssd and ficabu == their layerwise requests, bit for "
+        f"bit (all {len(stored)} stored leaves and stats); plan kinds "
+        f"{plan.kinds}")
+    # a K = 2 drain over two domains (the halting ficabu), layerwise and
+    # scanned, beside single-set requests of the same sets
+    serve("ficabu single, set 2", ficabu, "fp32", group=[req2])
+    group = [req, req2]
+    new_lw, sts_lw = serve("ficabu K=2 drain", ficabu, "fp32", group=group,
+                           want="layerwise")
+    new_sc, sts_sc = serve("ficabu K=2 drain scanned",
+                           lssd.with_spec(spec("ficabu", tau=tau,
+                                               sweep_mode="scanned")),
+                           "fp32", group=group, want="scanned")
+    if not same(new_sc, new_lw) or any(a[k] != b[k] for a, b in
+                                       zip(sts_sc, sts_lw)
+                                       for k in stat_keys):
+        raise AssertionError("lm K=2 scanned drain != layerwise drain")
+    singles = [st_h["stopped_at_l"],
+               runs[("fp32", "ficabu single, set 2")][1][0]["stopped_at_l"]]
+    for k, st in enumerate(sts_lw):
+        stop = st["stopped_at_l"]
+        halted = stop < L
+        if (list(st["selected_per_layer"]) != list(range(1, stop + 1))
+                or (halted and (st["checkpoints_hit"][-1] != stop
+                                or st["forget_acc_trace"][-1][1] > tau))
+                or any(a <= tau for _, a in st["forget_acc_trace"][:-1])):
+            raise AssertionError(f"lm K=2 drain set {k}: stopped at {stop} "
+                                 f"with trace {st['forget_acc_trace']}")
+    log(f"[lm] K=2 drain: scanned == layerwise bit for bit; per set stopped "
+        f"at {[st['stopped_at_l'] for st in sts_lw]} (single-set requests: "
+        f"{singles}), each set halting at its first checkpoint at or below "
+        f"tau")
+    # kernel forget == plain forget, fp32 and int8 ssd
+    for path, unl, kw in (("fp32", lssd, {}), ("int8", lssd8, int8_kw)):
+        p_plain, _ = lssd.with_spec(spec("ssd", use_kernel=False, **kw)
+                                    ).forget(req, params=params)
+        p_kernel = runs[(path, "ssd warm" if path == "fp32" else "ssd")][0]
+        a, b = bridge.paths(p_kernel), bridge.paths(p_plain)
+        diff = [k for k in a if not torch.equal(bits(a[k]), bits(b[k]))]
+        if diff:
+            raise AssertionError(f"lm {path} kernel forget != plain forget "
+                                 f"at {diff}")
+        log(f"[lm] {path} ssd forget with the kernel == plain forget, bit for "
+            f"bit, all {len(a)} stored leaves")
+    path_counts = dampen_counts()                   # the [lm] path ends
+    if fisher_counts() != (0, 0, 0, 0):
+        raise AssertionError(f"lm requests launched fimd/gemm/rowscale "
+                             f"{fisher_counts()}")
+    for k, t in stored.items():
+        if not torch.equal(bits(t), bits(before[k])):
+            raise AssertionError(f"lm: a request edited the caller's {k}")
+    del before
+    log(f"[lm] the caller's tree unchanged after every request; dampen "
+        f"counters over the path {path_counts}; peak "
+        f"{torch.cuda.max_memory_allocated() / gib:.2f} GiB")
+
+    # where a warm request spends its time, and the dampen sweep against its
+    # byte bound
+    prof = {}
+    for path, unl in (("fp32", lssd), ("int8", lssd8)):
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            unl.forget(req, params=params)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t1) * 1e3)
+        busy, n_kernels, ranked = profile_request(
+            lambda: unl.forget(req, params=params))
+        damp = [(ms, count) for name, ms, count in ranked
+                if "dampen_group_kernel" in name]
+        wall = sorted(walls)[1]
+        prof[path] = (wall, busy, n_kernels, sum(c for _, c in damp),
+                      sum(ms for ms, _ in damp))
+        log(f"[profile] warm lm {path} ssd request: wall {wall:.2f} ms "
+            f"(median of {[round(w, 2) for w in walls]}), device busy "
+            f"{busy:.3f} ms, idle share {1 - busy / wall:.3f}, {n_kernels} "
+            f"device kernels, of them {prof[path][3]} dampen_group_kernel "
+            f"({prof[path][4]:.4f} ms)")
+        for name, ms, count in ranked[:6]:
+            log(f"[profile]   {ms:9.3f} ms  x{count:<5d} {name[:70]}")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    tables = lm_tables(adapter, params, fisher, gen, dev)
+    n_el = sum(t.numel() for ths, _, _ in tables for t in ths)
+
+    def sweep(fn, tabs):
+        for ths, i_fs, i_gs in tabs:
+            fn(ths, i_fs, i_gs, 25.0, 1.0)
+
+    tl = {"fp32": cuda_time_ms(lambda: sweep(kd.dampen_group_cuda, tables),
+                               5, queue_ahead=True),
+          "fp32_plain": cuda_time_ms(
+              lambda: sweep(kd.dampen_group_ref, tables), 1,
+              queue_ahead=True)}
+    tables = [([q8_quantize(th)[0] for th in ths], i_fs, i_gs)
+              for ths, i_fs, i_gs in tables]
+    tl["int8"] = cuda_time_ms(lambda: sweep(kd.dampen_int8_group_cuda,
+                                            tables), 5, queue_ahead=True)
+    tl["int8_plain"] = cuda_time_ms(
+        lambda: sweep(kd.dampen_int8_group_ref, tables), 1, queue_ahead=True)
+    del tables
+    # bf16 theta: 2 + 4 + 4 read, 2 + 1 written; int8 codes: 1 + 4 + 4
+    # read, 1 + 1 written; and each layer's 8-byte count
+    lbound = {"fp32": (n_el * 13 + 8 * L) / rate * 1e3,
+              "int8": (n_el * 11 + 8 * L) / rate * 1e3}
+    for kernel, path in (("dampen", "fp32"), ("dampen_int8", "int8")):
+        log(f"[time] {kernel} lm sweep device ({L} grouped launches, {n_el} "
+            f"elements, {'bf16 theta' if path == 'fp32' else 'int8 codes'})"
+            f": kernel {tl[path]:.5f} ms, plain {tl[path + '_plain']:.5f} ms,"
+            f" bound {lbound[path]:.5f} ms ({lbound[path] / tl[path] * 100:.1f}"
+            f"% of the memory bound)")
+    peak = torch.cuda.max_memory_allocated() / gib
+    log(f"[lm] phase done in {time.perf_counter() - t_phase:.1f} s; "
+        f"torch.cuda.max_memory_allocated {peak:.2f} GiB")
+    out = {}
+    for path in ("fp32", "int8"):
+        pfx = "ssd warm" if path == "fp32" else "ssd"
+        out[path] = {
+            "lm_launches": path_counts[0 if path == "fp32" else 2],
+            "lm_launches_per_ssd_request": runs[(path, pfx)][2][0],
+            "lm_leaves_per_ssd_request": runs[(path, pfx)][2][1],
+            "lm_sweep_ms": tl[path], "lm_sweep_plain_ms": tl[path + "_plain"],
+            "lm_sweep_bound_ms": lbound[path],
+            "lm_warm_ssd_wall_ms": prof[path][0],
+            "lm_warm_ssd_device_busy_ms": prof[path][1],
+        }
+    out["fp32"]["lm_scanned_ssd_launches_leaves"] = list(
+        runs[("fp32", "ssd scanned")][2])
+    out["fp32"]["lm_k2_drain_scanned_launches_leaves"] = list(
+        runs[("fp32", "ficabu K=2 drain scanned")][2])
+    out["peak_gib"] = peak
+    del params, fisher, lssd, lssd8, ficabu, runs, stored
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
@@ -1680,7 +2104,11 @@ def main() -> int:
                      f"from the fp32 dW" for k, v in int8_rel.items()
                      if not v <= INT8_SWEEP_RTOL]
 
-    # 9. times at the main paths' shapes. The sweep as a request launches
+    # 9. [lm]: the dense decoder LM at full width, fp32 (bf16 weights) and
+    # int8, layerwise and scanned, and a K = 2 drain
+    lm = lm_phase(dev, rate, zero_counts, dampen_counts, fisher_counts)
+
+    # 10. times at the main paths' shapes. The sweep as a request launches
     # it: one grouped launch per layer, back to front, on the layers' own
     # tensors against the global Fisher; beside it the same 56 leaves one
     # launch each, as the request launched them before the grouped kernel
@@ -2127,7 +2555,7 @@ def main() -> int:
         "vit_leaves": vit_ssd["fp32"][1],
         "vit_sweep_ms": tv["fp32"], "vit_sweep_plain_ms": tv["fp32_plain"],
         "vit_sweep_bound_ms": vbound["fp32"],
-        **scanned_keys("fp32"),
+        **scanned_keys("fp32"), **lm["fp32"],
         "max_abs_err": max(max_err, gmax_err["dampen"]),
         "ms": t["sweep_kernel"], "plain_ms": t["sweep_plain"],
         "bound_ms": bound["sweep"], "bound_by": "bytes",
@@ -2154,7 +2582,7 @@ def main() -> int:
         "vit_leaves": vit_ssd["int8"][1],
         "vit_sweep_ms": tv["int8"], "vit_sweep_plain_ms": tv["int8_plain"],
         "vit_sweep_bound_ms": vbound["int8"],
-        **scanned_keys("int8"),
+        **scanned_keys("int8"), **lm["int8"],
         "max_abs_err": max(max_err8, gmax_err["dampen_int8"]),
         "ms": t8["sweep_kernel"], "plain_ms": t8["sweep_plain"],
         "bound_ms": bound8["sweep"], "bound_by": "bytes",

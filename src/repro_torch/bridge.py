@@ -7,7 +7,11 @@ the conv weights: HWIO ([kh, kw, cin, cout]) in the reference, OIHW
 ([cout, cin, kh, kw]) in the port, so every 4-D leaf is transposed. Dense
 weights keep the reference's [d_in, d_out] layout. The ViT has no 4-D
 leaf: its 3-D ``patch/cls`` [1, 1, D] and ``patch/pos`` [1, T, D] cross
-unchanged.
+unchanged. Nor has the dense LM: its ``period_stack`` leaves are stacked
+[n_periods, ...] norm scales (2-D) and dense weights (3-D,
+[n_periods, d_in, d_out]), and they cross unchanged too. (An MoE expert
+stack [n_periods, experts, d, f] would be 4-D: the rule must then go by
+path, not by rank.)
 
 Leaves are matched BY PATH ('blocks/0/conv1'): ``jax.tree_util`` sorts dict
 keys while a dict built in code keeps insertion order, so positions in two

@@ -2,17 +2,21 @@
 
 MAC formulas are per-sample forward multiply-accumulates — the hardware
 proxy the paper reports. The paper's two vision models, ResNet-18 and ViT,
-are served. (The LM and encoder-decoder adapters come with the LM slice.)
+and the dense decoder LM are served. (The encoder-decoder adapter, and the
+LM's recurrent blocks, MoE and modality prefix, come with later slices.)
 """
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional
+
+import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.models import lm as LM
 from repro_torch.models import vision as V
 
 from .cau import ModelAdapter
-from .metrics import accuracy
+from .metrics import accuracy, token_accuracy
 
 
 # ---------------------------------------------------------------------------
@@ -107,4 +111,89 @@ def vit_adapter(cfg: V.ViTConfig, *, device="cuda") -> ModelAdapter:
         loss=V.cls_loss, acc=accuracy,
         layer_fwd_macs=_vit_macs(cfg),
         layer_key=layer_key, layer_ctx=lambda p, j: None,
+        device=dev)
+
+
+# ---------------------------------------------------------------------------
+# Causal LM (the dense attention blocks)
+# ---------------------------------------------------------------------------
+def _lm_block_macs(cfg: LM.LMConfig, btype: str, S: int) -> int:
+    D, H, KV, dh, F = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.dh, cfg.d_ff
+    if btype not in LM.PORTED_BLOCKS:
+        raise LM._not_ported(f"{cfg.name}: the MACs of block type {btype!r}")
+    ctx = min(S, cfg.window) if btype == "local" else S
+    m = S * D * (H + 2 * KV) * dh + S * H * dh * D + 2 * S * ctx * H * dh
+    if cfg.d_ff > 0:
+        if cfg.moe:
+            cfg.moe_cfg()
+        m += 3 * S * D * F
+    return m
+
+
+def lm_layer_macs(cfg: LM.LMConfig, S: int) -> List[int]:
+    macs = [0]  # embedding gather
+    for bt in cfg.layer_types:
+        macs.append(_lm_block_macs(cfg, bt, S))
+    macs.append(S * cfg.d_model * cfg.vocab)  # head
+    return macs
+
+
+def lm_adapter(cfg: LM.LMConfig, seq_len: int,
+               prefix: Optional[torch.Tensor] = None, *,
+               device="cuda") -> ModelAdapter:
+    """inputs = tokens [N, S] (integer ids, never cast); labels [N, S]
+    (next-token targets). The per-layer view of the LM whose parameters
+    live on ``device`` (raises without a card unless device="cpu")."""
+    dev = resolve_device(device)
+    if cfg.prefix_len > 0 or prefix is not None:
+        raise LM._not_ported(f"{cfg.name}: the stub modality prefix "
+                             f"(prefix_len={cfg.prefix_len})")
+    for bt in cfg.layer_types:
+        LM._check_block(cfg, bt)
+    Lu = LM.n_unlearn_layers(cfg)
+
+    def apply_layer(params, j, layer_p, act):
+        # ``params`` may be the full tree or the engine's minimal context
+        # from layer_ctx below (None, or embed-only for the tied head):
+        # LM.apply_layer reads it only for the head
+        if j == 0:
+            return LM._embed({"embed": layer_p}, cfg, act)
+        return LM.apply_layer(params or {}, cfg, j, layer_p, act,
+                              LM._positions(act))
+
+    def layer_key(j):
+        if j == 0:
+            return ("embed",)
+        if j == Lu - 1:
+            return ("head",)
+        return ("blk", cfg.layer_types[j - 1])  # same btype => same step
+
+    def layer_ctx(p, j):
+        # the head under tied embeddings reads the embedding matrix; every
+        # other layer is self-contained
+        if j == Lu - 1 and cfg.tie_embeddings:
+            return {"embed": p["embed"]}
+        return None
+
+    def fc(params, tokens):
+        acts = [tokens]
+        x = apply_layer(params, 0, params["embed"], tokens)
+        for j in range(1, Lu):
+            acts.append(x)
+            x = apply_layer(params, j, LM.get_layer(params, cfg, j), x)
+        return x, acts
+
+    def loss(logits, labels):
+        return LM.softmax_xent(logits, labels, z_loss=0.0)
+
+    return ModelAdapter(
+        name=cfg.name, n_layers=Lu,
+        forward_collect=fc,
+        apply_layer=apply_layer,
+        get_layer=lambda p, j: LM.get_layer(p, cfg, j),
+        set_layer=lambda p, j, s: LM.set_layer(p, cfg, j, s),
+        loss=loss, acc=token_accuracy,
+        layer_fwd_macs=lm_layer_macs(cfg, seq_len),
+        int_input_layer0=True,
+        layer_key=layer_key, layer_ctx=layer_ctx,
         device=dev)

@@ -53,6 +53,7 @@ class ModelAdapter:
     loss: Callable[[torch.Tensor, torch.Tensor], torch.Tensor]  # (logits, labels)
     acc: Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
     layer_fwd_macs: Sequence[int]                           # per-sample fwd MACs
+    int_input_layer0: bool = False                          # token-id inputs
     exclude: Optional[Callable[[str], bool]] = None         # param paths to skip
     # --- engine hooks: step-cache sharing across layers ---
     # layer_key(j) -> hashable kind; layers with equal kind AND equal shapes

@@ -18,6 +18,12 @@ def accuracy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return (logits.argmax(-1) == labels).to(F32).mean()
 
 
+def token_accuracy(logits: torch.Tensor, labels: torch.Tensor
+                   ) -> torch.Tensor:
+    """Next-token top-1 accuracy for LM forget/retain evaluation."""
+    return (logits.argmax(-1) == labels).to(F32).mean()
+
+
 def per_sample_nll(logits: torch.Tensor, labels: torch.Tensor
                    ) -> torch.Tensor:
     """[N, V], [N] -> [N] negative log-likelihoods (classification) or

@@ -1,8 +1,11 @@
-"""Synthetic classification data with forget/retain splits (numpy only).
+"""Synthetic data with forget/retain splits (numpy only).
 
-Port of the classification half of ``repro.data.synthetic``: the same
-generators, so one seed gives the same arrays as the reference. The LM
-token streams come with a later slice.
+Port of ``repro.data.synthetic``: the same generators, so one seed gives
+the same arrays as the reference. Two generators:
+
+  * classification: class-conditional image manifolds for ResNet/ViT;
+  * LM token streams: per-"domain" Markov chains over overlapping token
+    ranges — forgetting a domain mirrors forgetting a class.
 
 Class-separable synthetic images whose *unlearning geometry* matches the
 paper's setting: a pre-trained model reaches high accuracy on every class,
@@ -70,6 +73,54 @@ def split_forget_retain(x: np.ndarray, y: np.ndarray, forget_class: int,
         "forget": (x[f_idx], y[f_idx]),
         "retain": (x[r_train], y[r_train]),
         "heldout": (x[hold], y[hold]),
+    }
+
+
+# ---------------------------------------------------------------------------
+# LM token streams (per-domain Markov chains)
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class LMDataConfig:
+    vocab: int = 512
+    n_domains: int = 8
+    seq_len: int = 64
+    n_per_domain: int = 32
+    domain_vocab_frac: float = 0.25   # overlap between domain vocabularies
+    seed: int = 0
+
+
+def make_lm_domains(cfg: LMDataConfig) -> Tuple[np.ndarray, np.ndarray]:
+    """Returns (tokens [N, seq_len+1] int32, domain_ids [N]). Each domain is
+    a first-order Markov chain concentrated on its own token sub-range."""
+    rng = np.random.default_rng(cfg.seed)
+    span = max(8, int(cfg.vocab * cfg.domain_vocab_frac))
+    seqs, doms = [], []
+    for d in range(cfg.n_domains):
+        lo = (d * span // 2) % max(1, cfg.vocab - span)
+        # sparse transition matrix within [lo, lo+span)
+        trans = rng.dirichlet(np.ones(span) * 0.05, size=span)
+        for _ in range(cfg.n_per_domain):
+            t = np.empty(cfg.seq_len + 1, np.int32)
+            t[0] = lo + rng.integers(span)
+            for i in range(1, cfg.seq_len + 1):
+                t[i] = lo + rng.choice(span, p=trans[t[i - 1] - lo])
+            seqs.append(t)
+            doms.append(d)
+    x = np.stack(seqs)
+    y = np.array(doms, np.int32)
+    perm = rng.permutation(len(y))
+    return x[perm], y[perm]
+
+
+def lm_split_forget_retain(tokens: np.ndarray, domains: np.ndarray,
+                           forget_domain: int, holdout_frac: float = 0.25):
+    f_idx = np.where(domains == forget_domain)[0]
+    r_idx = np.where(domains != forget_domain)[0]
+    n_hold = max(1, int(len(r_idx) * holdout_frac))
+    return {
+        "forget": tokens[f_idx],
+        "retain": tokens[r_idx[n_hold:]],
+        "heldout": tokens[r_idx[:n_hold]],
     }
 
 

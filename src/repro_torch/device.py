@@ -16,7 +16,9 @@ def resolve_device(device) -> torch.device:
     cuBLAS matmuls, process-wide. The JAX reference computes in full f32,
     and cuDNN convolutions default to TF32, which keeps about three decimal
     digits: that would move the Fisher, and with it the selection masks and
-    the halting decision."""
+    the halting decision. cuBLAS may also reduce a bf16 product in reduced
+    precision (``allow_bf16_reduced_precision_reduction``, on by default);
+    the reference accumulates bf16 products in f32, so that goes off too."""
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -26,6 +28,8 @@ def resolve_device(device) -> torch.device:
                 f"run the plain PyTorch path on the host")
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            False
         if dev.index is None:  # "cuda" and "cuda:<current>" are one device
             dev = torch.device("cuda", torch.cuda.current_device())
     elif dev.type != "cpu":

@@ -1,20 +1,27 @@
 """Transformer layers of the port: the half of ``repro.models.layers`` that
-the ViT classifier runs.
+the ViT classifier and the dense decoder LM run.
 
-  * LayerNorm (eps 1e-5, population variance, ``rsqrt``);
-  * bidirectional multi-head attention with q/k/v biases: three projections
-    (``wq``, ``wk``, ``wv``, three leaves, never one fused weight), the
-    score divided by sqrt(Dh) AFTER the q.k product, softmax, the product
-    with v and the output projection ``wo`` (no bias);
+  * LayerNorm (eps 1e-5, population variance, ``rsqrt``) and RMSNorm (eps
+    1e-6); both take their statistics in f32 and cast back;
+  * rotary position embedding on split halves (not interleaved), angles in
+    f32;
+  * grouped-query attention, bidirectional or causal, with an optional
+    sliding window (``ik > iq - window``): three projections (``wq``, ``wk``,
+    ``wv``, three leaves, never one fused weight) with optional biases, the
+    score divided by sqrt(Dh) AFTER the q.k product, masked scores set to
+    -1e30, softmax, the product with v and the output projection ``wo`` (no
+    bias);
   * the SiLU-gated MLP (``w_gate``, ``w_up``, ``w_down``).
 
 Every product and the softmax run in f32, written out as the reference
 writes them: not ``F.scaled_dot_product_attention``, whose fused backends
-sum in another order and would move the Fisher for nothing. Dense weights
-keep the JAX layout [d_in, d_out].
+sum in another order and would move the Fisher for nothing. A bf16 weight
+is upcast before its product, where the reference asks XLA for an f32
+result (``preferred_element_type``), and the result is rounded once. Dense
+weights keep the JAX layout [d_in, d_out].
 
-(RMSNorm, RoPE, causal and windowed masks, cross attention, decode with a
-KV cache and MoE come with the LM slice.)
+(Context-parallel attention, the query-chunked path, cross attention,
+decode and prefill with a KV cache and MoE come with later slices.)
 """
 from __future__ import annotations
 
@@ -34,8 +41,19 @@ Q_CHUNK = 512
 
 
 # ---------------------------------------------------------------------------
-# LayerNorm
+# Norms
 # ---------------------------------------------------------------------------
+def init_rmsnorm(d: int, *, device, dtype=F32) -> Dict:
+    return {"scale": ones((d,), device=device, dtype=dtype)}
+
+
+def rmsnorm(p: Dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.to(F32)
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps) * p["scale"].to(F32)
+    return out.to(x.dtype)
+
+
 def init_layernorm(d: int, *, device, dtype=F32) -> Dict:
     return {"scale": ones((d,), device=device, dtype=dtype),
             "bias": zeros((d,), device=device, dtype=dtype)}
@@ -51,7 +69,28 @@ def layernorm(p: Dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Attention (bidirectional)
+# Rotary position embedding
+# ---------------------------------------------------------------------------
+def rope_freqs(head_dim: int, theta: float = 10000.0, *,
+               device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=F32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 10000.0) -> torch.Tensor:
+    """x: [B, S, H, Dh]; positions: [B, S] (int)."""
+    freqs = rope_freqs(x.shape[-1], theta, device=x.device)     # [Dh/2]
+    ang = positions.to(F32)[..., None] * freqs                  # [B, S, Dh/2]
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = x.to(F32).chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention (GQA; bidirectional, causal, sliding-window causal)
 # ---------------------------------------------------------------------------
 @dataclasses.dataclass(frozen=True)
 class AttnConfig:
@@ -60,6 +99,13 @@ class AttnConfig:
     n_kv_heads: int
     head_dim: int
     qkv_bias: bool = False
+    rope_theta: float = 10000.0
+    # the port's defaults are the ViT's bidirectional attention without
+    # RoPE (the reference defaults to causal with RoPE); the LM's attn_cfg
+    # sets both explicitly
+    use_rope: bool = False
+    causal: bool = False
+    window: int = 0          # 0: full attention; > 0: sliding window
 
 
 def init_attention(gen: torch.Generator, cfg: AttnConfig, *, device,
@@ -96,35 +142,51 @@ def _qkv(p: Dict, cfg: AttnConfig, x: torch.Tensor):
 
 
 def _sdpa_block(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                dtype) -> torch.Tensor:
-    """Attention over one block of queries, with no mask.
+                dtype, causal: bool = False, window: int = 0) -> torch.Tensor:
+    """Attention over one block of queries.
     q [B, Sq, H, Dh]; k, v [B, Sk, KV, Dh] (H a multiple of KV)."""
     B, Sq, H, Dh = q.shape
     KV = k.shape[2]
     G = H // KV
     qf = q.to(F32).reshape(B, Sq, KV, G, Dh)
     scores = torch.einsum("bqkgd,bskd->bkgqs", qf, k.to(F32)) / math.sqrt(Dh)
+    if causal:
+        iq = torch.arange(Sq, device=q.device)
+        ik = torch.arange(k.shape[1], device=q.device)
+        m = ik[None, :] <= iq[:, None]
+        if window > 0:
+            m = m & (ik[None, :] > iq[:, None] - window)
+        scores = torch.where(m, scores, torch.tensor(-1e30, dtype=F32,
+                                                     device=q.device))
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", probs, v.to(F32))
     return out.reshape(B, Sq, H, Dh).to(dtype)
 
 
 def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-          dtype) -> torch.Tensor:
+          dtype, causal: bool = False, window: int = 0) -> torch.Tensor:
     Sq = q.shape[1]
     if Sq <= Q_CHUNK * 2 or Sq % Q_CHUNK != 0:
-        return _sdpa_block(q, k, v, dtype)
+        return _sdpa_block(q, k, v, dtype, causal, window)
     raise NotImplementedError(
         f"attention over {Sq} queries takes the reference's query-chunked "
         f"path (more than {2 * Q_CHUNK} queries, a multiple of {Q_CHUNK}), "
-        f"which comes with the port's LM slice (ROADMAP Queue 1, slice 7)")
+        f"which is not ported yet (ROADMAP Queue 1, slice 7)")
 
 
-def attention(p: Dict, cfg: AttnConfig, x: torch.Tensor) -> torch.Tensor:
-    """Full-sequence bidirectional self-attention, x [B, S, D]."""
+def attention(p: Dict, cfg: AttnConfig, x: torch.Tensor,
+              positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Full-sequence self-attention (train / prefill), x [B, S, D];
+    ``positions`` [B, S] default to 0..S-1 in every row."""
     B, S = x.shape[0], x.shape[1]
+    if positions is None:
+        positions = torch.arange(S, device=x.device)[None].expand(B, S)
     q, k, v = _qkv(p, cfg, x)
-    out = _sdpa(q, k, v, x.dtype)
+    if cfg.use_rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    out = _sdpa(q, k, v, x.dtype, cfg.causal,
+                cfg.window if cfg.causal else 0)
     return _proj(out.reshape(B, S, -1), p["wo"])
 
 

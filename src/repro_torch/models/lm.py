@@ -1,0 +1,348 @@
+"""Causal decoder LM of the port: the dense half of ``repro.models.lm``.
+
+Layer pattern
+-------------
+``LMConfig.block_pattern`` is a tuple of block types cycled over the depth,
+e.g. ``("local",) * 5 + ("attn",)`` for gemma3's 5:1 local:global mix. The
+port builds two block types:
+
+  attn        full causal GQA self-attention + SwiGLU FFN
+  local       sliding-window causal attention + SwiGLU FFN
+
+The recurrent blocks (``mlstm``, ``slstm``, ``rglru``), MoE, the stub
+modality prefix, context-parallel attention and the decode / prefill paths
+with their caches are not ported yet: a config that asks for one raises a
+``ValueError`` that says so. ``LMConfig`` keeps every field of the
+reference, so that configs copy over unchanged.
+
+Parameters keep the reference's layout and keys: ``period_stack`` holds the
+blocks of the ``n_periods`` whole pattern periods, each leaf stacked
+``[n_periods, ...]``; ``tail`` the blocks past them; then ``embed``,
+``final_norm`` and, without tied embeddings, ``lm_head``. ``forward`` walks
+the periods in a Python loop where the reference scans them.
+
+The unlearn-layer view (``get_layer`` / ``set_layer`` / ``apply_layer``) is
+what the FiCABU engine edits: depth j = 0 is the embedding, j = 1..n_layers
+the blocks, j = n_layers + 1 the head (the final norm, and ``lm_head``
+unless tied). ``get_layer`` of a stacked block returns views into the
+stacked leaves; ``set_layer`` returns a new tree whose stacked leaves are
+new tensors, leaving the caller's dicts and tensors untouched, as the
+reference's ``.at[i].set`` does.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.device import resolve_device
+
+from . import layers as L
+from .module import (Params, dense_init, embed_init, index_tree, tree_leaves,
+                     tree_map, tree_unflatten)
+from .vision import _logsumexp
+
+F32 = torch.float32
+PORTED_BLOCKS = ("attn", "local")
+
+
+def _not_ported(what: str) -> ValueError:
+    return ValueError(f"{what} is not ported yet: the port builds the dense "
+                      f"decoder LM (block types {PORTED_BLOCKS}, SwiGLU FFN); "
+                      f"see ROADMAP.md Queue 1, slice 7")
+
+
+@dataclasses.dataclass(frozen=True)
+class MoESpec:
+    num_experts: int
+    top_k: int
+    shared_ff: int = 0
+    capacity_factor: float = 1.25
+
+
+@dataclasses.dataclass(frozen=True)
+class LMConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: int = 0
+    block_pattern: Tuple[str, ...] = ("attn",)
+    window: int = 1024
+    qkv_bias: bool = False
+    rope_theta: float = 10000.0
+    moe: Optional[MoESpec] = None
+    d_rnn: int = 0                 # RG-LRU recurrence width (0 -> 4*d_model//3)
+    mlstm_chunk: int = 128
+    prefix_len: int = 0            # stub modality tokens (VLM / audio)
+    tie_embeddings: bool = False
+    param_dtype: str = "float32"
+    sub_quadratic: bool = False    # eligible for long_500k
+    dispatch_blocks: int = 1       # MoE local-capacity blocks
+    remat: bool = False            # activation checkpointing (no numeric effect)
+    cp_attention: int = 0          # context-parallel attention segments
+    moe_shard_constraints: bool = False
+    parallelism: str = "tp"
+    unroll_layers: bool = False    # the port always walks the periods in Python
+
+    # ---- derived ----
+    @property
+    def dh(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return getattr(torch, self.param_dtype)
+
+    @property
+    def layer_types(self) -> Tuple[str, ...]:
+        p = self.block_pattern
+        return tuple(p[i % len(p)] for i in range(self.n_layers))
+
+    @property
+    def n_periods(self) -> int:
+        return self.n_layers // len(self.block_pattern)
+
+    @property
+    def n_tail(self) -> int:
+        return self.n_layers % len(self.block_pattern)
+
+    def attn_cfg(self, btype: str) -> L.AttnConfig:
+        if self.cp_attention > 1:
+            raise _not_ported(f"{self.name}: context-parallel attention "
+                              f"(cp_attention={self.cp_attention})")
+        return L.AttnConfig(
+            d_model=self.d_model, n_heads=self.n_heads,
+            n_kv_heads=self.n_kv_heads, head_dim=self.dh,
+            qkv_bias=self.qkv_bias, rope_theta=self.rope_theta,
+            use_rope=True, causal=True,
+            window=self.window if btype == "local" else 0)
+
+    def mlstm_cfg(self):
+        raise _not_ported(f"{self.name}: the mLSTM block")
+
+    def slstm_cfg(self):
+        raise _not_ported(f"{self.name}: the sLSTM block")
+
+    def rglru_cfg(self):
+        raise _not_ported(f"{self.name}: the RG-LRU block")
+
+    def moe_cfg(self):
+        raise _not_ported(f"{self.name}: the MoE FFN")
+
+    def with_(self, **kw) -> "LMConfig":
+        return dataclasses.replace(self, **kw)
+
+
+def _check_block(cfg: LMConfig, btype: str) -> None:
+    if btype not in PORTED_BLOCKS:
+        raise _not_ported(f"{cfg.name}: block type {btype!r}")
+    cfg.attn_cfg(btype)
+    if cfg.moe is not None:
+        cfg.moe_cfg()
+
+
+# ---------------------------------------------------------------------------
+# Blocks
+# ---------------------------------------------------------------------------
+def init_block(gen: torch.Generator, cfg: LMConfig, btype: str, *,
+               device) -> Params:
+    _check_block(cfg, btype)
+    dt = cfg.dtype
+    p: Params = {"ln1": L.init_rmsnorm(cfg.d_model, device=device, dtype=dt),
+                 "mixer": L.init_attention(gen, cfg.attn_cfg(btype),
+                                           device=device, dtype=dt)}
+    if cfg.d_ff > 0:
+        p["ln2"] = L.init_rmsnorm(cfg.d_model, device=device, dtype=dt)
+        p["ffn"] = L.init_mlp(gen, cfg.d_model, cfg.d_ff, device=device,
+                              dtype=dt)
+    return p
+
+
+def block_forward(p: Params, cfg: LMConfig, btype: str, x: torch.Tensor,
+                  positions: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (x_out, moe_aux_loss); the aux loss is 0 for a dense FFN."""
+    _check_block(cfg, btype)
+    h = L.rmsnorm(p["ln1"], x)
+    x = x + L.attention(p["mixer"], cfg.attn_cfg(btype), h, positions)
+    aux = torch.zeros((), dtype=F32, device=x.device)
+    if cfg.d_ff > 0:
+        x = x + L.mlp(p["ffn"], L.rmsnorm(p["ln2"], x))
+    return x, aux
+
+
+# ---------------------------------------------------------------------------
+# Full model
+# ---------------------------------------------------------------------------
+def init_lm(gen: torch.Generator, cfg: LMConfig, *, device="cuda") -> Params:
+    """Random parameters drawn from ``gen`` on its own device and placed on
+    ``device`` (raises without a card unless device="cpu"), in the
+    reference's layout."""
+    device = resolve_device(device)
+    for bt in cfg.layer_types:
+        _check_block(cfg, bt)
+    dt = cfg.dtype
+    pat = cfg.block_pattern
+    periods = [{str(i): init_block(gen, cfg, bt, device=device)
+                for i, bt in enumerate(pat)} for _ in range(cfg.n_periods)]
+    tail = [init_block(gen, cfg, cfg.layer_types[cfg.n_periods * len(pat) + i],
+                       device=device) for i in range(cfg.n_tail)]
+    p: Params = {
+        "embed": {"w": embed_init(gen, cfg.vocab, cfg.d_model, device=device,
+                                  dtype=dt)},
+        "final_norm": L.init_rmsnorm(cfg.d_model, device=device, dtype=dt),
+    }
+    if periods:
+        p["period_stack"] = tree_unflatten(periods[0], [
+            torch.stack(xs) for xs in zip(*(tree_leaves(q) for q in periods))])
+    if tail:
+        p["tail"] = {str(i): t for i, t in enumerate(tail)}
+    if not cfg.tie_embeddings:
+        p["lm_head"] = {"w": dense_init(gen, cfg.d_model, cfg.vocab,
+                                        device=device, dtype=dt)}
+    return p
+
+
+def _embed(params: Params, cfg: LMConfig, tokens: torch.Tensor,
+           prefix: Optional[torch.Tensor] = None) -> torch.Tensor:
+    if cfg.prefix_len > 0 or prefix is not None:
+        raise _not_ported(f"{cfg.name}: the stub modality prefix")
+    return params["embed"]["w"].to(cfg.dtype)[tokens]
+
+
+def _head(params: Params, cfg: LMConfig, x: torch.Tensor) -> torch.Tensor:
+    """f32 logits: the product runs on f32 copies, as the reference asks
+    XLA for an f32 result of its bf16 operands."""
+    x = L.rmsnorm(params["final_norm"], x)
+    w = (params["embed"]["w"].t() if cfg.tie_embeddings
+         else params["lm_head"]["w"])
+    return x.to(F32) @ w.to(x.dtype).to(F32)
+
+
+def _positions(x: torch.Tensor) -> torch.Tensor:
+    B, S = x.shape[0], x.shape[1]
+    return torch.arange(S, device=x.device)[None].expand(B, S)
+
+
+def forward(params: Params, cfg: LMConfig, tokens: torch.Tensor,
+            prefix: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens [B, S] -> (logits [B, S', V] f32, moe_aux scalar)."""
+    x = _embed(params, cfg, tokens, prefix)
+    positions = _positions(x)
+    aux_total = torch.zeros((), dtype=F32, device=x.device)
+    pat = cfg.block_pattern
+    if "period_stack" in params:
+        for pi in range(cfg.n_periods):
+            period_p = index_tree(params["period_stack"], pi)
+            for i, bt in enumerate(pat):
+                x, aux = block_forward(period_p[str(i)], cfg, bt, x,
+                                       positions)
+                aux_total = aux_total + aux
+    if "tail" in params:
+        base = cfg.n_periods * len(pat)
+        for i in range(cfg.n_tail):
+            x, aux = block_forward(params["tail"][str(i)], cfg,
+                                   cfg.layer_types[base + i], x, positions)
+            aux_total = aux_total + aux
+    return _head(params, cfg, x), aux_total
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 z_loss: float = 1e-4) -> torch.Tensor:
+    """Mean token cross-entropy with z-loss. logits [.., V] f32, labels
+    [..]; the log-sum-exp in the reference's gradient form."""
+    lse = _logsumexp(logits)
+    ll = logits.gather(-1, labels.long()[..., None])[..., 0]
+    loss = lse - ll + z_loss * lse ** 2
+    return loss.mean()
+
+
+def lm_loss(params: Params, cfg: LMConfig, tokens: torch.Tensor,
+            labels: torch.Tensor, prefix: Optional[torch.Tensor] = None,
+            aux_weight: float = 0.01) -> torch.Tensor:
+    logits, aux = forward(params, cfg, tokens, prefix)
+    return softmax_xent(logits, labels) + aux_weight * aux
+
+
+# ---------------------------------------------------------------------------
+# Unrolled per-layer view (the FiCABU engine)
+# ---------------------------------------------------------------------------
+# Depth index j = 0..n_layers+1, front to back: j = 0 the embedding,
+# j = 1..n_layers the blocks, j = n_layers + 1 the head (+ final norm).
+# Back-to-front paper index l = L_u - j (l = 1 is the head).
+def n_unlearn_layers(cfg: LMConfig) -> int:
+    return cfg.n_layers + 2
+
+
+def get_layer(params: Params, cfg: LMConfig, j: int) -> Params:
+    """Depth index j (front-to-back): the layer's param subtree (views into
+    the stacked leaves for a block of ``period_stack``)."""
+    if j == 0:
+        return params["embed"]
+    if j == cfg.n_layers + 1:
+        head = {"final_norm": params["final_norm"]}
+        if not cfg.tie_embeddings:
+            head["lm_head"] = params["lm_head"]
+        return head
+    i = j - 1
+    period = len(cfg.block_pattern)
+    if i < cfg.n_periods * period:
+        return index_tree(params["period_stack"][str(i % period)],
+                          i // period)
+    return params["tail"][str(i - cfg.n_periods * period)]
+
+
+def _set_row(full: torch.Tensor, i: int, s: torch.Tensor) -> torch.Tensor:
+    out = full.clone()
+    out[i] = s.to(full.dtype)
+    return out
+
+
+def set_layer(params: Params, cfg: LMConfig, j: int, sub: Params) -> Params:
+    """A new tree with layer j replaced by ``sub``; the caller's dicts and
+    tensors are left as they were."""
+    params = dict(params)
+    if j == 0:
+        params["embed"] = sub
+        return params
+    if j == cfg.n_layers + 1:
+        params["final_norm"] = sub["final_norm"]
+        if not cfg.tie_embeddings:
+            params["lm_head"] = sub["lm_head"]
+        return params
+    i = j - 1
+    period = len(cfg.block_pattern)
+    if i < cfg.n_periods * period:
+        stack = dict(params["period_stack"])
+        key = str(i % period)
+        stack[key] = tree_map(lambda full, s: _set_row(full, i // period, s),
+                              stack[key], sub)
+        params["period_stack"] = stack
+    else:
+        tail = dict(params["tail"])
+        tail[str(i - cfg.n_periods * period)] = sub
+        params["tail"] = tail
+    return params
+
+
+def apply_layer(params: Params, cfg: LMConfig, j: int, layer_p: Params,
+                x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    """Forward of unlearn-layer j with parameters ``layer_p``; x is its
+    input."""
+    if j == 0:
+        raise ValueError("use the embed path of the adapter for j=0")
+    if j == cfg.n_layers + 1:
+        p2 = dict(params)
+        p2.update(layer_p)
+        return _head(p2, cfg, x)
+    out, _ = block_forward(layer_p, cfg, cfg.layer_types[j - 1], x, positions)
+    return out

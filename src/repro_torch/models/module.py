@@ -5,8 +5,10 @@ keys. The tree helpers visit dict keys in SORTED order, as
 ``jax.tree_util`` does, so leaf lists line up with the reference's whatever
 order a dict was built in; tuples and lists (batches) keep their order.
 
-Initialisers draw on the host from an explicit CPU ``torch.Generator`` and
-then move to ``device``, so one seed gives the same weights on every device.
+Initialisers draw from an explicit ``torch.Generator`` on the generator's
+own device and then move to ``device``: a CPU generator gives the same
+weights on every device for one seed, a CUDA generator makes a large model
+on the card without a trip through the host.
 """
 from __future__ import annotations
 
@@ -25,9 +27,17 @@ def dense_init(gen: torch.Generator, d_in: int, d_out: int, *,
                device, dtype=torch.float32) -> torch.Tensor:
     """Truncated-normal fan-in init, [d_in, d_out] (the JAX layout)."""
     std = 1.0 / math.sqrt(d_in)
-    w = torch.empty(d_in, d_out, dtype=torch.float32)
+    w = torch.empty(d_in, d_out, dtype=torch.float32, device=gen.device)
     torch.nn.init.trunc_normal_(w, a=-2.0, b=2.0, generator=gen)
     return (w * std).to(device=device, dtype=dtype)
+
+
+def embed_init(gen: torch.Generator, vocab: int, d: int, *,
+               device, dtype=torch.float32) -> torch.Tensor:
+    """Normal(0, 0.02) token embedding, [vocab, d]."""
+    w = torch.randn(vocab, d, generator=gen, dtype=torch.float32,
+                    device=gen.device) * 0.02
+    return w.to(device=device, dtype=dtype)
 
 
 def zeros(shape, *, device, dtype=torch.float32) -> torch.Tensor:
@@ -95,6 +105,12 @@ def flatten_with_paths(tree, prefix: str = "") -> Iterator[Tuple[str, Any]]:
             yield from flatten_with_paths(v, f"{prefix}{k}/")
     else:
         yield prefix[:-1], tree
+
+
+def index_tree(tree: Params, i: int) -> Params:
+    """Index the leading (stacked layer) axis of every leaf: views into the
+    stacked tensors, not copies."""
+    return tree_map(lambda x: x[i], tree)
 
 
 def map_with_paths(fn: Callable[[str, Any], Any], tree, prefix: str = ""):

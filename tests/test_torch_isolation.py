@@ -153,3 +153,62 @@ def test_entry_points_raise_without_a_card():
     with pytest.raises(RuntimeError, match="is_available"):
         fisher.diag_fisher(lambda p, b: 0.0, params,
                            (torch.zeros(8, 8, 8, 3), torch.zeros(8)))
+
+
+_BLOCKED_LM_RUN = _BLOCKED_RUN.split("import numpy as np")[0] + r"""
+import torch
+
+from repro_torch import configs
+from repro_torch.api import ForgetRequest, Unlearner, UnlearnSpec
+from repro_torch.core import adapters
+from repro_torch.data import synthetic as syn
+from repro_torch.models import lm as LM
+
+torch.set_num_threads(2)
+cfg = configs.get("gemma3-1b").smoke.with_(n_layers=7, vocab=64, window=4)
+params = LM.init_lm(torch.Generator().manual_seed(0), cfg, device="cpu")
+toks, doms = syn.make_lm_domains(syn.LMDataConfig(
+    vocab=64, n_domains=2, seq_len=8, n_per_domain=8))
+tok = torch.as_tensor(toks).long()
+loss = lambda p, b: LM.lm_loss(p, cfg, b[0], b[1])
+unl = Unlearner(adapters.lm_adapter(cfg, 8, device="cpu"),
+                spec=UnlearnSpec.for_mode("ficabu", tau=-1.0, chunk_size=4,
+                                          use_kernel=True,
+                                          sweep_mode="scanned"),
+                device="cpu")
+unl.ensure_fisher(loss, params, (tok[:8, :-1], tok[:8, 1:]))
+out = []
+for precision in ("fp32", "int8"):
+    new, st = unl.with_spec(UnlearnSpec.for_mode(
+        "ficabu", tau=-1.0, chunk_size=4, use_kernel=True,
+        sweep_mode="scanned", precision=precision)).forget(
+            ForgetRequest(tok[8:16, :-1], tok[8:16, 1:]), params=params)
+    assert st["engine"]["sweep_mode"] == "scanned", st["engine"]
+    out.append(st["stopped_at_l"])
+leaked = [m for m in sys.modules
+          if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
+print("LEAKED", leaked, "STOP", out)
+"""
+
+
+def test_lm_serves_with_jax_and_repro_blocked():
+    """The LM slice's modules (models.lm, the registry, the LM adapter and
+    data) serve a scanned fp32 and int8 request with JAX and the JAX
+    package blocked."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    proc = subprocess.run([sys.executable, "-c", _BLOCKED_LM_RUN], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "LEAKED [] STOP [9, 9]" in proc.stdout, proc.stdout
+
+
+def test_lm_entry_points_raise_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present; this checks the host without one")
+    from repro_torch.configs import get
+    from repro_torch.models import lm as LM
+    cfg = get("gemma3-1b").smoke
+    with pytest.raises(RuntimeError, match="is_available"):
+        LM.init_lm(torch.Generator(), cfg)
+    with pytest.raises(RuntimeError, match="is_available"):
+        adapters.lm_adapter(cfg, 8)

@@ -126,7 +126,33 @@ Phases, in order; any failure exits non-zero and prints no result line:
      wall, device busy time, idle share and device kernels; the 28-launch
      sweeps' device time against their byte bounds (13 bytes per element
      with bf16 theta, 11 with int8 codes);
- 10. times: each kernel and its plain version at the main paths' shapes
+ 10. [recurrent]: the recurrent LMs at full width, bf16, from a CUDA
+     generator seeded with 0, on the [lm] phase's data (vocabulary 512,
+     S = 1024, chunk 2, argmax labels, the retain Fisher of 4 sequences
+     from ensure_fisher), lambda 1: xlstm-125m FULL (mLSTM and sLSTM
+     blocks 3:1, no FFN; 109,192,008 parameters, 126 layer leaves in 14
+     unlearn layers), 8 sequences a request, checkpoints every 4 layers,
+     alpha 50; recurrentgemma-9b at full width and 5 of its 38 blocks (one
+     (rglru, rglru, local) period and the two-layer rglru tail;
+     3,395,363,392 parameters, 64 leaves in 7 layers; the whole model does
+     not fit one card), 4 sequences a request, checkpoints every 2 layers,
+     alpha 25. First each model's layer tables (whole, and per dtype)
+     through the group kernels against their plain versions; then, with
+     the counters zeroed before and read after: ssd cold and warm, ficabu
+     with tau = -1, int8 ssd (on its q8 grids, per-layer error against
+     fp32 within INT8_SWEEP_RTOL; cold and warm on recurrentgemma, cold on
+     xlstm), ssd with sweep_mode="scanned" (no plan for layers of unequal
+     shapes: the layerwise loop, == the layerwise request bit for bit),
+     kernel forget == plain forget in both precisions; for xlstm also a
+     ficabu that halts partway, fp32 and int8, and a K = 2 drain
+     layerwise and scanned. An fp32 request launches the dampen kernel
+     once per dtype of each layer swept (an RG-LRU layer's f32 log_lambda
+     beside its bf16 weights: two launches), an int8 request once per
+     layer. Every parameter finite, the caller's tree unchanged; peak
+     memory, the warm ssd requests' wall, device busy time, idle share and
+     device kernels (xlstm: fp32, its device activity alone), the sweeps
+     against their byte bounds, and each model's and the phase's seconds;
+ 11. times: each kernel and its plain version at the main paths' shapes
      (the dampen sweeps as a request launches them, one grouped launch per
      layer, with the 56 per-leaf launches beside them and the figures from
      before the grouped kernel; and, for fimd and the GEMMs, one PyTorch
@@ -141,8 +167,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
      and the ViT's warm scanned requests beside layerwise ones (ssd and
      the halting ficabu, fp32 and int8) and its fp32 K = 2 ssd drains
      beside two single requests. The dampen entries of the
-     ``kernels`` line carry the [scanned] phase's launches and leaves and
-     the [lm] phase's (``lm_*`` keys).
+     ``kernels`` line carry the [scanned] phase's launches and leaves,
+     the [lm] phase's (``lm_*`` keys) and the [recurrent] phase's
+     (``rec_*``).
 
 The last line is the contract line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -244,14 +271,17 @@ def cuda_time_ms(fn, iters: int, *, queue_ahead: bool = False) -> float:
     return start.elapsed_time(end) / iters
 
 
-def profile_request(run):
+def profile_request(run, cpu=True):
     """Device busy time of one ``run()`` from torch.profiler: the sum of
     the CUDA kernels' self time, the number of device kernels, and every
-    kernel by time, as (name, ms, count)."""
+    kernel by time, as (name, ms, count). ``cpu=False`` records the device
+    activity alone: a request of a million kernels (xlstm-125m's sLSTM
+    loops) takes minutes to profile with the host's operators beside
+    them."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU] * cpu
+                 + [ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
     evs = [e for e in prof.key_averages()
@@ -391,15 +421,16 @@ def check_int8_kernel_against_plain(leaf_shapes, dev):
     return cases, max_err
 
 
-def check_group_kernels_against_plain(layer_shapes, dev, edges=True):
+def check_group_kernels_against_plain(layer_shapes, dev, edges=True,
+                                      whole=True):
     """Phase 3, grouped: dampen_group_cuda and dampen_int8_group_cuda (one
     launch per 64 leaves) against their plain versions, bit for bit, the
     selection count included, and the launch and leaf counters against the
-    table: each layer's table and the whole tree, then (``edges``) tables
-    past capacity and edge tables (empty leaves, n < 4, odd n, offset views
-    off the 16-byte grid, in-place out, NaN/inf/1e-38 entries, int8 ties
-    and saturation). Returns the tables checked per kind and the largest
-    |err| per kernel."""
+    table: each layer's table and (``whole``) the whole tree, then
+    (``edges``) tables past capacity and edge tables (empty leaves, n < 4,
+    odd n, offset views off the 16-byte grid, in-place out, NaN/inf/1e-38
+    entries, int8 ties and saturation). Returns the tables checked per kind
+    and the largest |err| per kernel."""
     from repro_torch.kernels import dampen as kd
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 7)
@@ -439,7 +470,9 @@ def check_group_kernels_against_plain(layer_shapes, dev, edges=True):
                     or (in_place and g.data_ptr() != thetas[i].data_ptr()):
                 raise AssertionError(f"grouped {kind} kernel != plain: "
                                      f"{what}, leaf {i} {tuple(g.shape)}")
-            d = (g.double() - w.double()).abs()
+            # in f32, not f64: the tables reach 1.05 B-element leaves; the
+            # bits are equal here, so every finite difference is 0 either way
+            d = (g.float() - w.float()).abs()
             d = d[torch.isfinite(d)]
             if d.numel():
                 max_err[key] = max(max_err[key], type(max_err[key])(d.max()))
@@ -474,8 +507,9 @@ def check_group_kernels_against_plain(layer_shapes, dev, edges=True):
             for j, shapes in enumerate(layer_shapes):
                 compare(kind, *table(shapes, kind, alpha), alpha, lam,
                         f"layer {j} a={alpha} l={lam}")
-            compare(kind, *table(every, kind, alpha), alpha, lam,
-                    f"all {len(every)} leaves a={alpha} l={lam}")
+            if whole:
+                compare(kind, *table(every, kind, alpha), alpha, lam,
+                        f"all {len(every)} leaves a={alpha} l={lam}")
         if not edges:
             continue
         # past capacity: the tree twice (2 launches), and 150 small leaves
@@ -921,19 +955,65 @@ def on_q8_grid(new, pristine):
     return True
 
 
-def layer_rel_l2(adapter, p8, p32):
-    """Per layer, ||p8 - p32|| / ||p32|| over the layer's leaves."""
+def layer_rel_l2(adapter, p8, p32, piece=1 << 26):
+    """Per layer, ||p8 - p32|| / ||p32|| over the layer's leaves, summed in
+    f64 over pieces of ``piece`` elements (a 1.05 B-element leaf in f64
+    would take 8.4 GB beside a full card)."""
     from repro_torch.models.module import tree_leaves
-    from repro_torch.optim.compression import INT8_SWEEP_RTOL, q8_quantize
     out = []
     for j in range(adapter.n_layers):
-        a = tree_leaves(adapter.get_layer(p8, j))
-        b = tree_leaves(adapter.get_layer(p32, j))
-        d = sum(float(((x.double() - y.double()) ** 2).sum())
-                for x, y in zip(a, b))
-        n = sum(float((y.double() ** 2).sum()) for y in b)
+        d = n = 0.0
+        for x, y in zip(tree_leaves(adapter.get_layer(p8, j)),
+                        tree_leaves(adapter.get_layer(p32, j))):
+            for xs, ys in zip(x.reshape(-1).split(piece),
+                              y.reshape(-1).split(piece)):
+                d += float(((xs.double() - ys.double()) ** 2).sum())
+                n += float((ys.double() ** 2).sum())
         out.append((d / n) ** 0.5)
     return out
+
+
+def nvml_busy(run, period_s=0.02):
+    """The card's busy share while ``run()`` runs, from NVML: the mean of
+    ``nvmlDeviceGetUtilizationRates().gpu`` (the share of NVML's last
+    sample period in which a kernel ran) read every ``period_s`` on a
+    thread. A cheap stand-in for ``profile_request`` where a request makes
+    a million kernels; ``[recurrent]`` reads both on recurrentgemma to set
+    one beside the other. Returns (share, samples)."""
+    import ctypes
+    import threading
+
+    class Util(ctypes.Structure):
+        _fields_ = [("gpu", ctypes.c_uint), ("memory", ctypes.c_uint)]
+
+    nvml = ctypes.CDLL("libnvidia-ml.so.1")
+    handle = ctypes.c_void_p()
+    if nvml.nvmlInit_v2() != 0 or nvml.nvmlDeviceGetHandleByIndex_v2(
+            ctypes.c_uint(0), ctypes.byref(handle)) != 0:
+        raise RuntimeError("NVML did not open card 0")
+    samples, stop = [], threading.Event()
+
+    def sample():
+        util = Util()
+        while not stop.is_set():
+            if nvml.nvmlDeviceGetUtilizationRates(handle,
+                                                  ctypes.byref(util)) == 0:
+                samples.append(util.gpu)
+            time.sleep(period_s)
+
+    thread = threading.Thread(target=sample)
+    torch.cuda.synchronize()
+    thread.start()
+    try:
+        run()
+        torch.cuda.synchronize()
+    finally:
+        stop.set()
+        thread.join(timeout=10)
+        nvml.nvmlShutdown()
+    if thread.is_alive() or not samples:
+        raise RuntimeError(f"NVML sampling: {len(samples)} samples")
+    return sum(samples) / len(samples) / 100.0, len(samples)
 
 
 def pretrain(params, forward, x, y, steps, batch, dev):
@@ -1339,6 +1419,473 @@ def lm_phase(dev, rate, zero_counts, dampen_counts, fisher_counts):
     del params, fisher, lssd, lssd8, ficabu, runs, stored
     torch.cuda.empty_cache()
     return out
+
+
+def split_by_dtype(tables):
+    """Each (thetas, i_fs, i_gs) table cut into one table per theta dtype,
+    in first-seen order: the tables a fp32 request launches, where a bf16
+    layer's f32 leaf (the RG-LRU's log_lambda) goes out on its own."""
+    out = []
+    for ths, i_fs, i_gs in tables:
+        for dt in dict.fromkeys(t.dtype for t in ths):
+            idx = [i for i, t in enumerate(ths) if t.dtype == dt]
+            out.append(tuple([seq[i] for i in idx]
+                             for seq in (ths, i_fs, i_gs)))
+    return out
+
+
+def rec_model(arch, n_layers, n_seq, every, alpha, want, dev, rate,
+              counters):
+    """One model of the [recurrent] phase (module docstring, phase 10):
+    built at full width from a seeded CUDA generator, its layer tables
+    through the group kernels against their plain versions, then its
+    requests with the dampen counters zeroed before and read after. Returns
+    the figures the kernels line carries, the largest |err| per kernel and
+    the path's dampen counters."""
+    from repro_torch import bridge
+    from repro_torch.api import (ForgetRequest, QuantSpec, Unlearner,
+                                 UnlearnSpec)
+    from repro_torch.configs import get as get_arch
+    from repro_torch.core import adapters
+    from repro_torch.core.schedule import checkpoint_set
+    from repro_torch.data import synthetic as syn
+    from repro_torch.engine import plan_scanned_sweep
+    from repro_torch.kernels import dampen as kd
+    from repro_torch.models import lm as LM
+    from repro_torch.models.module import tree_leaves
+    from repro_torch.optim.compression import INT8_SWEEP_RTOL, q8_quantize
+
+    zero_counts, dampen_counts, fisher_counts = counters
+    t_model = time.perf_counter()
+    gib = 2.0 ** 30
+    xl = arch.startswith("xlstm")
+    tag = "xlstm" if xl else "rg"
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_arch(arch).full
+    if n_layers is not None:
+        cfg = cfg.with_(n_layers=n_layers)
+    t0 = time.perf_counter()
+    params = LM.init_lm(torch.Generator(device=dev).manual_seed(SEED), cfg,
+                        device="cuda")
+    adapter = adapters.lm_adapter(cfg, LM_SEQ, device="cuda")
+    torch.cuda.synchronize()
+    L = adapter.n_layers
+    stored = bridge.paths(params)
+    n_params = sum(t.numel() for t in stored.values())
+    layers = [tree_leaves(adapter.get_layer(params, j)) for j in range(L)]
+    layer_leaves = [len(ls) for ls in layers]
+    n_leaves = sum(layer_leaves)
+    # a fp32 request launches the dampen kernel once per dtype among a
+    # layer's leaves (an RG-LRU layer: bf16 weights and the f32
+    # log_lambda), an int8 request once per layer of codes
+    launches32 = [len({t.dtype for t in ls}) for ls in layers]
+    log(f"[recurrent] {cfg.name} ({cfg.n_layers} blocks {cfg.block_pattern}"
+        f"{', depth cut from 38' if n_layers else ''}, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads of {cfg.dh}, d_ff {cfg.d_ff}, "
+        f"vocab {cfg.vocab}, {cfg.param_dtype}) from torch.Generator('cuda') "
+        f"seed {SEED} in {time.perf_counter() - t0:.1f} s: {n_params} "
+        f"parameters in {len(stored)} stored leaves; {n_leaves} layer leaves "
+        f"in {L} unlearn layers; dampen launches per layer (fp32) "
+        f"{launches32}")
+    if (n_params, len(stored), n_leaves, L) != want:
+        got = (n_params, len(stored), n_leaves, L)
+        raise AssertionError(f"{cfg.name}: {got} (parameters, stored "
+                             f"leaves, layer leaves, layers), expected "
+                             f"{want}")
+
+    # the group kernels on this model's tables, before the path's counters
+    # are zeroed: each layer's whole table (as an int8 request launches it)
+    # and, for a layer of two dtypes, each dtype's part (as a fp32 request
+    # launches it); the whole tree too where it fits beside the model
+    shapes = [[tuple(t.shape) for t in ls] for ls in layers]
+    shapes += [[tuple(t.shape) for t in ls if t.dtype == dt]
+               for ls in layers if len({t.dtype for t in ls}) > 1
+               for dt in dict.fromkeys(t.dtype for t in ls)]
+    t0 = time.perf_counter()
+    gcases, gerr = check_group_kernels_against_plain(shapes, dev, edges=False,
+                                                     whole=xl)
+    whole = ", and the whole tree" if xl else ""
+    log(f"[recurrent] {cfg.name}: grouped dampen and dampen_int8 over its "
+        f"{len(shapes)} tables ({L} layers, {len(shapes) - L} per-dtype "
+        f"parts{whole}) x f32/bf16/int8 x 3 pairs: bit-identical to their plain versions, "
+        f"selection count, launch and leaf counters included, in {gcases} "
+        f"tables, max |err| {gerr} ({time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
+    toks, doms = syn.make_lm_domains(syn.LMDataConfig(
+        vocab=LM_DATA_VOCAB, n_domains=4, seq_len=LM_SEQ, n_per_domain=8,
+        seed=SEED))
+    splits = {d: syn.lm_split_forget_retain(toks, doms, d)
+              for d in (LM_FORGET, LM_OTHER)}
+
+    def request(seqs, tag):
+        inputs = torch.as_tensor(seqs[:, :-1], device=dev).long().contiguous()
+        with torch.no_grad():
+            labels = LM.forward(params, cfg, inputs)[0].argmax(-1)
+        return ForgetRequest(inputs, labels, tag=tag)
+
+    req = request(splits[LM_FORGET]["forget"][:n_seq], LM_FORGET)
+    req2 = request(splits[LM_OTHER]["forget"][:n_seq], LM_OTHER) if xl \
+        else None
+    retain = request(splits[LM_FORGET]["retain"][:4], "retain")
+    log(f"[recurrent] {cfg.name}: {n_seq}-sequence requests of S = {LM_SEQ} "
+        f"tokens (domains {LM_FORGET}{f', {LM_OTHER}' if xl else ''}), "
+        f"argmax labels, in {time.perf_counter() - t0:.1f} s")
+
+    def spec(mode, **kw):
+        return UnlearnSpec.for_mode(mode, **{
+            "alpha": alpha, "lam": 1.0, "tau": -1.0,
+            "checkpoint_every": every, "chunk_size": 2, "use_kernel": True,
+            **kw})
+
+    lssd = Unlearner(adapter, spec=spec("ssd"), device="cuda")
+    t0 = time.perf_counter()
+    lssd.ensure_fisher(lambda p, b: LM.lm_loss(p, cfg, b[0], b[1]), params,
+                       (retain.inputs, retain.labels), chunk_size=2)
+    torch.cuda.synchronize()
+    fisher = lssd.fisher_global
+    log(f"[recurrent] {cfg.name}: ensure_fisher on 4 retain sequences "
+        f"(chunk 2) in {time.perf_counter() - t0:.1f} s; peak "
+        f"{torch.cuda.max_memory_allocated() / gib:.2f} GiB")
+    # the caller's tree as it was, kept on the host (6.8 GB for
+    # recurrentgemma)
+    before = {k: v.cpu() for k, v in stored.items()}
+    cps = checkpoint_set(L, every)
+    if plan_scanned_sweep(adapter, params, req.inputs) is not None:
+        raise AssertionError(f"{cfg.name}: a scanned plan for a stack of "
+                             f"layers of unequal shapes")
+    runs = {}
+
+    def expected(path, sts):
+        per = launches32 if path == "fp32" else [1] * L
+        return (sum(per[L - l] for s in sts
+                    for l in range(1, s["stopped_at_l"] + 1)),
+                sum(layer_leaves[L - l] for s in sts
+                    for l in range(1, s["stopped_at_l"] + 1)))
+
+    busy = {}
+
+    def serve(name, unl, path, *, group=None, keep=False):
+        """One request (or a drain of ``group``), checked: its dampen
+        launches and leaves in its own precision's kernel (one launch per
+        dtype of each layer swept, fp32; one per layer, int8), none in the
+        other's; the layerwise loop (no scanned plan for this stack); every
+        parameter finite. A warm ssd request runs under ``nvml_busy``."""
+        c0 = dampen_counts()
+        got = []
+
+        def call():
+            got.append(unl.forget(req, params=params) if group is None
+                       else unl.forget_group(group, params=params))
+
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        if name == "ssd warm":
+            busy[path] = nvml_busy(call)
+        else:
+            call()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t1
+        if group is None:
+            new, st = got[0]
+            sts = [st]
+        else:
+            new, sts, st = got[0]
+        dc = tuple(b - a for a, b in zip(c0, dampen_counts()))
+        mine, other = (dc[:2], dc[2:]) if path == "fp32" else (dc[2:], dc[:2])
+        eng = st["engine"]
+        log(f"[recurrent] {tag} {path} {name:22s}: stopped_at_l="
+            f"{[s['stopped_at_l'] for s in sts]} checkpoints="
+            f"{[s['checkpoints_hit'] for s in sts]} macs_vs_ssd_pct="
+            f"{[round(s['macs_vs_ssd_pct'], 4) for s in sts]} "
+            f"{eng['sweep_mode']}, launches {mine[0]} over {mine[1]} leaves, "
+            f"builds={eng['compiles']} hits={eng['cache_hits']} wall="
+            f"{secs * 1e3:.1f} ms, peak "
+            f"{torch.cuda.max_memory_allocated() / gib:.2f} GiB")
+        if (mine != expected(path, sts) or other != (0, 0)
+                or eng["precision"] != path
+                or eng["sweep_mode"] != "layerwise"):
+            raise AssertionError(f"{tag} {path} {name}: {eng}, launches {dc},"
+                                 f" expected {expected(path, sts)} in {path}")
+        if not all(torch.isfinite(t).all() for t in tree_leaves(new)):
+            raise AssertionError(f"{tag} {path} {name}: non-finite "
+                                 f"parameters")
+        runs[(path, name)] = (new if keep else None, sts, mine, secs)
+        return new, sts
+
+    def selected(st):
+        """Per layer (j = 0..L-1), the share of its entries selected."""
+        return [round(st["selected_per_layer"].get(L - j, 0) / sum(
+            t.numel() for t in layers[j]), 4) for j in range(L)]
+
+    stat_keys = ("stopped_at_l", "checkpoints_hit", "selected_per_layer",
+                 "forget_acc_trace", "macs", "macs_ssd", "macs_vs_ssd_pct")
+
+    def same(p, q):
+        a, b = bridge.paths(p), bridge.paths(q)
+        return sorted(a) == sorted(b) and all(
+            torch.equal(bits(a[k]), bits(b[k])) for k in a)
+
+    def drop(path, name):
+        """Free a kept result tree once its checks are done (a
+        recurrentgemma tree is 6.8 GB)."""
+        runs[(path, name)] = (None,) + runs[(path, name)][1:]
+        torch.cuda.empty_cache()
+
+    def kernel_equals_plain(path, name, kw):
+        """The ssd forget with the kernel == the same with the plain
+        version, bit for bit on every stored leaf."""
+        p_plain, _ = lssd.with_spec(spec("ssd", use_kernel=False, **kw)
+                                    ).forget(req, params=params)
+        a, b = bridge.paths(runs[(path, name)][0]), bridge.paths(p_plain)
+        diff = [k for k in a if not torch.equal(bits(a[k]), bits(b[k]))]
+        if diff:
+            raise AssertionError(f"{tag} {path} kernel forget != plain forget"
+                                 f" at {diff}")
+        log(f"[recurrent] {tag} {path} ssd forget with the kernel == plain "
+            f"forget, bit for bit, all {len(a)} stored leaves")
+
+    def int8_checks(name, name32):
+        """An int8 request on its q8 grids and, where it halted where its
+        fp32 twin did, within INT8_SWEEP_RTOL of it, per layer."""
+        new8, (st8,), *_ = runs[("int8", name)]
+        new32, (st32,), *_ = runs[("fp32", name32)]
+        if not lm_on_q8_grid(adapter, new8, params, st8["stopped_at_l"]):
+            raise AssertionError(f"{tag} int8 {name}: a leaf left its q8 "
+                                 f"grid")
+        rel = layer_rel_l2(adapter, new8, new32)
+        log(f"[recurrent] {tag} int8 {name} (stopped at "
+            f"{st8['stopped_at_l']}) vs fp32 (stopped at "
+            f"{st32['stopped_at_l']}): every leaf on its q8 grid; per-layer "
+            f"relative L2 (j = 0..{L - 1}) {[round(r, 6) for r in rel]}; "
+            f"share selected per layer, fp32 {selected(st32)}, int8 "
+            f"{selected(st8)}")
+        if st8["stopped_at_l"] == st32["stopped_at_l"] and not all(
+                0.0 < r <= INT8_SWEEP_RTOL for r in rel):
+            raise AssertionError(f"{tag} int8 {name}: per-layer error {rel} "
+                                 f"outside (0, {INT8_SWEEP_RTOL}]")
+
+    zero_counts()                       # the model's [recurrent] path starts
+    serve("ssd cold", lssd, "fp32")
+    _, (st_ssd,) = serve("ssd warm", lssd, "fp32", keep=True)
+    _, (st_nh,) = serve("ficabu tau=-1", lssd.with_spec(spec("ficabu")),
+                        "fp32")
+    if st_ssd["stopped_at_l"] != L or st_nh["stopped_at_l"] != L \
+            or st_nh["checkpoints_hit"] != cps:
+        raise AssertionError(f"{tag} ssd stopped at {st_ssd['stopped_at_l']}"
+                             f", ficabu tau=-1 at {st_nh['stopped_at_l']} "
+                             f"through {st_nh['checkpoints_hit']}")
+    if runs[("fp32", "ssd warm")][1][0]["engine"]["compiles"] != 0:
+        raise AssertionError(f"{tag} warm ssd request built steps")
+    trace = st_nh["forget_acc_trace"]
+    tau = trace[len(trace) // 2][1]
+    # scanned: no plan for a stack of unequal layers, so the request runs
+    # the layerwise loop, equal to the layerwise request bit for bit
+    new, (st,) = serve("ssd scanned", lssd.with_spec(spec(
+        "ssd", sweep_mode="scanned")), "fp32")
+    want_new, (want_st,), *_ = runs[("fp32", "ssd warm")]
+    diff = [k for k in stat_keys if st[k] != want_st[k]]
+    if diff or not same(new, want_new):
+        raise AssertionError(f"{tag} scanned ssd != layerwise: {diff}")
+    del new, want_new
+    log(f"[recurrent] {tag} scanned ssd: no plan (the layers differ in "
+        f"shape), the layerwise loop, == the layerwise request bit for bit "
+        f"(all {len(stored)} stored leaves and stats)")
+    kernel_equals_plain("fp32", "ssd warm", {})
+    int8_kw = {"precision": "int8", "quant": QuantSpec()}
+    lssd8 = lssd.with_spec(spec("ssd", **int8_kw))
+    # (xlstm's requests are host-bound and long: one int8 ssd, cold)
+    int8_ssd = "ssd cold" if xl else "ssd warm"
+    if not xl:
+        serve("ssd cold", lssd8, "int8")
+    serve(int8_ssd, lssd8, "int8", keep=True)
+    int8_checks(int8_ssd, "ssd warm")
+    drop("fp32", "ssd warm")
+    kernel_equals_plain("int8", int8_ssd, int8_kw)
+    drop("int8", int8_ssd)
+    if xl:
+        # the request that halts partway, fp32 and int8, and a K = 2 drain
+        ficabu = lssd.with_spec(spec("ficabu", tau=tau))
+        _, (st_h,) = serve("ficabu", ficabu, "fp32", keep=True)
+        log(f"[recurrent] {tag} ficabu tau=-1 forget-accuracy trace {trace};"
+            f" the halting request's tau {tau} (the trace at its middle "
+            f"checkpoint): stopped at l = {st_h['stopped_at_l']} of {L}")
+        if not st_h["stopped_at_l"] < L:
+            raise AssertionError(f"{tag} ficabu did not halt partway")
+        serve("ficabu", lssd.with_spec(spec("ficabu", tau=tau, **int8_kw)),
+              "int8", keep=True)
+        int8_checks("ficabu", "ficabu")
+        drop("fp32", "ficabu")
+        drop("int8", "ficabu")
+        group = [req, req2]
+        new_lw, sts_lw = serve("ficabu K=2 drain", ficabu, "fp32",
+                               group=group)
+        new_sc, sts_sc = serve("ficabu K=2 drain scanned", lssd.with_spec(
+            spec("ficabu", tau=tau, sweep_mode="scanned")), "fp32",
+            group=group)
+        if not same(new_sc, new_lw) or any(a[k] != b[k] for a, b in
+                                           zip(sts_sc, sts_lw)
+                                           for k in stat_keys):
+            raise AssertionError(f"{tag} K=2 scanned drain != layerwise")
+        for k, st in enumerate(sts_lw):
+            stop = st["stopped_at_l"]
+            if (list(st["selected_per_layer"]) != list(range(1, stop + 1))
+                    or (stop < L and (st["checkpoints_hit"][-1] != stop
+                                      or st["forget_acc_trace"][-1][1] > tau))
+                    or any(a <= tau for _, a in st["forget_acc_trace"][:-1])):
+                raise AssertionError(f"{tag} K=2 drain set {k}: stopped at "
+                                     f"{stop}, trace "
+                                     f"{st['forget_acc_trace']}")
+        log(f"[recurrent] {tag} K=2 drain: scanned == layerwise bit for bit;"
+            f" per set stopped at {[s['stopped_at_l'] for s in sts_lw]}, "
+            f"each at its first checkpoint at or below tau")
+        del new_lw, new_sc
+    path_counts = dampen_counts()         # the model's [recurrent] path ends
+    if fisher_counts() != (0, 0, 0, 0):
+        raise AssertionError(f"{tag} requests launched fimd/gemm/rowscale "
+                             f"{fisher_counts()}")
+    for k, t in stored.items():
+        if not torch.equal(bits(t.cpu()), bits(before[k])):
+            raise AssertionError(f"{tag}: a request edited the caller's {k}")
+    del before
+    log(f"[recurrent] {tag}: the caller's tree unchanged after every "
+        f"request; dampen counters over the path {path_counts}; peak "
+        f"{torch.cuda.max_memory_allocated() / gib:.2f} GiB")
+
+    # where a warm ssd request spends its time: its wall and NVML busy
+    # share from the warm request served above; on recurrentgemma also the
+    # profile of one more (xlstm's, a million kernels, takes minutes:
+    # tools/recurrent_profile.py)
+    prof = {}
+    for path, unl in (("fp32", lssd), ("int8", lssd8)):
+        if path not in busy:
+            continue
+        wall = runs[(path, "ssd warm")][3] * 1e3
+        share, n_samples = busy[path]
+        prof[path] = (wall, share * wall, None)
+        log(f"[profile] warm {tag} {path} ssd request: wall {wall:.2f} ms, "
+            f"NVML busy share {share:.3f} over {n_samples} samples (device "
+            f"busy {share * wall:.1f} ms, idle share {1 - share:.3f})")
+        if xl:
+            continue
+        t1 = time.perf_counter()
+        pbusy, n_kernels, ranked = profile_request(
+            lambda: unl.forget(req, params=params))
+        damp = [(ms, count) for name, ms, count in ranked
+                if "dampen_group_kernel" in name]
+        prof[path] = (wall, pbusy, n_kernels)
+        log(f"[profile] warm {tag} {path} ssd request, profiled: device busy "
+            f"{pbusy:.3f} ms, idle share {1 - pbusy / wall:.3f} (NVML: "
+            f"{1 - share:.3f}), {n_kernels} device kernels, of them "
+            f"{sum(c for _, c in damp)} dampen_group_kernel "
+            f"({sum(ms for ms, _ in damp):.4f} ms); profiled in "
+            f"{time.perf_counter() - t1:.1f} s")
+        for name, ms, count in ranked[:6]:
+            log(f"[profile]   {ms:9.3f} ms  x{count:<7d} {name[:70]}")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    base = lm_tables(adapter, params, fisher, gen, dev)
+    tables = split_by_dtype(base)
+    n_el = {dt: sum(t.numel() for ths, _, _ in tables for t in ths
+                    if t.dtype == dt)
+            for dt in (torch.bfloat16, torch.float32)}
+
+    def sweep(fn, tabs):
+        for ths, i_fs, i_gs in tabs:
+            fn(ths, i_fs, i_gs, 25.0, 1.0)
+
+    tl = {"fp32": cuda_time_ms(lambda: sweep(kd.dampen_group_cuda, tables),
+                               5, queue_ahead=True),
+          "fp32_plain": cuda_time_ms(
+              lambda: sweep(kd.dampen_group_ref, tables), 1,
+              queue_ahead=True)}
+    n_launch32 = len(tables)
+    tables = [([q8_quantize(th)[0] for th in ths], i_fs, i_gs)
+              for ths, i_fs, i_gs in base]
+    del base
+    tl["int8"] = cuda_time_ms(lambda: sweep(kd.dampen_int8_group_cuda,
+                                            tables), 5, queue_ahead=True)
+    tl["int8_plain"] = cuda_time_ms(
+        lambda: sweep(kd.dampen_int8_group_ref, tables), 1, queue_ahead=True)
+    del tables
+    # bf16 theta: 2 + 4 + 4 read, 2 + 1 written; f32 theta (log_lambda):
+    # 4 + 4 + 4 read, 4 + 1 written; int8 codes: 1 + 4 + 4 read, 1 + 1
+    # written; and each launch's 8-byte count
+    lbound = {"fp32": (n_el[torch.bfloat16] * 13 + n_el[torch.float32] * 17
+                       + 8 * n_launch32) / rate * 1e3,
+              "int8": ((n_el[torch.bfloat16] + n_el[torch.float32]) * 11
+                       + 8 * L) / rate * 1e3}
+    for kernel, path, n in (("dampen", "fp32", n_launch32),
+                            ("dampen_int8", "int8", L)):
+        log(f"[time] {kernel} {tag} sweep device ({n} grouped launches, "
+            f"{sum(n_el.values())} elements): kernel {tl[path]:.5f} ms, plain "
+            f"{tl[path + '_plain']:.5f} ms, bound {lbound[path]:.5f} ms "
+            f"({lbound[path] / tl[path] * 100:.1f}% of the memory bound)")
+    peak = torch.cuda.max_memory_allocated() / gib
+    secs = time.perf_counter() - t_model
+    log(f"[recurrent] {tag} done in {secs:.1f} s; "
+        f"torch.cuda.max_memory_allocated {peak:.2f} GiB")
+    out = {}
+    for path in ("fp32", "int8"):
+        ssd_run = runs[(path, "ssd warm" if path == "fp32" else int8_ssd)]
+        out[path] = {
+            f"rec_{tag}_launches": path_counts[0 if path == "fp32" else 2],
+            f"rec_{tag}_leaves": path_counts[1 if path == "fp32" else 3],
+            f"rec_{tag}_launches_per_ssd_request": ssd_run[2][0],
+            f"rec_{tag}_leaves_per_ssd_request": ssd_run[2][1],
+            f"rec_{tag}_sweep_ms": tl[path],
+            f"rec_{tag}_sweep_plain_ms": tl[path + "_plain"],
+            f"rec_{tag}_sweep_bound_ms": lbound[path],
+        }
+        if path in prof:
+            out[path].update({
+                f"rec_{tag}_warm_ssd_wall_ms": prof[path][0],
+                f"rec_{tag}_warm_ssd_device_busy_ms": prof[path][1],
+                f"rec_{tag}_warm_ssd_nvml_busy_share": busy[path][0]})
+            if prof[path][2] is not None:
+                out[path][f"rec_{tag}_warm_ssd_device_kernels"] = \
+                    prof[path][2]
+    out["fp32"][f"rec_{tag}_peak_gib"] = peak
+    out["fp32"][f"rec_{tag}_seconds"] = secs
+    del params, fisher, lssd, lssd8, runs, stored, layers
+    torch.cuda.empty_cache()
+    return out, gerr
+
+
+# the [recurrent] phase: (arch, depth cut or None, sequences per request,
+# checkpoint cadence, alpha, expected (parameters, stored leaves, layer
+# leaves, unlearn layers)). recurrentgemma-9b runs at full width and 5 of
+# its 38 blocks: one whole (rglru, rglru, local) period and the two-layer
+# rglru tail, 3.4 B parameters; all 38 would hold 11.6 B, 23 GB in bf16 and
+# a 46 GB f32 Fisher, more than one card (PERF.md section 4). xlstm-125m
+# takes alpha 50: at [lm]'s 25 its int8 ssd request reads more than
+# INT8_SWEEP_RTOL against fp32 in its first mLSTM block, with 4% of the
+# block's entries selected (tools/recurrent_profile.py measures both
+# settings; PERF.md section 7)
+REC_MODELS = (
+    ("xlstm-125m", None, 8, 4, 50.0, (109_192_008, 44, 126, 14)),
+    ("recurrentgemma-9b", 5, 4, 2, 25.0, (3_395_363_392, 64, 64, 7)),
+)
+
+
+def recurrent_phase(dev, rate, zero_counts, dampen_counts, fisher_counts):
+    """Phase 10, [recurrent]: the recurrent LMs (module docstring). Returns
+    the figures the kernels line carries and the largest |err| per
+    kernel."""
+    t_phase = time.perf_counter()
+    out = {"fp32": {}, "int8": {}}
+    err = {"dampen": 0.0, "dampen_int8": 0}
+    for arch, n_layers, n_seq, every, alpha, want in REC_MODELS:
+        got, gerr = rec_model(arch, n_layers, n_seq, every, alpha, want, dev,
+                              rate, (zero_counts, dampen_counts,
+                                     fisher_counts))
+        for path in out:
+            out[path].update(got[path])
+        for k in err:
+            err[k] = max(err[k], gerr[k])
+    secs = time.perf_counter() - t_phase
+    out["fp32"]["rec_phase_seconds"] = secs
+    log(f"[recurrent] phase done in {secs:.1f} s")
+    return out, err
 
 
 def main() -> int:
@@ -2108,7 +2655,14 @@ def main() -> int:
     # int8, layerwise and scanned, and a K = 2 drain
     lm = lm_phase(dev, rate, zero_counts, dampen_counts, fisher_counts)
 
-    # 10. times at the main paths' shapes. The sweep as a request launches
+    # 10. [recurrent]: xlstm-125m and recurrentgemma-9b (5 blocks) at full
+    # width, fp32 (bf16 weights) and int8, layerwise and scanned
+    rec, rec_err = recurrent_phase(dev, rate, zero_counts, dampen_counts,
+                                   fisher_counts)
+    for k in gmax_err:
+        gmax_err[k] = max(gmax_err[k], rec_err[k])
+
+    # 11. times at the main paths' shapes. The sweep as a request launches
     # it: one grouped launch per layer, back to front, on the layers' own
     # tensors against the global Fisher; beside it the same 56 leaves one
     # launch each, as the request launched them before the grouped kernel
@@ -2555,7 +3109,7 @@ def main() -> int:
         "vit_leaves": vit_ssd["fp32"][1],
         "vit_sweep_ms": tv["fp32"], "vit_sweep_plain_ms": tv["fp32_plain"],
         "vit_sweep_bound_ms": vbound["fp32"],
-        **scanned_keys("fp32"), **lm["fp32"],
+        **scanned_keys("fp32"), **lm["fp32"], **rec["fp32"],
         "max_abs_err": max(max_err, gmax_err["dampen"]),
         "ms": t["sweep_kernel"], "plain_ms": t["sweep_plain"],
         "bound_ms": bound["sweep"], "bound_by": "bytes",
@@ -2582,7 +3136,7 @@ def main() -> int:
         "vit_leaves": vit_ssd["int8"][1],
         "vit_sweep_ms": tv["int8"], "vit_sweep_plain_ms": tv["int8_plain"],
         "vit_sweep_bound_ms": vbound["int8"],
-        **scanned_keys("int8"), **lm["int8"],
+        **scanned_keys("int8"), **lm["int8"], **rec["int8"],
         "max_abs_err": max(max_err8, gmax_err["dampen_int8"]),
         "ms": t8["sweep_kernel"], "plain_ms": t8["sweep_plain"],
         "bound_ms": bound8["sweep"], "bound_by": "bytes",

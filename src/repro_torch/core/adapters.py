@@ -2,8 +2,9 @@
 
 MAC formulas are per-sample forward multiply-accumulates — the hardware
 proxy the paper reports. The paper's two vision models, ResNet-18 and ViT,
-and the dense decoder LM are served. (The encoder-decoder adapter, and the
-LM's recurrent blocks, MoE and modality prefix, come with later slices.)
+and the decoder LM (attention and recurrent blocks) are served. (The
+encoder-decoder adapter, and the LM's MoE and modality prefix, come with
+later slices.)
 """
 from __future__ import annotations
 
@@ -115,14 +116,23 @@ def vit_adapter(cfg: V.ViTConfig, *, device="cuda") -> ModelAdapter:
 
 
 # ---------------------------------------------------------------------------
-# Causal LM (the dense attention blocks)
+# Causal LM (attention and recurrent blocks)
 # ---------------------------------------------------------------------------
 def _lm_block_macs(cfg: LM.LMConfig, btype: str, S: int) -> int:
     D, H, KV, dh, F = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.dh, cfg.d_ff
-    if btype not in LM.PORTED_BLOCKS:
+    if btype in ("attn", "local"):
+        ctx = min(S, cfg.window) if btype == "local" else S
+        m = S * D * (H + 2 * KV) * dh + S * H * dh * D + 2 * S * ctx * H * dh
+    elif btype == "mlstm":
+        m = (4 * S * D * H * dh + 2 * S * cfg.mlstm_chunk * H * dh
+             + 2 * S * D * H)
+    elif btype == "slstm":
+        m = 4 * S * D * D + 4 * S * D * (D // H) + S * D * D
+    elif btype == "rglru":
+        dr = cfg.rglru_cfg().d_rnn
+        m = 2 * S * D * dr + 2 * S * dr * dr + S * dr * D
+    else:
         raise LM._not_ported(f"{cfg.name}: the MACs of block type {btype!r}")
-    ctx = min(S, cfg.window) if btype == "local" else S
-    m = S * D * (H + 2 * KV) * dh + S * H * dh * D + 2 * S * ctx * H * dh
     if cfg.d_ff > 0:
         if cfg.moe:
             cfg.moe_cfg()

@@ -14,7 +14,7 @@ selected elements, for the fused step.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -79,9 +79,12 @@ def dampen_tree_counted(precision: str, params: Params, fisher_f: Params,
                         ) -> Tuple[Params, Params, Optional[torch.Tensor]]:
     """``dampen_tree`` (precision "fp32") or ``dampen_q8_tree`` ("int8"),
     plus the number of selected elements: (params', masks, n_selected).
-    With ``use_kernel`` the leaves go through the group kernel in one call
-    and ``n_selected`` is its int64 count from the same pass; the plain path
-    dampens leaf by leaf and returns ``n_selected`` None (sum the masks)."""
+    With ``use_kernel`` the leaves go through the group kernel, one call per
+    dtype among them (the kernel takes one dtype per table: a bf16 layer's
+    f32 leaf, the RG-LRU's ``log_lambda``, goes in a call of its own), and
+    ``n_selected`` is the sum of their int64 counts from the same passes;
+    the plain path dampens leaf by leaf and returns ``n_selected`` None (sum
+    the masks). Either way the leaves come back in the tree's order."""
     name, group_fn, plain_fn = _EDITS[precision]
     flat_p = tree_leaves(params)
     flat_f = tree_leaves(fisher_f)
@@ -92,8 +95,19 @@ def dampen_tree_counted(precision: str, params: Params, fisher_f: Params,
             f"{len(flat_p)} parameter leaves, {len(flat_f)} forget-Fisher "
             f"and {len(flat_g)} global-Fisher leaves")
     if use_kernel:
-        new, masks, count = group_fn(flat_p, flat_f, flat_g, alpha, lam,
-                                     outs=flat_p if in_place else None)
+        new, masks = [None] * len(flat_p), [None] * len(flat_p)
+        count = None
+        by_dtype: Dict[torch.dtype, List[int]] = {}
+        for i, t in enumerate(flat_p):
+            by_dtype.setdefault(t.dtype, []).append(i)
+        for idx in list(by_dtype.values()) or [[]]:
+            part = [flat_p[i] for i in idx]
+            got_p, got_m, n = group_fn(part, [flat_f[i] for i in idx],
+                                       [flat_g[i] for i in idx], alpha, lam,
+                                       outs=part if in_place else None)
+            for i, t, m in zip(idx, got_p, got_m):
+                new[i], masks[i] = t, m
+            count = n if count is None else count + n
     else:
         outs = [plain_fn(t, f, g, alpha, lam)
                 for t, f, g in zip(flat_p, flat_f, flat_g)]

@@ -1,19 +1,21 @@
-"""Causal decoder LM of the port: the dense half of ``repro.models.lm``.
+"""Causal decoder LM of the port: ``repro.models.lm`` without MoE.
 
 Layer pattern
 -------------
 ``LMConfig.block_pattern`` is a tuple of block types cycled over the depth,
-e.g. ``("local",) * 5 + ("attn",)`` for gemma3's 5:1 local:global mix. The
-port builds two block types:
+e.g. ``("local",) * 5 + ("attn",)`` for gemma3's 5:1 local:global mix, or
+``("rglru", "rglru", "local")`` for RecurrentGemma. Block types:
 
   attn        full causal GQA self-attention + SwiGLU FFN
   local       sliding-window causal attention + SwiGLU FFN
+  mlstm       xLSTM matrix-memory block (+ SwiGLU FFN when d_ff > 0)
+  slstm       xLSTM scalar-memory block (+ SwiGLU FFN when d_ff > 0)
+  rglru       Griffin RG-LRU recurrent block (+ SwiGLU FFN when d_ff > 0)
 
-The recurrent blocks (``mlstm``, ``slstm``, ``rglru``), MoE, the stub
-modality prefix, context-parallel attention and the decode / prefill paths
-with their caches are not ported yet: a config that asks for one raises a
-``ValueError`` that says so. ``LMConfig`` keeps every field of the
-reference, so that configs copy over unchanged.
+MoE, the stub modality prefix, context-parallel attention and the decode /
+prefill paths with their caches are not ported yet: a config that asks for
+one raises a ``ValueError`` that says so. ``LMConfig`` keeps every field of
+the reference, so that configs copy over unchanged.
 
 Parameters keep the reference's layout and keys: ``period_stack`` holds the
 blocks of the ``n_periods`` whole pattern periods, each leaf stacked
@@ -39,18 +41,19 @@ import torch
 from repro_torch.device import resolve_device
 
 from . import layers as L
+from . import recurrent as R
 from .module import (Params, dense_init, embed_init, index_tree, tree_leaves,
                      tree_map, tree_unflatten)
 from .vision import _logsumexp
 
 F32 = torch.float32
-PORTED_BLOCKS = ("attn", "local")
+PORTED_BLOCKS = ("attn", "local", "mlstm", "slstm", "rglru")
 
 
 def _not_ported(what: str) -> ValueError:
-    return ValueError(f"{what} is not ported yet: the port builds the dense "
-                      f"decoder LM (block types {PORTED_BLOCKS}, SwiGLU FFN); "
-                      f"see ROADMAP.md Queue 1, slice 7")
+    return ValueError(f"{what} is not ported yet: the port builds the "
+                      f"decoder LM's block types {PORTED_BLOCKS} with the "
+                      f"SwiGLU FFN; see ROADMAP.md Queue 1, slice 7")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,14 +125,17 @@ class LMConfig:
             use_rope=True, causal=True,
             window=self.window if btype == "local" else 0)
 
-    def mlstm_cfg(self):
-        raise _not_ported(f"{self.name}: the mLSTM block")
+    def mlstm_cfg(self) -> R.MLSTMConfig:
+        return R.MLSTMConfig(self.d_model, self.n_heads, self.dh,
+                             self.mlstm_chunk)
 
-    def slstm_cfg(self):
-        raise _not_ported(f"{self.name}: the sLSTM block")
+    def slstm_cfg(self) -> R.SLSTMConfig:
+        return R.SLSTMConfig(self.d_model, self.n_heads)
 
-    def rglru_cfg(self):
-        raise _not_ported(f"{self.name}: the RG-LRU block")
+    def rglru_cfg(self) -> R.RGLRUConfig:
+        d_rnn = self.d_rnn or (4 * self.d_model) // 3
+        d_rnn = -(-d_rnn // 8) * 8
+        return R.RGLRUConfig(self.d_model, d_rnn)
 
     def moe_cfg(self):
         raise _not_ported(f"{self.name}: the MoE FFN")
@@ -141,7 +147,8 @@ class LMConfig:
 def _check_block(cfg: LMConfig, btype: str) -> None:
     if btype not in PORTED_BLOCKS:
         raise _not_ported(f"{cfg.name}: block type {btype!r}")
-    cfg.attn_cfg(btype)
+    if btype in ("attn", "local"):
+        cfg.attn_cfg(btype)
     if cfg.moe is not None:
         cfg.moe_cfg()
 
@@ -152,14 +159,19 @@ def _check_block(cfg: LMConfig, btype: str) -> None:
 def init_block(gen: torch.Generator, cfg: LMConfig, btype: str, *,
                device) -> Params:
     _check_block(cfg, btype)
-    dt = cfg.dtype
-    p: Params = {"ln1": L.init_rmsnorm(cfg.d_model, device=device, dtype=dt),
-                 "mixer": L.init_attention(gen, cfg.attn_cfg(btype),
-                                           device=device, dtype=dt)}
+    kw = dict(device=device, dtype=cfg.dtype)
+    p: Params = {"ln1": L.init_rmsnorm(cfg.d_model, **kw)}
+    if btype in ("attn", "local"):
+        p["mixer"] = L.init_attention(gen, cfg.attn_cfg(btype), **kw)
+    elif btype == "mlstm":
+        p["mixer"] = R.init_mlstm(gen, cfg.mlstm_cfg(), **kw)
+    elif btype == "slstm":
+        p["mixer"] = R.init_slstm(gen, cfg.slstm_cfg(), **kw)
+    else:
+        p["mixer"] = R.init_rglru(gen, cfg.rglru_cfg(), **kw)
     if cfg.d_ff > 0:
-        p["ln2"] = L.init_rmsnorm(cfg.d_model, device=device, dtype=dt)
-        p["ffn"] = L.init_mlp(gen, cfg.d_model, cfg.d_ff, device=device,
-                              dtype=dt)
+        p["ln2"] = L.init_rmsnorm(cfg.d_model, **kw)
+        p["ffn"] = L.init_mlp(gen, cfg.d_model, cfg.d_ff, **kw)
     return p
 
 
@@ -169,7 +181,15 @@ def block_forward(p: Params, cfg: LMConfig, btype: str, x: torch.Tensor,
     """Returns (x_out, moe_aux_loss); the aux loss is 0 for a dense FFN."""
     _check_block(cfg, btype)
     h = L.rmsnorm(p["ln1"], x)
-    x = x + L.attention(p["mixer"], cfg.attn_cfg(btype), h, positions)
+    if btype in ("attn", "local"):
+        m = L.attention(p["mixer"], cfg.attn_cfg(btype), h, positions)
+    elif btype == "mlstm":
+        m = R.mlstm_forward(p["mixer"], cfg.mlstm_cfg(), h)
+    elif btype == "slstm":
+        m = R.slstm_forward(p["mixer"], cfg.slstm_cfg(), h)
+    else:
+        m = R.rglru_forward(p["mixer"], cfg.rglru_cfg(), h)
+    x = x + m
     aux = torch.zeros((), dtype=F32, device=x.device)
     if cfg.d_ff > 0:
         x = x + L.mlp(p["ffn"], L.rmsnorm(p["ln2"], x))

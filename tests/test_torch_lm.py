@@ -329,7 +329,9 @@ def test_lm_layer_macs_match_reference(which):
 
 def test_registry_configs_equal_the_references():
     """gemma3-1b's FULL and SMOKE configs field by field; only ported archs
-    are registered, and any other raises a KeyError naming them."""
+    are registered (the recurrent ones are held in
+    tests/test_torch_recurrent.py), and any other raises a KeyError naming
+    them."""
     spec = tconfigs.get("gemma3-1b")
     for name in ("full", "smoke"):
         jcfg, tcfg = getattr(jgemma, name.upper()), getattr(spec, name)
@@ -337,7 +339,8 @@ def test_registry_configs_equal_the_references():
         assert tcfg.dtype == getattr(torch, jcfg.param_dtype)
     assert (spec.kind, spec.source, spec.shapes()) == \
         (jgemma.SPEC.kind, jgemma.SPEC.source, jgemma.SPEC.shapes())
-    assert sorted(tconfigs.all_archs()) == ["gemma3-1b"]
+    assert sorted(tconfigs.all_archs()) == ["gemma3-1b", "recurrentgemma-9b",
+                                            "xlstm-125m"]
     with pytest.raises(KeyError, match="gemma3-1b"):
         tconfigs.get("yi-6b")
     assert tconfigs.SHAPES["train_4k"].seq_len == 4096
@@ -378,10 +381,10 @@ def test_full_width_structure_matches_reference():
 
 
 def test_unported_parts_raise():
-    """The recurrent blocks, MoE, the modality prefix and context-parallel
-    attention are not ported: they raise a ValueError that says so."""
-    for kw in ({"block_pattern": ("rglru", "attn")},
-               {"block_pattern": ("mlstm",)},
+    """MoE, an unknown block type, the modality prefix and context-parallel
+    attention are not ported: they raise a ValueError that says so (the
+    recurrent blocks are: tests/test_torch_recurrent.py)."""
+    for kw in ({"block_pattern": ("moe_block", "attn")},
                {"moe": TLM.MoESpec(num_experts=4, top_k=2)},
                {"cp_attention": 2}):
         _, tc = _cfgs(**kw)
@@ -392,9 +395,8 @@ def test_unported_parts_raise():
     _, tc = _cfgs(prefix_len=2)
     with pytest.raises(ValueError, match="not ported yet"):
         tadapters.lm_adapter(tc, S, device="cpu")
-    for m in ("mlstm_cfg", "slstm_cfg", "rglru_cfg", "moe_cfg"):
-        with pytest.raises(ValueError, match="not ported yet"):
-            getattr(_cfgs()[1], m)()
+    with pytest.raises(ValueError, match="not ported yet"):
+        _cfgs()[1].moe_cfg()
 
 
 @pytest.mark.parametrize("seed", [0, 3])

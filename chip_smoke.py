@@ -152,7 +152,33 @@ Phases, in order; any failure exits non-zero and prints no result line:
      memory, the warm ssd requests' wall, device busy time, idle share and
      device kernels (xlstm: fp32, its device activity alone), the sweeps
      against their byte bounds, and each model's and the phase's seconds;
- 11. times: each kernel and its plain version at the main paths' shapes
+ 11. [dense]: the dense GQA LM yi-6b at full width (d_model 4096, 32
+     heads over 4 KV heads of 128, d_ff 11008, vocab 64,000, RoPE theta
+     5e6, untied) and 16 of its 32 blocks (3,292,663,808 bf16 parameters in
+     12 stored leaves, 147 layer leaves in 18 unlearn layers; all 32 do not
+     fit one card with their Fisher and a request), from a CUDA generator
+     seeded with 0, on the [lm] phase's data (vocabulary 512, 8 sequences
+     of S = 1024 at chunk 2, argmax labels, the retain Fisher of 4
+     sequences), alpha 25, lambda 1, checkpoints every 4 layers. First its
+     three distinct layer tables through the group kernels against their
+     plain versions; then, with the counters zeroed before and read after:
+     ssd cold and warm (18 launches over 147 leaves), ficabu with tau = -1
+     and a ficabu that halts partway (cold and warm), ssd with
+     sweep_mode="scanned" (the blocks are uniform: a plan, one program per
+     request; cold and warm, the warm program call under
+     ``set_sync_debug_mode("error")``, each == the layerwise request bit for
+     bit), kernel forget == plain forget, int8 ssd cold and warm (on its q8
+     grids, per-layer error against fp32 within INT8_SWEEP_RTOL), kernel ==
+     plain in int8; then a request of 4 sequences of 2048 tokens, which
+     takes the query-chunked attention in every block, layerwise cold and
+     warm (its peak memory) and scanned cold and warm (== layerwise, bit for
+     bit, the warm program call guarded). Every parameter finite, the
+     caller's tree unchanged; one block's chunked attention against one
+     block over all 2048 queries (largest relative difference, and whether
+     the two are bit-identical); the warm ssd requests' wall, device busy
+     time, idle share and device kernels; the 18-launch sweeps against their
+     byte bounds, and the phase's seconds;
+ 12. times: each kernel and its plain version at the main paths' shapes
      (the dampen sweeps as a request launches them, one grouped launch per
      layer, with the 56 per-leaf launches beside them and the figures from
      before the grouped kernel; and, for fimd and the GEMMs, one PyTorch
@@ -168,8 +194,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
      the halting ficabu, fp32 and int8) and its fp32 K = 2 ssd drains
      beside two single requests. The dampen entries of the
      ``kernels`` line carry the [scanned] phase's launches and leaves,
-     the [lm] phase's (``lm_*`` keys) and the [recurrent] phase's
-     (``rec_*``).
+     the [lm] phase's (``lm_*`` keys), the [recurrent] phase's
+     (``rec_*``) and the [dense] phase's (``dense_*``).
 
 The last line is the contract line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -1014,6 +1040,26 @@ def nvml_busy(run, period_s=0.02):
     if thread.is_alive() or not samples:
         raise RuntimeError(f"NVML sampling: {len(samples)} samples")
     return sum(samples) / len(samples) / 100.0, len(samples)
+
+
+def guard_syncs(unl, calls):
+    """Wrap each cached sweep program of ``unl``'s session so that its call
+    runs under torch.cuda.set_sync_debug_mode("error"), counting the calls
+    in ``calls[0]``."""
+    progs = unl.session.programs._progs
+    for key, prog in list(progs.items()):
+        if key[1] != "sweep" or getattr(prog, "guarded", False):
+            continue
+
+        def guarded(*args, _prog=prog):
+            calls[0] += 1
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return _prog(*args)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        guarded.guarded = True
+        progs[key] = guarded
 
 
 def pretrain(params, forward, x, y, steps, batch, dev):
@@ -1888,6 +1934,399 @@ def recurrent_phase(dev, rate, zero_counts, dampen_counts, fisher_counts):
     return out, err
 
 
+# the [dense] phase: the dense GQA arch served at full width, the depth it
+# is cut to, its expected (parameters, stored leaves, layer leaves, unlearn
+# layers) and the sequence length of its long request (past 2 * Q_CHUNK
+# queries: every block takes the query-chunked attention). All 32 blocks
+# hold 6.06 B parameters, 12.1 GB in bf16 and a 24.2 GB f32 Fisher; at the
+# ~20 bytes of peak per parameter recurrentgemma-9b's requests take, more
+# than one 80 GB card (PERF.md section 4)
+DENSE_ARCH = "yi-6b"
+DENSE_BLOCKS = 16
+DENSE_WANT = (3_292_663_808, 12, 147, 18)
+DENSE_LONG_SEQ = 2048
+
+
+def dense_phase(dev, rate, zero_counts, dampen_counts, fisher_counts):
+    """Phase 11, [dense]: the dense GQA LM at full width and a cut depth
+    (module docstring). Returns the figures the kernels line carries and
+    the largest |err| per kernel."""
+    from repro_torch import bridge
+    from repro_torch.api import (ForgetRequest, QuantSpec, Unlearner,
+                                 UnlearnSpec)
+    from repro_torch.configs import get as get_arch
+    from repro_torch.core import adapters
+    from repro_torch.core.schedule import checkpoint_set
+    from repro_torch.data import synthetic as syn
+    from repro_torch.engine import plan_scanned_sweep
+    from repro_torch.kernels import dampen as kd
+    from repro_torch.models import layers as LY
+    from repro_torch.models import lm as LM
+    from repro_torch.models.module import tree_leaves
+    from repro_torch.optim.compression import INT8_SWEEP_RTOL, q8_quantize
+
+    t_phase = time.perf_counter()
+    gib = 2.0 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    full = get_arch(DENSE_ARCH).full
+    cfg = full.with_(n_layers=DENSE_BLOCKS)
+    t0 = time.perf_counter()
+    params = LM.init_lm(torch.Generator(device=dev).manual_seed(SEED), cfg,
+                        device="cuda")
+    adapter = adapters.lm_adapter(cfg, LM_SEQ, device="cuda")
+    torch.cuda.synchronize()
+    L = adapter.n_layers
+    stored = bridge.paths(params)
+    n_params = sum(t.numel() for t in stored.values())
+    layers = [tree_leaves(adapter.get_layer(params, j)) for j in range(L)]
+    layer_leaves = [len(ls) for ls in layers]
+    n_leaves = sum(layer_leaves)
+    log(f"[dense] {cfg.name} at full width and {cfg.n_layers} of its "
+        f"{full.n_layers} blocks ({cfg.block_pattern}, d_model {cfg.d_model},"
+        f" {cfg.n_heads} heads / {cfg.n_kv_heads} KV of {cfg.dh}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab}, RoPE theta {cfg.rope_theta}, "
+        f"untied, {cfg.param_dtype}) from torch.Generator('cuda') seed {SEED}"
+        f" in {time.perf_counter() - t0:.1f} s: {n_params} parameters in "
+        f"{len(stored)} stored leaves; {n_leaves} layer leaves in {L} unlearn"
+        f" layers")
+    got = (n_params, len(stored), n_leaves, L)
+    if got != DENSE_WANT:
+        raise AssertionError(f"{cfg.name}: {got} (parameters, stored leaves,"
+                             f" layer leaves, layers), expected {DENSE_WANT}")
+
+    # the group kernels on this model's distinct layer tables (the
+    # embedding, a block with its [4096, 512] K/V projections, the head),
+    # before the path's counters are zeroed
+    shapes = list(dict.fromkeys(tuple(tuple(t.shape) for t in ls)
+                                for ls in layers))
+    t0 = time.perf_counter()
+    gcases, gerr = check_group_kernels_against_plain(
+        [list(s) for s in shapes], dev, edges=False, whole=False)
+    log(f"[dense] grouped dampen and dampen_int8 over its {len(shapes)} "
+        f"distinct layer tables x f32/bf16/int8 x 3 pairs: bit-identical to "
+        f"their plain versions, selection count, launch and leaf counters "
+        f"included, in {gcases} tables, max |err| {gerr} "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
+
+    def domains(seq_len, n):
+        toks, doms = syn.make_lm_domains(syn.LMDataConfig(
+            vocab=LM_DATA_VOCAB, n_domains=4, seq_len=seq_len,
+            n_per_domain=n, seed=SEED))
+        return syn.lm_split_forget_retain(toks, doms, LM_FORGET)
+
+    def request(seqs, tag):
+        inputs = torch.as_tensor(seqs[:, :-1], device=dev).long().contiguous()
+        with torch.no_grad():
+            labels = LM.forward(params, cfg, inputs)[0].argmax(-1)
+        return ForgetRequest(inputs, labels, tag=tag)
+
+    split, lsplit = domains(LM_SEQ, 8), domains(DENSE_LONG_SEQ, 4)
+    t_data = time.perf_counter() - t0
+    req = request(split["forget"][:8], LM_FORGET)
+    retain = request(split["retain"][:4], "retain")
+    long_req = request(lsplit["forget"][:4], f"{LM_FORGET} long")
+    log(f"[dense] 8 sequences of S = {LM_SEQ} and 4 of S = {DENSE_LONG_SEQ} "
+        f"tokens of domain {LM_FORGET} (make_lm_domains, vocab "
+        f"{LM_DATA_VOCAB}) in {t_data:.1f} s, their argmax labels in "
+        f"{time.perf_counter() - t0 - t_data:.1f} s")
+
+    def spec(mode, **kw):
+        return UnlearnSpec.for_mode(mode, **{
+            "alpha": 25.0, "lam": 1.0, "tau": -1.0, "checkpoint_every": 4,
+            "chunk_size": 2, "use_kernel": True, **kw})
+
+    lssd = Unlearner(adapter, spec=spec("ssd"), device="cuda")
+    t0 = time.perf_counter()
+    lssd.ensure_fisher(lambda p, b: LM.lm_loss(p, cfg, b[0], b[1]), params,
+                       (retain.inputs, retain.labels), chunk_size=2)
+    torch.cuda.synchronize()
+    fisher = lssd.fisher_global
+    log(f"[dense] ensure_fisher on 4 retain sequences (chunk 2) in "
+        f"{time.perf_counter() - t0:.1f} s; peak "
+        f"{torch.cuda.max_memory_allocated() / gib:.2f} GiB")
+    before = {k: v.clone() for k, v in stored.items()}
+    cps = checkpoint_set(L, 4)
+    plan = plan_scanned_sweep(adapter, params, req.inputs)
+    if plan is None or plan.kinds != (("blk", "attn"),):
+        raise AssertionError(f"{cfg.name}: scanned plan {plan}")
+    runs = {}
+    guarded_calls = [0]
+
+    def serve(name, unl, path, *, request=req, want="layerwise", keep=False):
+        """One request, checked: one launch of its precision's dampen kernel
+        per layer swept (every layer for a scanned program), over that
+        layer's leaves, none of the other's; the sweep mode asked for;
+        every parameter finite."""
+        c0 = dampen_counts()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        new, st = unl.forget(request, params=params)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t1
+        dc = tuple(b - a for a, b in zip(c0, dampen_counts()))
+        mine, other = (dc[:2], dc[2:]) if path == "fp32" else (dc[2:], dc[:2])
+        eng = st["engine"]
+        stop = L if eng["sweep_mode"] == "scanned" else st["stopped_at_l"]
+        want_l = (stop, sum(layer_leaves[L - l] for l in range(1, stop + 1)))
+        log(f"[dense] {path} {name:22s}: stopped_at_l={st['stopped_at_l']} "
+            f"checkpoints={st['checkpoints_hit']} macs_vs_ssd_pct="
+            f"{round(st['macs_vs_ssd_pct'], 4)} {eng['sweep_mode']}, launches "
+            f"{mine[0]} over {mine[1]} leaves, builds={eng['compiles']} "
+            f"hits={eng['cache_hits']} wall={secs * 1e3:.1f} ms, peak "
+            f"{torch.cuda.max_memory_allocated() / gib:.2f} GiB")
+        if (mine != want_l or other != (0, 0) or eng["precision"] != path
+                or eng["sweep_mode"] != want):
+            raise AssertionError(f"dense {path} {name}: {eng}, launches {dc},"
+                                 f" expected {want_l} in {path}")
+        if not all(torch.isfinite(t).all() for t in tree_leaves(new)):
+            raise AssertionError(f"dense {path} {name}: non-finite "
+                                 f"parameters")
+        runs[(path, name)] = (new if keep else None, st, mine, secs)
+        return new, st
+
+    stat_keys = ("stopped_at_l", "checkpoints_hit", "selected_per_layer",
+                 "forget_acc_trace", "macs", "macs_ssd", "macs_vs_ssd_pct")
+
+    def same_as(new, st, path, name):
+        """The request ``(new, st)`` == the kept request ``name``, bit for
+        bit on every stored leaf and in its stats."""
+        want_new, want_st = runs[(path, name)][:2]
+        a, b = bridge.paths(new), bridge.paths(want_new)
+        diff = [k for k in stat_keys if st[k] != want_st[k]] + [
+            k for k in a if not torch.equal(bits(a[k]), bits(b[k]))]
+        if diff:
+            raise AssertionError(f"dense {path}: != {name} at {diff}")
+
+    def drop(path, name):
+        runs[(path, name)] = (None,) + runs[(path, name)][1:]
+        torch.cuda.empty_cache()
+
+    def kernel_equals_plain(path, name, **kw):
+        p_plain, st = lssd.with_spec(spec("ssd", use_kernel=False, **kw)
+                                     ).forget(req, params=params)
+        same_as(p_plain, st, path, name)
+        log(f"[dense] {path} {name}: the forget with the kernel == the plain "
+            f"forget, bit for bit, all {len(stored)} stored leaves")
+
+    zero_counts()                                  # the [dense] path starts
+    serve("ssd cold", lssd, "fp32")
+    _, st_ssd = serve("ssd warm", lssd, "fp32", keep=True)
+    _, st_nh = serve("ficabu tau=-1", lssd.with_spec(spec("ficabu")), "fp32")
+    if st_ssd["stopped_at_l"] != L or st_nh["stopped_at_l"] != L \
+            or st_nh["checkpoints_hit"] != cps:
+        raise AssertionError(f"dense ssd stopped at {st_ssd['stopped_at_l']},"
+                             f" ficabu tau=-1 at {st_nh['stopped_at_l']} "
+                             f"through {st_nh['checkpoints_hit']}")
+    trace = st_nh["forget_acc_trace"]
+    tau = trace[len(trace) // 2][1]
+    ficabu = lssd.with_spec(spec("ficabu", tau=tau))
+    serve("ficabu cold", ficabu, "fp32")
+    _, st_h = serve("ficabu warm", ficabu, "fp32")
+    log(f"[dense] ficabu tau=-1 forget-accuracy trace {trace}; the halting "
+        f"request's tau {tau} (the trace at its middle checkpoint): stopped "
+        f"at l = {st_h['stopped_at_l']} of {L}")
+    if not st_h["stopped_at_l"] < L:
+        raise AssertionError("dense ficabu did not halt partway")
+    for name in ("ssd warm", "ficabu warm"):
+        if runs[("fp32", name)][1]["engine"]["compiles"] != 0:
+            raise AssertionError(f"dense {name} request built steps")
+    # scanned: one program for the whole walk, == the layerwise request
+    scan = lssd.with_spec(spec("ssd", sweep_mode="scanned"))
+    new, st = serve("ssd scanned cold", scan, "fp32", want="scanned")
+    same_as(new, st, "fp32", "ssd warm")
+    guard_syncs(scan, guarded_calls)
+    new, st = serve("ssd scanned warm", scan, "fp32", want="scanned")
+    same_as(new, st, "fp32", "ssd warm")
+    if st["engine"]["compiles"] != 0 or guarded_calls[0] != 1:
+        raise AssertionError(f"dense scanned warm: {st['engine']}, "
+                             f"{guarded_calls[0]} guarded program calls")
+    del new
+    log(f"[dense] scanned ssd, cold and warm (its program call under "
+        f"set_sync_debug_mode('error')) == the layerwise request bit for "
+        f"bit (all {len(stored)} stored leaves and stats); plan kinds "
+        f"{plan.kinds}")
+    kernel_equals_plain("fp32", "ssd warm")
+    # int8 ssd, cold and warm: every leaf on its q8 grid, per layer within
+    # INT8_SWEEP_RTOL of the fp32 request
+    int8_kw = {"precision": "int8", "quant": QuantSpec()}
+    lssd8 = lssd.with_spec(spec("ssd", **int8_kw))
+    serve("ssd cold", lssd8, "int8")
+    new8, st8 = serve("ssd warm", lssd8, "int8", keep=True)
+    if st8["engine"]["compiles"] != 0:
+        raise AssertionError("dense int8 ssd warm request built steps")
+    if not lm_on_q8_grid(adapter, new8, params, st8["stopped_at_l"]):
+        raise AssertionError("dense int8 ssd: a leaf left its q8 grid")
+    rel = layer_rel_l2(adapter, new8, runs[("fp32", "ssd warm")][0])
+    log(f"[dense] int8 ssd vs fp32 ssd: every leaf on its q8 grid; per-layer "
+        f"relative L2 (j = 0..{L - 1}) {[round(r, 6) for r in rel]}")
+    if not all(0.0 < r <= INT8_SWEEP_RTOL for r in rel):
+        raise AssertionError(f"dense int8 ssd: per-layer error {rel} outside"
+                             f" (0, {INT8_SWEEP_RTOL}]")
+    del new8
+    drop("fp32", "ssd warm")
+    kernel_equals_plain("int8", "ssd warm", **int8_kw)
+    drop("int8", "ssd warm")
+
+    # the long request: 4 x 2048 tokens, every block's attention chunked,
+    # layerwise cold and warm, then scanned cold and warm (== layerwise)
+    ladapter = adapters.lm_adapter(cfg, DENSE_LONG_SEQ, device="cuda")
+    lunl = Unlearner(ladapter, fisher, spec("ssd"), device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    serve("long ssd cold", lunl, "fp32", request=long_req)
+    _, st_long = serve("long ssd warm", lunl, "fp32", request=long_req,
+                       keep=True)
+    long_peak = torch.cuda.max_memory_allocated() / gib
+    lscan = lunl.with_spec(spec("ssd", sweep_mode="scanned"))
+    new, st = serve("long ssd scanned cold", lscan, "fp32", request=long_req,
+                    want="scanned")
+    same_as(new, st, "fp32", "long ssd warm")
+    guard_syncs(lscan, guarded_calls)
+    new, st = serve("long ssd scanned warm", lscan, "fp32", request=long_req,
+                    want="scanned")
+    same_as(new, st, "fp32", "long ssd warm")
+    if (st_long["stopped_at_l"], st_long["engine"]["compiles"],
+            st["engine"]["compiles"], guarded_calls[0]) != (L, 0, 0, 2):
+        raise AssertionError(f"dense long: stopped at "
+                             f"{st_long['stopped_at_l']}, builds "
+                             f"{st_long['engine']['compiles']} / "
+                             f"{st['engine']['compiles']}, "
+                             f"{guarded_calls[0]} guarded program calls")
+    del new
+    drop("fp32", "long ssd warm")
+    log(f"[dense] long request ({long_req.inputs.shape[0]} x "
+        f"{DENSE_LONG_SEQ} tokens, query-chunked attention in every block): "
+        f"macs {st_long['macs']}, torch.cuda.max_memory_allocated "
+        f"{long_peak:.2f} GiB over its layerwise requests; scanned cold and "
+        f"warm (under set_sync_debug_mode('error')) == layerwise bit for bit")
+    path_counts = dampen_counts()                   # the [dense] path ends
+    if fisher_counts() != (0, 0, 0, 0):
+        raise AssertionError(f"dense requests launched fimd/gemm/rowscale "
+                             f"{fisher_counts()}")
+    for k, t in stored.items():
+        if not torch.equal(bits(t), bits(before[k])):
+            raise AssertionError(f"dense: a request edited the caller's {k}")
+    del before
+    into = time.perf_counter() - t_phase
+    log(f"[dense] the caller's tree unchanged after every request; dampen "
+        f"counters over the path {path_counts} ({into:.1f} s into the "
+        f"phase)")
+
+    # the chunked attention against one block over all 2048 queries, on the
+    # q/k/v of the middle block of the long request (f32 outputs)
+    j_mid = DENSE_BLOCKS // 2 + 1
+    with torch.no_grad():
+        x = long_req.inputs[:1]
+        x = ladapter.apply_layer(params, 0, params["embed"], x)
+        for j in range(1, j_mid):
+            x = ladapter.apply_layer(params, j, adapter.get_layer(params, j),
+                                     x)
+        blk = adapter.get_layer(params, j_mid)
+        acfg = cfg.attn_cfg("attn")
+        pos = LM._positions(x)
+        q, k, v = LY._qkv(blk["mixer"], acfg, LY.rmsnorm(blk["ln1"], x))
+        q = LY.apply_rope(q, pos, acfg.rope_theta)
+        k = LY.apply_rope(k, pos, acfg.rope_theta)
+        chunked = LY._sdpa(q, k, v, torch.float32, True, 0)
+        whole = LY._sdpa_block(q, k, v, torch.float32, True, 0)
+        attn_rel = float((chunked - whole).abs().max() / whole.abs().max())
+        attn_same = bool(torch.equal(bits(chunked), bits(whole)))
+        same16 = bool(torch.equal(
+            bits(LY._sdpa(q, k, v, x.dtype, True, 0)),
+            bits(LY._sdpa_block(q, k, v, x.dtype, True, 0))))
+    log(f"[dense] block {j_mid}'s attention over {DENSE_LONG_SEQ} queries, "
+        f"one sequence of the long request: query-chunked (4 blocks of "
+        f"{LY.Q_CHUNK}) vs one block, f32 outputs: max |diff| / max |out| "
+        f"{attn_rel:.3e}, bit-identical {attn_same}; in bf16 bit-identical "
+        f"{same16}")
+    del x, q, k, v, chunked, whole
+
+    # where a warm ssd request spends its time: its wall from the warm
+    # request above, the device's from one more under the profiler (the
+    # device activity alone)
+    prof = {}
+    for path, unl in (("fp32", lssd), ("int8", lssd8)):
+        wall = runs[(path, "ssd warm")][3] * 1e3
+        t0 = time.perf_counter()
+        busy, n_kernels, ranked = profile_request(
+            lambda: unl.forget(req, params=params), cpu=False)
+        damp = [(ms, count) for name, ms, count in ranked
+                if "dampen_group_kernel" in name]
+        prof[path] = (wall, busy, n_kernels)
+        log(f"[profile] warm yi-6b {path} ssd request: wall {wall:.2f} ms, "
+            f"device busy {busy:.3f} ms, idle share {1 - busy / wall:.3f}, "
+            f"{n_kernels} device kernels, of them {sum(c for _, c in damp)} "
+            f"dampen_group_kernel ({sum(ms for ms, _ in damp):.4f} ms); "
+            f"profiled in {time.perf_counter() - t0:.1f} s")
+        for name, ms, count in ranked[:6]:
+            log(f"[profile]   {ms:9.3f} ms  x{count:<6d} {name[:70]}")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    tables = lm_tables(adapter, params, fisher, gen, dev)
+    n_el = sum(t.numel() for ths, _, _ in tables for t in ths)
+
+    def sweep(fn, tabs):
+        for ths, i_fs, i_gs in tabs:
+            fn(ths, i_fs, i_gs, 25.0, 1.0)
+
+    tl = {"fp32": cuda_time_ms(lambda: sweep(kd.dampen_group_cuda, tables),
+                               5, queue_ahead=True),
+          "fp32_plain": cuda_time_ms(
+              lambda: sweep(kd.dampen_group_ref, tables), 1,
+              queue_ahead=True)}
+    tables = [([q8_quantize(th)[0] for th in ths], i_fs, i_gs)
+              for ths, i_fs, i_gs in tables]
+    tl["int8"] = cuda_time_ms(lambda: sweep(kd.dampen_int8_group_cuda,
+                                            tables), 5, queue_ahead=True)
+    tl["int8_plain"] = cuda_time_ms(
+        lambda: sweep(kd.dampen_int8_group_ref, tables), 1, queue_ahead=True)
+    del tables
+    # bf16 theta: 2 + 4 + 4 read, 2 + 1 written; int8 codes: 1 + 4 + 4
+    # read, 1 + 1 written; and each layer's 8-byte count
+    lbound = {"fp32": (n_el * 13 + 8 * L) / rate * 1e3,
+              "int8": (n_el * 11 + 8 * L) / rate * 1e3}
+    for kernel, path in (("dampen", "fp32"), ("dampen_int8", "int8")):
+        share = lbound[path] / tl[path] * 100
+        log(f"[time] {kernel} yi-6b sweep device ({L} grouped launches, "
+            f"{n_el} elements, {'bf16 theta' if path == 'fp32' else 'int8'} "
+            f"): kernel {tl[path]:.5f} ms, plain {tl[path + '_plain']:.5f} "
+            f"ms, bound {lbound[path]:.5f} ms ({share:.1f}% of the memory "
+            f"bound)")
+    peak = torch.cuda.max_memory_allocated() / gib
+    secs = time.perf_counter() - t_phase
+    log(f"[dense] phase done in {secs:.1f} s; torch.cuda.max_memory_allocated"
+        f" {peak:.2f} GiB since the long request")
+    out = {}
+    for path in ("fp32", "int8"):
+        out[path] = {
+            "dense_launches": path_counts[0 if path == "fp32" else 2],
+            "dense_leaves": path_counts[1 if path == "fp32" else 3],
+            "dense_launches_per_ssd_request": runs[(path, "ssd warm")][2][0],
+            "dense_leaves_per_ssd_request": runs[(path, "ssd warm")][2][1],
+            "dense_sweep_ms": tl[path],
+            "dense_sweep_plain_ms": tl[path + "_plain"],
+            "dense_sweep_bound_ms": lbound[path],
+            "dense_warm_ssd_wall_ms": prof[path][0],
+            "dense_warm_ssd_device_busy_ms": prof[path][1],
+            "dense_warm_ssd_device_kernels": prof[path][2],
+        }
+    out["fp32"].update({
+        "dense_scanned_ssd_launches_leaves": list(
+            runs[("fp32", "ssd scanned warm")][2]),
+        "dense_long_ssd_launches_leaves": list(
+            runs[("fp32", "long ssd warm")][2]),
+        "dense_long_ssd_warm_wall_ms": runs[("fp32", "long ssd warm")][3]
+        * 1e3,
+        "dense_long_peak_gib": long_peak,
+        "dense_long_attention_chunked_rel_diff": attn_rel,
+        "dense_long_attention_chunked_bit_identical": attn_same,
+        "dense_phase_seconds": secs})
+    del params, fisher, lssd, lssd8, lunl, lscan, scan, ficabu, runs, stored
+    del layers
+    torch.cuda.empty_cache()
+    return out, gerr
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
@@ -2279,24 +2718,6 @@ def main() -> int:
         return sorted(a) == sorted(b) and all(
             torch.equal(bits(a[k]), bits(b[k])) for k in a)
 
-    def guard_syncs(unl):
-        """Wrap each cached sweep program of ``unl``'s session so that its
-        call runs under torch.cuda.set_sync_debug_mode("error")."""
-        progs = unl.session.programs._progs
-        for key, prog in list(progs.items()):
-            if key[1] != "sweep" or getattr(prog, "guarded", False):
-                continue
-
-            def guarded(*args, _prog=prog):
-                guarded_calls[0] += 1
-                torch.cuda.set_sync_debug_mode("error")
-                try:
-                    return _prog(*args)
-                finally:
-                    torch.cuda.set_sync_debug_mode("default")
-            guarded.guarded = True
-            progs[key] = guarded
-
     vlayer = {p: {name: (new, st) for name, new, st, *_ in vruns[p][0][:3]}
               for p in vruns}
     n_vit = len(vsizes)
@@ -2321,7 +2742,7 @@ def main() -> int:
                 warm = i >= len(unls)
                 unl = unls[name]
                 if warm:
-                    guard_syncs(unl)
+                    guard_syncs(unl, guarded_calls)
                 c0, s0, g0 = dampen_counts(), dict(unl.stats), guarded_calls[0]
                 torch.cuda.synchronize()
                 t1 = time.perf_counter()
@@ -2379,7 +2800,7 @@ def main() -> int:
             for name, unl in (("layerwise", lw), ("scanned", sc),
                               ("scanned warm", sc)):
                 if name == "scanned warm":
-                    guard_syncs(sc)
+                    guard_syncs(sc, guarded_calls)
                 zero_counts()
                 p_g, st_g, g = unl.forget_group(group, params=vparams)
                 torch.cuda.synchronize()
@@ -2662,7 +3083,14 @@ def main() -> int:
     for k in gmax_err:
         gmax_err[k] = max(gmax_err[k], rec_err[k])
 
-    # 11. times at the main paths' shapes. The sweep as a request launches
+    # 11. [dense]: yi-6b at full width and 16 of its 32 blocks, fp32 (bf16
+    # weights) and int8, layerwise and scanned, and a 2048-token request
+    dense, dense_err = dense_phase(dev, rate, zero_counts, dampen_counts,
+                                   fisher_counts)
+    for k in gmax_err:
+        gmax_err[k] = max(gmax_err[k], dense_err[k])
+
+    # 12. times at the main paths' shapes. The sweep as a request launches
     # it: one grouped launch per layer, back to front, on the layers' own
     # tensors against the global Fisher; beside it the same 56 leaves one
     # launch each, as the request launched them before the grouped kernel
@@ -3110,6 +3538,7 @@ def main() -> int:
         "vit_sweep_ms": tv["fp32"], "vit_sweep_plain_ms": tv["fp32_plain"],
         "vit_sweep_bound_ms": vbound["fp32"],
         **scanned_keys("fp32"), **lm["fp32"], **rec["fp32"],
+        **dense["fp32"],
         "max_abs_err": max(max_err, gmax_err["dampen"]),
         "ms": t["sweep_kernel"], "plain_ms": t["sweep_plain"],
         "bound_ms": bound["sweep"], "bound_by": "bytes",
@@ -3137,6 +3566,7 @@ def main() -> int:
         "vit_sweep_ms": tv["int8"], "vit_sweep_plain_ms": tv["int8_plain"],
         "vit_sweep_bound_ms": vbound["int8"],
         **scanned_keys("int8"), **lm["int8"], **rec["int8"],
+        **dense["int8"],
         "max_abs_err": max(max_err8, gmax_err["dampen_int8"]),
         "ms": t8["sweep_kernel"], "plain_ms": t8["sweep_plain"],
         "bound_ms": bound8["sweep"], "bound_by": "bytes",

@@ -69,3 +69,6 @@ def all_archs() -> Dict[str, ArchSpec]:
         from . import _load_all  # lazy: populate on first access
         _load_all()
     return dict(_REGISTRY)
+
+
+FULL_ATTENTION_SKIP = "pure full-attention arch: 500k decode cache/compute is O(S) per token with no sub-quadratic path; skipped per assignment"

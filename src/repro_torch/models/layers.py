@@ -20,7 +20,10 @@ is upcast before its product, where the reference asks XLA for an f32
 result (``preferred_element_type``), and the result is rounded once. Dense
 weights keep the JAX layout [d_in, d_out].
 
-(Context-parallel attention, the query-chunked path, cross attention,
+Past ``2 * Q_CHUNK`` queries (a multiple of ``Q_CHUNK``) attention runs
+the reference's query-chunked path: blocks of ``Q_CHUNK`` queries against
+the whole of k/v, each rematerialised in the backward, so the S x S score
+matrix is never stored. (Context-parallel attention, cross attention,
 decode and prefill with a KV cache and MoE come with later slices.)
 """
 from __future__ import annotations
@@ -31,12 +34,14 @@ from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from .module import dense_init, ones, zeros
 
 F32 = torch.float32
-# queries per block of the reference's query-chunked attention; sequences
-# longer than 2 * Q_CHUNK (and a multiple of it) take that path there
+# queries per block of the query-chunked attention (``_sdpa``): at most
+# [B, H, Q_CHUNK, Sk] scores exist at a time; sequences longer than
+# 2 * Q_CHUNK (and a multiple of it) take that path, as in the reference
 Q_CHUNK = 512
 
 
@@ -142,8 +147,10 @@ def _qkv(p: Dict, cfg: AttnConfig, x: torch.Tensor):
 
 
 def _sdpa_block(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                dtype, causal: bool = False, window: int = 0) -> torch.Tensor:
-    """Attention over one block of queries.
+                dtype, causal: bool = False, window: int = 0,
+                q_offset: int = 0) -> torch.Tensor:
+    """Attention over one block of queries, the first at position
+    ``q_offset`` of the keys' sequence.
     q [B, Sq, H, Dh]; k, v [B, Sk, KV, Dh] (H a multiple of KV)."""
     B, Sq, H, Dh = q.shape
     KV = k.shape[2]
@@ -151,13 +158,14 @@ def _sdpa_block(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     qf = q.to(F32).reshape(B, Sq, KV, G, Dh)
     scores = torch.einsum("bqkgd,bskd->bkgqs", qf, k.to(F32)) / math.sqrt(Dh)
     if causal:
-        iq = torch.arange(Sq, device=q.device)
+        iq = torch.arange(Sq, device=q.device) + q_offset
         ik = torch.arange(k.shape[1], device=q.device)
         m = ik[None, :] <= iq[:, None]
         if window > 0:
             m = m & (ik[None, :] > iq[:, None] - window)
-        scores = torch.where(m, scores, torch.tensor(-1e30, dtype=F32,
-                                                     device=q.device))
+        # a Python scalar, not a tensor made on the host: no copy to the
+        # card (the scanned program runs without a host sync)
+        scores = torch.where(m, scores, -1e30)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", probs, v.to(F32))
     return out.reshape(B, Sq, H, Dh).to(dtype)
@@ -165,13 +173,18 @@ def _sdpa_block(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
           dtype, causal: bool = False, window: int = 0) -> torch.Tensor:
+    """Attention over all of q's queries. Past 2 * Q_CHUNK queries, a
+    multiple of Q_CHUNK, one ``_sdpa_block`` per block of Q_CHUNK queries
+    against the whole of k/v, each under a non-reentrant checkpoint: the
+    backward recomputes a block's scores instead of keeping them, as the
+    reference's ``jax.checkpoint`` does."""
     Sq = q.shape[1]
     if Sq <= Q_CHUNK * 2 or Sq % Q_CHUNK != 0:
         return _sdpa_block(q, k, v, dtype, causal, window)
-    raise NotImplementedError(
-        f"attention over {Sq} queries takes the reference's query-chunked "
-        f"path (more than {2 * Q_CHUNK} queries, a multiple of {Q_CHUNK}), "
-        f"which is not ported yet (ROADMAP Queue 1, slice 7)")
+    return torch.cat([
+        checkpoint(_sdpa_block, q_i, k, v, dtype, causal, window, i * Q_CHUNK,
+                   use_reentrant=False, preserve_rng_state=False)
+        for i, q_i in enumerate(q.split(Q_CHUNK, dim=1))], dim=1)
 
 
 def attention(p: Dict, cfg: AttnConfig, x: torch.Tensor,

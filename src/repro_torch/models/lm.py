@@ -53,7 +53,7 @@ PORTED_BLOCKS = ("attn", "local", "mlstm", "slstm", "rglru")
 def _not_ported(what: str) -> ValueError:
     return ValueError(f"{what} is not ported yet: the port builds the "
                       f"decoder LM's block types {PORTED_BLOCKS} with the "
-                      f"SwiGLU FFN; see ROADMAP.md Queue 1, slice 7")
+                      f"SwiGLU FFN; see ROADMAP.md Queue 1")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,0 +1,23 @@
+"""The dense GQA archs' slice on yi-9b-smoke (three "attn" blocks in
+``period_stack``: 5 unlearn layers).
+
+Every per-model test of ``test_torch_dense_unlearn.py`` (its ``__all__``)
+runs here again, on this model (the ``served`` fixture below takes the
+place of that file's), with the same settings and declared tolerances; see
+that file's docstring. The per-arch files split the three models'
+reference runs between three test workers.
+"""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from test_torch_dense_unlearn import *  # noqa: F401,F403,E402
+from test_torch_dense_unlearn import _serve, _setting  # noqa: E402
+
+torch.set_num_threads(2)
+
+
+@pytest.fixture(scope="module")
+def served():
+    s = _setting("yi-9b")
+    return s, _serve(s)

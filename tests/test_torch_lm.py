@@ -41,6 +41,9 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.configs import gemma3_1b as jgemma  # noqa: E402
+from repro.configs import qwen1_5_32b as jqwen  # noqa: E402
+from repro.configs import yi_6b as jyi6  # noqa: E402
+from repro.configs import yi_9b as jyi9  # noqa: E402
 from repro.core import adapters as jadapters  # noqa: E402
 from repro.data import synthetic as jsyn  # noqa: E402
 from repro.models import layers as JL  # noqa: E402
@@ -309,18 +312,26 @@ def test_layer_views_and_set_layer(weights):
     assert new["tail"] is tp["tail"] and new["embed"] is tp["embed"]
 
 
-@pytest.mark.parametrize("which", ["tiny", "smoke", "full", "window"])
+@pytest.mark.parametrize("which", ["tiny", "smoke", "full", "window",
+                                   "yi-6b", "qwen1.5-32b"])
 def test_lm_layer_macs_match_reference(which):
+    """The MAC tables, gemma3-1b's and the dense GQA archs' FULL configs
+    at S = 1024 and past the query-chunked attention's threshold (1536,
+    2048)."""
     if which == "tiny":
         jc, tc = _cfgs()
         seqs = (S, 3)
     elif which == "window":
         jc, tc = _cfgs(window=64)
         seqs = (S, 128)
+    elif which in ("yi-6b", "qwen1.5-32b"):
+        jc = {"yi-6b": jyi6, "qwen1.5-32b": jqwen}[which].FULL
+        tc = tconfigs.get(which).full
+        seqs = (1024, 1536, 2048)
     else:
         jc = getattr(jgemma, which.upper())
         tc = getattr(tconfigs.get("gemma3-1b"), which)
-        seqs = (1024, 17, 4096)
+        seqs = (1024, 17, 4096, 1536, 2048)
     for s in seqs:
         assert tadapters.lm_layer_macs(tc, s) == jadapters.lm_layer_macs(jc, s)
         assert tadapters.lm_adapter(tc, s, device="cpu").layer_fwd_macs == \
@@ -328,21 +339,26 @@ def test_lm_layer_macs_match_reference(which):
 
 
 def test_registry_configs_equal_the_references():
-    """gemma3-1b's FULL and SMOKE configs field by field; only ported archs
-    are registered (the recurrent ones are held in
-    tests/test_torch_recurrent.py), and any other raises a KeyError naming
-    them."""
-    spec = tconfigs.get("gemma3-1b")
-    for name in ("full", "smoke"):
-        jcfg, tcfg = getattr(jgemma, name.upper()), getattr(spec, name)
-        assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg), name
-        assert tcfg.dtype == getattr(torch, jcfg.param_dtype)
-    assert (spec.kind, spec.source, spec.shapes()) == \
-        (jgemma.SPEC.kind, jgemma.SPEC.source, jgemma.SPEC.shapes())
-    assert sorted(tconfigs.all_archs()) == ["gemma3-1b", "recurrentgemma-9b",
-                                            "xlstm-125m"]
-    with pytest.raises(KeyError, match="gemma3-1b"):
-        tconfigs.get("yi-6b")
+    """The FULL and SMOKE configs of gemma3-1b and the dense GQA archs
+    field by field, with their kind, source and shape cells (the recurrent
+    archs' are held in tests/test_torch_recurrent.py); only ported archs
+    are registered, and an unported one raises a KeyError naming them."""
+    for arch, jmod in (("gemma3-1b", jgemma), ("yi-6b", jyi6),
+                       ("yi-9b", jyi9), ("qwen1.5-32b", jqwen)):
+        spec = tconfigs.get(arch)
+        for name in ("full", "smoke"):
+            jcfg, tcfg = getattr(jmod, name.upper()), getattr(spec, name)
+            assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg), \
+                (arch, name)
+            assert tcfg.dtype == getattr(torch, jcfg.param_dtype)
+        assert (spec.kind, spec.source, spec.shapes(), spec.skip_shapes) == \
+            (jmod.SPEC.kind, jmod.SPEC.source, jmod.SPEC.shapes(),
+             jmod.SPEC.skip_shapes), arch
+    assert sorted(tconfigs.all_archs()) == [
+        "gemma3-1b", "qwen1.5-32b", "recurrentgemma-9b", "xlstm-125m",
+        "yi-6b", "yi-9b"]
+    with pytest.raises(KeyError, match="yi-6b"):
+        tconfigs.get("internvl2-1b")
     assert tconfigs.SHAPES["train_4k"].seq_len == 4096
 
 

@@ -101,10 +101,11 @@ def _spec(cls, mode, **kw):
                         chunk_size=4, use_kernel=cls is UnlearnSpec, **kw)
 
 
-def _setting(arch, dtype="float32"):
+def _setting(arch, dtype="float32", archs=ARCHS):
     """The model on both sides, its Fisher on each, the adapters and the
-    forget sets of domains 1 and 2 (argmax labels)."""
-    jcfg = ARCHS[arch].SMOKE.with_(param_dtype=dtype)
+    forget sets of domains 1 and 2 (argmax labels); ``archs`` maps the arch
+    to its reference config module."""
+    jcfg = archs[arch].SMOKE.with_(param_dtype=dtype)
     tcfg = tconfigs.get(arch).smoke.with_(param_dtype=dtype)
     params = JLM.init_lm(jax.random.PRNGKey(0), jcfg)
     tparams = bridge.params_to_torch(

@@ -132,16 +132,22 @@ def test_mlp_matches_jax(weights):
 
 
 def test_attention_refuses_what_the_vit_never_runs():
-    """The chunked branch of _sdpa (more than 2 * Q_CHUNK queries, a
-    multiple of Q_CHUNK) comes with the LM slice: it raises rather than
-    run something else."""
-    S = 3 * TL.Q_CHUNK
-    q = torch.zeros(1, S, 1, 4)
-    with pytest.raises(NotImplementedError, match="query-chunked"):
-        TL._sdpa(q, q, q, torch.float32)
-    assert TL._sdpa(q[:, :2 * TL.Q_CHUNK], q[:, :2 * TL.Q_CHUNK],
-                    q[:, :2 * TL.Q_CHUNK], torch.float32).shape == \
-        (1, 2 * TL.Q_CHUNK, 1, 4)
+    """The ViT (65 tokens) never reaches the chunked branch of _sdpa (more
+    than 2 * Q_CHUNK queries, a multiple of Q_CHUNK); the LM does, and the
+    port runs it rather than raise: bidirectional attention over 3 *
+    Q_CHUNK queries, as the ViT's attention calls it, equals the
+    reference's chunked branch within TOL, and 2 * Q_CHUNK queries take
+    the unchunked block on both sides."""
+    rng = np.random.default_rng(13)
+    for S in (3 * TL.Q_CHUNK, 2 * TL.Q_CHUNK):
+        q, k, v = (rng.normal(size=(1, S, 2, 4)).astype(np.float32)
+                   for _ in range(3))
+        want = JL._sdpa(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                        jnp.float32, False, 0)
+        got = TL._sdpa(torch.from_numpy(q), torch.from_numpy(k),
+                       torch.from_numpy(v), torch.float32)
+        assert got.shape == (1, S, 2, 4)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
 @pytest.mark.parametrize("j", [0, 2, TCFG.n_layers + 1],

@@ -129,9 +129,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
  10. [recurrent]: the recurrent LMs at full width, bf16, from a CUDA
      generator seeded with 0, on the [lm] phase's data (vocabulary 512,
      S = 1024, chunk 2, argmax labels, the retain Fisher of 4 sequences
-     from ensure_fisher), lambda 1: xlstm-125m FULL (mLSTM and sLSTM
-     blocks 3:1, no FFN; 109,192,008 parameters, 126 layer leaves in 14
-     unlearn layers), 8 sequences a request, checkpoints every 4 layers,
+     from ensure_fisher), lambda 1: xlstm-125m at full width and 8 of its
+     12 blocks (two periods of mLSTM and sLSTM blocks 3:1, no FFN;
+     98,550,576 parameters, 85 layer leaves in 10 unlearn layers; the
+     sLSTM's host-bound time loop makes its requests the script's
+     slowest), 8 sequences a request, checkpoints every 4 layers,
      alpha 50; recurrentgemma-9b at full width and 5 of its 38 blocks (one
      (rglru, rglru, local) period and the two-layer rglru tail;
      3,395,363,392 parameters, 64 leaves in 7 layers; the whole model does
@@ -178,7 +180,36 @@ Phases, in order; any failure exits non-zero and prints no result line:
      the two are bit-identical); the warm ssd requests' wall, device busy
      time, idle share and device kernels; the 18-launch sweeps against their
      byte bounds, and the phase's seconds;
- 12. times: each kernel and its plain version at the main paths' shapes
+ 12. [moe]: the MoE LM llama4-scout-17b-a16e at full width (d_model
+     5120, 40 heads over 8 KV heads of 128, 16 experts of d_ff 8192,
+     top-1, a shared expert of 8192, capacity factor 1.25, vocab 202,048,
+     RoPE theta 5e5, untied) and 1 of its 48 blocks (4,271,078,400
+     parameters: bf16 weights and an f32 router, 16 stored leaves, 16 layer
+     leaves in 3 unlearn layers; two blocks do not fit one card with their
+     Fisher and a request), from a CUDA generator seeded with 0, on the
+     [lm] phase's data (vocabulary 512, 2 sequences of S = 1024 at chunk 1,
+     argmax labels, the retain Fisher of 4 sequences at chunk 2 from
+     ensure_fisher through ``lm_loss`` with its aux weight 0.01), alpha
+     800 (at 25 to 200 the int8 request misses INT8_SWEEP_RTOL in the
+     block, at 400 it meets it by 0.2%), lambda 1,
+     checkpoints at every layer. First the tables its requests launch
+     through the group kernels against their plain versions (the bf16
+     parts, the block's f32 router apart, and each whole layer as int8
+     codes); then, with the counters zeroed before and read after: ssd
+     cold and warm (4 launches over 16 leaves: the block's bf16 leaves and
+     its router in two), ficabu with tau = -1 and a ficabu that halts
+     partway (cold and warm), ssd with sweep_mode="scanned" (cold and warm,
+     the warm program call under ``set_sync_debug_mode("error")``, each ==
+     the layerwise request bit for bit), kernel forget == plain forget,
+     int8 ssd cold and warm (on its q8 grids, per-layer error against fp32
+     within INT8_SWEEP_RTOL), kernel == plain in int8. Every parameter
+     finite, every router the caller's after every request (in int8 its
+     pre-edit codes), the caller's tree unchanged; each block's capacity
+     and dropped choices in the collection and in each vjp chunk, the aux
+     loss (finite, > 0); the peak memory; the warm ssd requests' wall,
+     device busy time, idle share and device kernels; the sweeps against
+     their byte bounds, and the phase's seconds;
+ 13. times: each kernel and its plain version at the main paths' shapes
      (the dampen sweeps as a request launches them, one grouped launch per
      layer, with the 56 per-leaf launches beside them and the figures from
      before the grouped kernel; and, for fimd and the GEMMs, one PyTorch
@@ -195,7 +226,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
      beside two single requests. The dampen entries of the
      ``kernels`` line carry the [scanned] phase's launches and leaves,
      the [lm] phase's (``lm_*`` keys), the [recurrent] phase's
-     (``rec_*``) and the [dense] phase's (``dense_*``).
+     (``rec_*``), the [dense] phase's (``dense_*``) and the [moe]
+     phase's (``moe_*``).
 
 The last line is the contract line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -205,6 +237,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -448,15 +481,17 @@ def check_int8_kernel_against_plain(leaf_shapes, dev):
 
 
 def check_group_kernels_against_plain(layer_shapes, dev, edges=True,
-                                      whole=True):
+                                      whole=True, kinds=None):
     """Phase 3, grouped: dampen_group_cuda and dampen_int8_group_cuda (one
     launch per 64 leaves) against their plain versions, bit for bit, the
     selection count included, and the launch and leaf counters against the
     table: each layer's table and (``whole``) the whole tree, then
     (``edges``) tables past capacity and edge tables (empty leaves, n < 4,
     odd n, offset views off the 16-byte grid, in-place out, NaN/inf/1e-38
-    entries, int8 ties and saturation). Returns the tables checked per kind
-    and the largest |err| per kernel."""
+    entries, int8 ties and saturation). ``kinds`` (default all of "f32",
+    "bf16", "int8") names the theta dtypes the tables are checked in.
+    Returns the tables checked per kind and the largest |err| per
+    kernel."""
     from repro_torch.kernels import dampen as kd
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 7)
@@ -528,7 +563,7 @@ def check_group_kernels_against_plain(layer_shapes, dev, edges=True,
         return out
 
     every = [s for shapes in layer_shapes for s in shapes]
-    for kind in dtypes:
+    for kind in kinds or dtypes:
         for alpha, lam in PAIRS:
             for j, shapes in enumerate(layer_shapes):
                 compare(kind, *table(shapes, kind, alpha), alpha, lam,
@@ -984,7 +1019,8 @@ def on_q8_grid(new, pristine):
 def layer_rel_l2(adapter, p8, p32, piece=1 << 26):
     """Per layer, ||p8 - p32|| / ||p32|| over the layer's leaves, summed in
     f64 over pieces of ``piece`` elements (a 1.05 B-element leaf in f64
-    would take 8.4 GB beside a full card)."""
+    would take 8.4 GB beside a full card). ``p32`` may lie on the host:
+    its pieces go to ``p8``'s device one at a time."""
     from repro_torch.models.module import tree_leaves
     out = []
     for j in range(adapter.n_layers):
@@ -993,6 +1029,7 @@ def layer_rel_l2(adapter, p8, p32, piece=1 << 26):
                         tree_leaves(adapter.get_layer(p32, j))):
             for xs, ys in zip(x.reshape(-1).split(piece),
                               y.reshape(-1).split(piece)):
+                ys = ys.to(xs.device)
                 d += float(((xs.double() - ys.double()) ** 2).sum())
                 n += float((ys.double() ** 2).sum())
         out.append((d / n) ** 0.5)
@@ -1507,9 +1544,8 @@ def rec_model(arch, n_layers, n_seq, every, alpha, want, dev, rate,
     xl = arch.startswith("xlstm")
     tag = "xlstm" if xl else "rg"
     torch.cuda.reset_peak_memory_stats()
-    cfg = get_arch(arch).full
-    if n_layers is not None:
-        cfg = cfg.with_(n_layers=n_layers)
+    full = get_arch(arch).full
+    cfg = full if n_layers is None else full.with_(n_layers=n_layers)
     t0 = time.perf_counter()
     params = LM.init_lm(torch.Generator(device=dev).manual_seed(SEED), cfg,
                         device="cuda")
@@ -1526,7 +1562,7 @@ def rec_model(arch, n_layers, n_seq, every, alpha, want, dev, rate,
     # log_lambda), an int8 request once per layer of codes
     launches32 = [len({t.dtype for t in ls}) for ls in layers]
     log(f"[recurrent] {cfg.name} ({cfg.n_layers} blocks {cfg.block_pattern}"
-        f"{', depth cut from 38' if n_layers else ''}, d_model "
+        f"{f', depth cut from {full.n_layers}' if n_layers else ''}, d_model "
         f"{cfg.d_model}, {cfg.n_heads} heads of {cfg.dh}, d_ff {cfg.d_ff}, "
         f"vocab {cfg.vocab}, {cfg.param_dtype}) from torch.Generator('cuda') "
         f"seed {SEED} in {time.perf_counter() - t0:.1f} s: {n_params} "
@@ -1903,12 +1939,16 @@ def rec_model(arch, n_layers, n_seq, every, alpha, want, dev, rate,
 # its 38 blocks: one whole (rglru, rglru, local) period and the two-layer
 # rglru tail, 3.4 B parameters; all 38 would hold 11.6 B, 23 GB in bf16 and
 # a 46 GB f32 Fisher, more than one card (PERF.md section 4). xlstm-125m
-# takes alpha 50: at [lm]'s 25 its int8 ssd request reads more than
+# runs at full width and 8 of its 12 blocks, two (mlstm x3, slstm) periods:
+# its requests are host-bound in the sLSTM's time loop (R8), a third of its
+# requests' time per sLSTM layer, and the whole 12 took 190-254 s of the
+# script's time, which the [moe] phase pushed past 800 s (PERF.md section
+# 4). It takes alpha 50: at [lm]'s 25 its int8 ssd request reads more than
 # INT8_SWEEP_RTOL against fp32 in its first mLSTM block, with 4% of the
 # block's entries selected (tools/recurrent_profile.py measures both
-# settings; PERF.md section 7)
+# settings on the whole model; PERF.md section 7)
 REC_MODELS = (
-    ("xlstm-125m", None, 8, 4, 50.0, (109_192_008, 44, 126, 14)),
+    ("xlstm-125m", 8, 8, 4, 50.0, (98_550_576, 44, 85, 10)),
     ("recurrentgemma-9b", 5, 4, 2, 25.0, (3_395_363_392, 64, 64, 7)),
 )
 
@@ -2327,11 +2367,449 @@ def dense_phase(dev, rate, zero_counts, dampen_counts, fisher_counts):
     return out, gerr
 
 
+def moe_dispatches(adapter, cfg, params, inputs, chunk):
+    """Each MoE block's dispatch of a request's tokens as the request makes
+    it: over all its sequences (the collection) and over each vjp chunk of
+    ``chunk`` sequences. Returns ([(block, call, top-1 experts, kept
+    choices, capacity C)], [the aux loss of each block on the
+    collection])."""
+    from repro_torch.models import layers as LY
+    from repro_torch.models import lm as LM
+
+    mcfg = cfg.moe_cfg()
+    calls, auxes = [], []
+    with torch.no_grad():
+        x = adapter.apply_layer(params, 0, params["embed"], inputs)
+        for j in range(1, adapter.n_layers - 1):
+            blk = adapter.get_layer(params, j)
+            h = LY.rmsnorm(blk["ln1"], x)
+            h = LY.rmsnorm(blk["ln2"], x + LY.attention(
+                blk["mixer"], cfg.attn_cfg(cfg.layer_types[j - 1]), h,
+                LM._positions(x)))
+            for what, hc in [("collection", h)] + [
+                    (f"chunk {i}", c) for i, c in enumerate(h.split(chunk))]:
+                _, _, eidx, kept, _, C = LY.moe_dispatch(
+                    blk["ffn"], mcfg, hc.reshape(1, -1, cfg.d_model))
+                calls.append((j, what, eidx[..., 0], kept, C))
+            auxes.append(float(LY.moe_ffn(blk["ffn"], mcfg, h)[1]))
+            x = adapter.apply_layer(params, j, blk, x)
+    return calls, auxes
+
+
+# the [moe] phase: the MoE LM served at full width and the depth it is cut
+# to, its expected (parameters, stored leaves, layer leaves, unlearn
+# layers) and the sequences of a request. llama4-scout's blocks hold 2.2 B
+# parameters each (2.0 B of them in 16 experts of d_ff 8192) beside a 2.07
+# B embedding and head: 1 block holds 4.27 B parameters, 2 blocks 6.47 B
+# and all 48 about 108 B, so more than one block would not fit one card
+# with its f32 Fisher and a request's transients (PERF.md section 4). A
+# request is 2 sequences at chunk 1: 4 at chunk 2 peaked at 76.03 GiB in
+# the whole script (the int8 plain forget), past the 75 GiB line; two vjp
+# chunks keep the collection's capacity apart from a chunk's. The phase
+# takes alpha 800: its int8 ssd request reads 0.181 / 0.161 / 0.140 / 0.119
+# against fp32 in the block at alpha 25 / 50 / 100 / 200, outside
+# INT8_SWEEP_RTOL, 0.0998 at 400 and 0.0824 at 800 (tools/moe_int8.py;
+# PERF.md section 7)
+MOE_ARCH = "llama4-scout-17b-a16e"
+MOE_BLOCKS = 1
+MOE_WANT = (4_271_078_400, 16, 16, 3)
+MOE_SEQS = 2
+MOE_CHUNK = 1
+MOE_ALPHA = 800.0
+
+
+def moe_phase(dev, rate, zero_counts, dampen_counts, fisher_counts):
+    """Phase 12, [moe]: the MoE LM at full width and a cut depth (module
+    docstring). Returns the figures the kernels line carries and the
+    largest |err| per kernel."""
+    from repro_torch import bridge
+    from repro_torch.api import (ForgetRequest, QuantSpec, Unlearner,
+                                 UnlearnSpec)
+    from repro_torch.configs import get as get_arch
+    from repro_torch.core import adapters
+    from repro_torch.core.schedule import checkpoint_set
+    from repro_torch.data import synthetic as syn
+    from repro_torch.engine import plan_scanned_sweep
+    from repro_torch.kernels import dampen as kd
+    from repro_torch.models import lm as LM
+    from repro_torch.models.module import tree_leaves, tree_map
+    from repro_torch.optim.compression import (INT8_SWEEP_RTOL, q8_fakequant,
+                                               q8_quantize)
+
+    t_phase = time.perf_counter()
+    gib = 2.0 ** 30
+    held = torch.cuda.memory_allocated() / gib
+    torch.cuda.reset_peak_memory_stats()
+    full = get_arch(MOE_ARCH).full
+    cfg = full.with_(n_layers=MOE_BLOCKS)
+    mcfg = cfg.moe_cfg()
+    t0 = time.perf_counter()
+    params = LM.init_lm(torch.Generator(device=dev).manual_seed(SEED), cfg,
+                        device="cuda")
+    adapter = adapters.lm_adapter(cfg, LM_SEQ, device="cuda")
+    torch.cuda.synchronize()
+    L = adapter.n_layers
+    stored = bridge.paths(params)
+    n_params = sum(t.numel() for t in stored.values())
+    layers = [tree_leaves(adapter.get_layer(params, j)) for j in range(L)]
+    layer_leaves = [len(ls) for ls in layers]
+    n_leaves = sum(layer_leaves)
+    # a fp32 request launches the dampen kernel once per dtype among a
+    # layer's leaves (a block: its bf16 weights, then its f32 router), an
+    # int8 request once per layer of codes
+    launches32 = [len({t.dtype for t in ls}) for ls in layers]
+    log(f"[moe] {cfg.name} at full width and {cfg.n_layers} of its "
+        f"{full.n_layers} blocks (d_model {cfg.d_model}, {cfg.n_heads} heads"
+        f" / {cfg.n_kv_heads} KV of {cfg.dh}, {mcfg.num_experts} experts of "
+        f"d_ff {mcfg.d_ff}, top-{mcfg.top_k}, shared_ff {mcfg.shared_ff}, "
+        f"capacity factor {mcfg.capacity_factor}, vocab {cfg.vocab}, RoPE "
+        f"theta {cfg.rope_theta}, untied, {cfg.param_dtype} with an f32 "
+        f"router) from torch.Generator('cuda') seed {SEED} in "
+        f"{time.perf_counter() - t0:.1f} s: {n_params} parameters in "
+        f"{len(stored)} stored leaves; {n_leaves} layer leaves in {L} unlearn"
+        f" layers; dampen launches per layer (fp32) {launches32}; "
+        f"{held:.2f} GiB held on the card from earlier phases")
+    got = (n_params, len(stored), n_leaves, L)
+    if got != MOE_WANT:
+        raise AssertionError(f"{cfg.name}: {got} (parameters, stored leaves,"
+                             f" layer leaves, layers), expected {MOE_WANT}")
+
+    # the group kernels on the tables this model's requests launch, before
+    # the path's counters are zeroed: each layer's bf16 leaves and the
+    # block's f32 router apart (a fp32 request), each whole layer as codes
+    # (an int8 request)
+    def shapes(ts):
+        return [tuple(t.shape) for t in ts]
+
+    parts = [[t for t in ls if t.dtype == dt] for ls in layers
+             for dt in dict.fromkeys(t.dtype for t in ls)]
+    t0 = time.perf_counter()
+    gcases, gerr = {}, {"dampen": 0.0, "dampen_int8": 0}
+    for kind, tables in (
+            ("bf16", [shapes(p) for p in parts
+                      if p[0].dtype == torch.bfloat16]),
+            ("f32", [shapes(p) for p in parts if p[0].dtype == torch.float32]),
+            ("int8", [shapes(ls) for ls in layers])):
+        cases, err = check_group_kernels_against_plain(
+            tables, dev, edges=False, whole=False, kinds=(kind,))
+        gcases[kind] = cases[kind]
+        for k in gerr:
+            gerr[k] = max(gerr[k], err[k])
+    log(f"[moe] grouped dampen (bf16 parts, the f32 router's table) and "
+        f"dampen_int8 (whole layers) over the tables its requests launch, "
+        f"the block's [{mcfg.num_experts}, {cfg.d_model}, {mcfg.d_ff}] "
+        f"expert stacks among them, x 3 pairs: bit-identical to their plain "
+        f"versions, selection count, launch and leaf counters included, in "
+        f"{gcases} tables, max |err| {gerr} "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
+    toks, doms = syn.make_lm_domains(syn.LMDataConfig(
+        vocab=LM_DATA_VOCAB, n_domains=4, seq_len=LM_SEQ, n_per_domain=8,
+        seed=SEED))
+    split = syn.lm_split_forget_retain(toks, doms, LM_FORGET)
+
+    def request(seqs, tag):
+        inputs = torch.as_tensor(seqs[:, :-1], device=dev).long().contiguous()
+        with torch.no_grad():
+            labels = LM.forward(params, cfg, inputs)[0].argmax(-1)
+        return ForgetRequest(inputs, labels, tag=tag)
+
+    req = request(split["forget"][:MOE_SEQS], LM_FORGET)
+    retain = request(split["retain"][:4], "retain")
+    log(f"[moe] {MOE_SEQS} sequences of S = {LM_SEQ} tokens of domain "
+        f"{LM_FORGET} (make_lm_domains, vocab {LM_DATA_VOCAB}; requests at "
+        f"chunk {MOE_CHUNK}) and 4 retain sequences, argmax labels, in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    def spec(mode, **kw):
+        return UnlearnSpec.for_mode(mode, **{
+            "alpha": MOE_ALPHA, "lam": 1.0, "tau": -1.0,
+            "checkpoint_every": 1,
+            "chunk_size": MOE_CHUNK, "use_kernel": True, **kw})
+
+    lssd = Unlearner(adapter, spec=spec("ssd"), device="cuda")
+    t0 = time.perf_counter()
+    lssd.ensure_fisher(lambda p, b: LM.lm_loss(p, cfg, b[0], b[1]), params,
+                       (retain.inputs, retain.labels), chunk_size=2)
+    torch.cuda.synchronize()
+    fisher = lssd.fisher_global
+    blocks = list(range(1, L - 1))
+    r_fish = max(float(adapter.get_layer(fisher, j)["ffn"]["router"].max())
+                 for j in blocks)
+    log(f"[moe] ensure_fisher (lm_loss, aux weight 0.01) on 4 retain "
+        f"sequences (chunk 2) in {time.perf_counter() - t0:.1f} s; the "
+        f"routers' largest Fisher entry {r_fish:.3e}; peak "
+        f"{torch.cuda.max_memory_allocated() / gib:.2f} GiB")
+    if not r_fish > 0.0:
+        raise AssertionError(f"moe: the routers' Fisher is {r_fish}")
+    # the caller's tree as it was, on the host (8.5 GB)
+    before = {k: v.cpu() for k, v in stored.items()}
+    router0 = {j: adapter.get_layer(params, j)["ffn"]["router"].clone()
+               for j in blocks}
+    router8 = {j: q8_fakequant(r) for j, r in router0.items()}
+    cps = checkpoint_set(L, 1)
+    plan = plan_scanned_sweep(adapter, params, req.inputs)
+    if plan is None or plan.kinds != (("blk", "attn"),):
+        raise AssertionError(f"{cfg.name}: scanned plan {plan}")
+    runs = {}
+    guarded_calls = [0]
+
+    def serve(name, unl, path, *, want="layerwise", keep=False):
+        """One request, checked: one launch of its precision's dampen kernel
+        per dtype of each layer swept (every layer for a scanned program),
+        over that layer's leaves, none of the other's; the sweep mode asked
+        for; every parameter finite; every router the caller's (in int8,
+        its pre-edit codes: an int8 result holds every leaf on its grid).
+        ``keep`` keeps the result on the host."""
+        c0 = dampen_counts()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        new, st = unl.forget(req, params=params)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t1
+        dc = tuple(b - a for a, b in zip(c0, dampen_counts()))
+        mine, other = (dc[:2], dc[2:]) if path == "fp32" else (dc[2:], dc[:2])
+        eng = st["engine"]
+        stop = L if eng["sweep_mode"] == "scanned" else st["stopped_at_l"]
+        per = launches32 if path == "fp32" else [1] * L
+        want_l = (sum(per[L - l] for l in range(1, stop + 1)),
+                  sum(layer_leaves[L - l] for l in range(1, stop + 1)))
+        log(f"[moe] {path} {name:18s}: stopped_at_l={st['stopped_at_l']} "
+            f"checkpoints={st['checkpoints_hit']} macs_vs_ssd_pct="
+            f"{round(st['macs_vs_ssd_pct'], 4)} {eng['sweep_mode']}, launches "
+            f"{mine[0]} over {mine[1]} leaves, builds={eng['compiles']} "
+            f"hits={eng['cache_hits']} wall={secs * 1e3:.1f} ms, peak "
+            f"{torch.cuda.max_memory_allocated() / gib:.2f} GiB")
+        if (mine != want_l or other != (0, 0) or eng["precision"] != path
+                or eng["sweep_mode"] != want):
+            raise AssertionError(f"moe {path} {name}: {eng}, launches {dc},"
+                                 f" expected {want_l} in {path}")
+        if not all(torch.isfinite(t).all() for t in tree_leaves(new)):
+            raise AssertionError(f"moe {path} {name}: non-finite parameters")
+        for j in blocks:
+            ref = router0[j] if path == "fp32" else router8[j]
+            if not torch.equal(bits(adapter.get_layer(new, j)["ffn"][
+                    "router"]), bits(ref)):
+                raise AssertionError(f"moe {path} {name}: block {j}'s router "
+                                     f"was edited")
+        runs[(path, name)] = (tree_map(lambda t: t.cpu(), new) if keep
+                              else None, st, mine, secs)
+        return new, st
+
+    stat_keys = ("stopped_at_l", "checkpoints_hit", "selected_per_layer",
+                 "forget_acc_trace", "macs", "macs_ssd", "macs_vs_ssd_pct")
+
+    def same_as(new, st, path, name):
+        """The request ``(new, st)`` == the kept request ``name``, bit for
+        bit on every stored leaf (the kept one brought back leaf by leaf)
+        and in its stats."""
+        want_new, want_st = runs[(path, name)][:2]
+        a, b = bridge.paths(new), bridge.paths(want_new)
+        diff = [k for k in stat_keys if st[k] != want_st[k]] + [
+            k for k in a if not torch.equal(bits(a[k]), bits(b[k].to(dev)))]
+        if diff:
+            raise AssertionError(f"moe {path}: != {name} at {diff}")
+
+    def kernel_equals_plain(path, name, **kw):
+        p_plain, st = lssd.with_spec(spec("ssd", use_kernel=False, **kw)
+                                     ).forget(req, params=params)
+        same_as(p_plain, st, path, name)
+        log(f"[moe] {path} {name}: the forget with the kernel == the plain "
+            f"forget, bit for bit, all {len(stored)} stored leaves")
+
+    zero_counts()                                    # the [moe] path starts
+    serve("ssd cold", lssd, "fp32")
+    _, st_ssd = serve("ssd warm", lssd, "fp32", keep=True)
+    _, st_nh = serve("ficabu tau=-1", lssd.with_spec(spec("ficabu")), "fp32")
+    if st_ssd["stopped_at_l"] != L or st_nh["stopped_at_l"] != L \
+            or st_nh["checkpoints_hit"] != cps:
+        raise AssertionError(f"moe ssd stopped at {st_ssd['stopped_at_l']}, "
+                             f"ficabu tau=-1 at {st_nh['stopped_at_l']} "
+                             f"through {st_nh['checkpoints_hit']}")
+    trace = st_nh["forget_acc_trace"]
+    tau = trace[len(trace) // 2][1]
+    ficabu = lssd.with_spec(spec("ficabu", tau=tau))
+    serve("ficabu cold", ficabu, "fp32")
+    _, st_h = serve("ficabu warm", ficabu, "fp32")
+    log(f"[moe] ficabu tau=-1 forget-accuracy trace {trace}; the halting "
+        f"request's tau {tau} (the trace at its middle checkpoint): stopped "
+        f"at l = {st_h['stopped_at_l']} of {L}")
+    if not st_h["stopped_at_l"] < L:
+        raise AssertionError("moe ficabu did not halt partway")
+    for name in ("ssd warm", "ficabu warm"):
+        if runs[("fp32", name)][1]["engine"]["compiles"] != 0:
+            raise AssertionError(f"moe {name} request built steps")
+    # scanned: one program for the whole walk, == the layerwise request
+    scan = lssd.with_spec(spec("ssd", sweep_mode="scanned"))
+    new, st = serve("ssd scanned cold", scan, "fp32", want="scanned")
+    same_as(new, st, "fp32", "ssd warm")
+    del new
+    guard_syncs(scan, guarded_calls)
+    new, st = serve("ssd scanned warm", scan, "fp32", want="scanned")
+    same_as(new, st, "fp32", "ssd warm")
+    del new
+    if st["engine"]["compiles"] != 0 or guarded_calls[0] != 1:
+        raise AssertionError(f"moe scanned warm: {st['engine']}, "
+                             f"{guarded_calls[0]} guarded program calls")
+    log(f"[moe] scanned ssd, cold and warm (its program call under "
+        f"set_sync_debug_mode('error')) == the layerwise request bit for "
+        f"bit (all {len(stored)} stored leaves and stats); plan kinds "
+        f"{plan.kinds}")
+    kernel_equals_plain("fp32", "ssd warm")
+    # int8 ssd, cold and warm: every leaf on its q8 grid, per layer within
+    # INT8_SWEEP_RTOL of the fp32 request
+    int8_kw = {"precision": "int8", "quant": QuantSpec()}
+    lssd8 = lssd.with_spec(spec("ssd", **int8_kw))
+    serve("ssd cold", lssd8, "int8")
+    new8, st8 = serve("ssd warm", lssd8, "int8", keep=True)
+    if st8["engine"]["compiles"] != 0:
+        raise AssertionError("moe int8 ssd warm request built steps")
+    if not lm_on_q8_grid(adapter, new8, params, st8["stopped_at_l"]):
+        raise AssertionError("moe int8 ssd: a leaf left its q8 grid")
+    rel = layer_rel_l2(adapter, new8, runs[("fp32", "ssd warm")][0])
+    del new8
+    log(f"[moe] int8 ssd vs fp32 ssd: every leaf on its q8 grid; per-layer "
+        f"relative L2 (j = 0..{L - 1}) {[round(r, 6) for r in rel]}")
+    if not all(0.0 < r <= INT8_SWEEP_RTOL for r in rel):
+        raise AssertionError(f"moe int8 ssd: per-layer error {rel} outside "
+                             f"(0, {INT8_SWEEP_RTOL}]")
+    kernel_equals_plain("int8", "ssd warm", **int8_kw)
+
+    # the MoE's own figures on this request: capacity and dropped choices
+    # of each block's dispatch in the collection and in each vjp chunk,
+    # and the aux loss
+    calls, auxes = moe_dispatches(adapter, cfg, params, req.inputs,
+                                  MOE_CHUNK)
+    figures = [(j, what, top1.numel(), C, int((~kept).sum()))
+               for j, what, top1, kept, C in calls]
+    aux = auxes[-1]
+    for j, what, T, C, dropped in figures:
+        log(f"[moe] block {j} {what}: {T} tokens, capacity C = {C} per "
+            f"expert, {dropped} of {T * mcfg.top_k} choices dropped "
+            f"({dropped / (T * mcfg.top_k):.4f})")
+    log(f"[moe] aux loss on the request (last block) {aux:.6f}")
+    if not (aux > 0.0 and aux == aux and aux < float("inf")):
+        raise AssertionError(f"moe aux loss {aux}")
+
+    path_counts = dampen_counts()                     # the [moe] path ends
+    if fisher_counts() != (0, 0, 0, 0):
+        raise AssertionError(f"moe requests launched fimd/gemm/rowscale "
+                             f"{fisher_counts()}")
+    for k, t in stored.items():
+        if not torch.equal(bits(t.cpu()), bits(before[k])):
+            raise AssertionError(f"moe: a request edited the caller's {k}")
+    del before
+    into = time.perf_counter() - t_phase
+    peak_requests = torch.cuda.max_memory_allocated() / gib
+    log(f"[moe] the caller's tree unchanged after every request; dampen "
+        f"counters over the path {path_counts}; peak {peak_requests:.2f} "
+        f"GiB ({into:.1f} s into the phase)")
+    for key in list(runs):
+        runs[key] = (None,) + runs[key][1:]
+
+    # where a warm ssd request spends its time: its wall from the warm
+    # request above, the device's from one more under the profiler (the
+    # device activity alone)
+    prof = {}
+    for path, unl in (("fp32", lssd), ("int8", lssd8)):
+        wall = runs[(path, "ssd warm")][3] * 1e3
+        t0 = time.perf_counter()
+        busy, n_kernels, ranked = profile_request(
+            lambda: unl.forget(req, params=params), cpu=False)
+        damp = [(ms, count) for name, ms, count in ranked
+                if "dampen_group_kernel" in name]
+        prof[path] = (wall, busy, n_kernels)
+        log(f"[profile] warm llama4-scout {path} ssd request: wall "
+            f"{wall:.2f} ms, device busy {busy:.3f} ms, idle share "
+            f"{1 - busy / wall:.3f}, {n_kernels} device kernels, of them "
+            f"{sum(c for _, c in damp)} dampen_group_kernel "
+            f"({sum(ms for ms, _ in damp):.4f} ms); profiled in "
+            f"{time.perf_counter() - t0:.1f} s")
+        for name, ms, count in ranked[:6]:
+            log(f"[profile]   {ms:9.3f} ms  x{count:<6d} {name[:70]}")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    base = lm_tables(adapter, params, fisher, gen, dev)
+    tables = split_by_dtype(base)
+    n_el = {dt: sum(t.numel() for ths, _, _ in tables for t in ths
+                    if t.dtype == dt)
+            for dt in (torch.bfloat16, torch.float32)}
+
+    def sweep(fn, tabs):
+        for ths, i_fs, i_gs in tabs:
+            fn(ths, i_fs, i_gs, MOE_ALPHA, 1.0)
+
+    tl = {"fp32": cuda_time_ms(lambda: sweep(kd.dampen_group_cuda, tables),
+                               5, queue_ahead=True),
+          "fp32_plain": cuda_time_ms(
+              lambda: sweep(kd.dampen_group_ref, tables), 1,
+              queue_ahead=True)}
+    n_launch32 = len(tables)
+    tables = [([q8_quantize(th)[0] for th in ths], i_fs, i_gs)
+              for ths, i_fs, i_gs in base]
+    del base
+    tl["int8"] = cuda_time_ms(lambda: sweep(kd.dampen_int8_group_cuda,
+                                            tables), 5, queue_ahead=True)
+    tl["int8_plain"] = cuda_time_ms(
+        lambda: sweep(kd.dampen_int8_group_ref, tables), 1, queue_ahead=True)
+    del tables
+    # bf16 theta: 2 + 4 + 4 read, 2 + 1 written; the f32 router: 4 + 4 + 4
+    # read, 4 + 1 written; int8 codes: 1 + 4 + 4 read, 1 + 1 written; and
+    # each launch's 8-byte count
+    lbound = {"fp32": (n_el[torch.bfloat16] * 13 + n_el[torch.float32] * 17
+                       + 8 * n_launch32) / rate * 1e3,
+              "int8": ((n_el[torch.bfloat16] + n_el[torch.float32]) * 11
+                       + 8 * L) / rate * 1e3}
+    for kernel, path, n in (("dampen", "fp32", n_launch32),
+                            ("dampen_int8", "int8", L)):
+        log(f"[time] {kernel} llama4-scout sweep device ({n} grouped "
+            f"launches, {sum(n_el.values())} elements): kernel "
+            f"{tl[path]:.5f} ms, plain {tl[path + '_plain']:.5f} ms, bound "
+            f"{lbound[path]:.5f} ms ({lbound[path] / tl[path] * 100:.1f}% of "
+            f"the memory bound)")
+    peak = torch.cuda.max_memory_allocated() / gib
+    secs = time.perf_counter() - t_phase
+    log(f"[moe] phase done in {secs:.1f} s; torch.cuda.max_memory_allocated"
+        f" {peak:.2f} GiB")
+    out = {}
+    for path in ("fp32", "int8"):
+        out[path] = {
+            "moe_launches": path_counts[0 if path == "fp32" else 2],
+            "moe_leaves": path_counts[1 if path == "fp32" else 3],
+            "moe_launches_per_ssd_request": runs[(path, "ssd warm")][2][0],
+            "moe_leaves_per_ssd_request": runs[(path, "ssd warm")][2][1],
+            "moe_sweep_ms": tl[path],
+            "moe_sweep_plain_ms": tl[path + "_plain"],
+            "moe_sweep_bound_ms": lbound[path],
+            "moe_warm_ssd_wall_ms": prof[path][0],
+            "moe_warm_ssd_device_busy_ms": prof[path][1],
+            "moe_warm_ssd_device_kernels": prof[path][2],
+        }
+    out["fp32"].update({
+        "moe_scanned_ssd_launches_leaves": list(
+            runs[("fp32", "ssd scanned warm")][2]),
+        "moe_int8_rel_l2": rel,
+        "moe_dispatch": [{"block": j, "call": what, "tokens": T,
+                          "capacity": C, "dropped": dropped}
+                         for j, what, T, C, dropped in figures],
+        "moe_aux_loss": aux,
+        "moe_peak_gib": peak,
+        "moe_phase_seconds": secs})
+    del params, fisher, lssd, lssd8, scan, ficabu, runs, stored, layers
+    torch.cuda.empty_cache()
+    return out, gerr
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
               "False); nothing was run", file=sys.stderr)
         return 1
+    # before the first allocation on the card: segments that grow in place,
+    # so that a request's transients over the [moe] phase's 671 M-element
+    # expert leaves do not strand reserved memory between fixed segments
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
     t_main = time.perf_counter()
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import bridge
@@ -2365,6 +2843,7 @@ def main() -> int:
     torch.backends.cudnn.benchmark = False
     rate, fp32_rate, int8_rate, tf32_rate = peaks(kind)
     log(f"[card] {kind} | torch {torch.__version__} cuda {torch.version.cuda}"
+        f" | PYTORCH_CUDA_ALLOC_CONF {os.environ['PYTORCH_CUDA_ALLOC_CONF']}"
         f" | rates used for bounds: memory {rate / 1e12:.2f} TB/s, f32 "
         f"{fp32_rate / 1e12:.0f} TFLOP/s, int8 {int8_rate / 1e12:.0f} TOP/s, "
         f"TF32 {tf32_rate / 1e12:.0f} TFLOP/s")
@@ -3071,13 +3550,19 @@ def main() -> int:
     late_failures = [f"gemm_fisher_int8 {k}: int8 dW at relative L2 {v} "
                      f"from the fp32 dW" for k, v in int8_rel.items()
                      if not v <= INT8_SWEEP_RTOL]
+    # what the checks above read and the times below do not, freed before
+    # the LM phases (the largest of them needs the card to itself)
+    del sw, fimd_in, fimd_out, fimd_out_bf16, gemm_out, gemm_out_bf16
+    del gemm8_in, gemm8_out, rs_out, a_bf16, g_bf16, big_stack_bf16
+    torch.cuda.empty_cache()
 
     # 9. [lm]: the dense decoder LM at full width, fp32 (bf16 weights) and
     # int8, layerwise and scanned, and a K = 2 drain
     lm = lm_phase(dev, rate, zero_counts, dampen_counts, fisher_counts)
 
-    # 10. [recurrent]: xlstm-125m and recurrentgemma-9b (5 blocks) at full
-    # width, fp32 (bf16 weights) and int8, layerwise and scanned
+    # 10. [recurrent]: xlstm-125m (8 blocks) and recurrentgemma-9b (5
+    # blocks) at full width, fp32 (bf16 weights) and int8, layerwise and
+    # scanned
     rec, rec_err = recurrent_phase(dev, rate, zero_counts, dampen_counts,
                                    fisher_counts)
     for k in gmax_err:
@@ -3090,7 +3575,14 @@ def main() -> int:
     for k in gmax_err:
         gmax_err[k] = max(gmax_err[k], dense_err[k])
 
-    # 12. times at the main paths' shapes. The sweep as a request launches
+    # 12. [moe]: llama4-scout at full width and 1 of its 48 blocks, fp32
+    # (bf16 weights, the f32 router) and int8, layerwise and scanned
+    moe, moe_err = moe_phase(dev, rate, zero_counts, dampen_counts,
+                             fisher_counts)
+    for k in gmax_err:
+        gmax_err[k] = max(gmax_err[k], moe_err[k])
+
+    # 13. times at the main paths' shapes. The sweep as a request launches
     # it: one grouped launch per layer, back to front, on the layers' own
     # tensors against the global Fisher; beside it the same 56 leaves one
     # launch each, as the request launched them before the grouped kernel
@@ -3538,7 +4030,7 @@ def main() -> int:
         "vit_sweep_ms": tv["fp32"], "vit_sweep_plain_ms": tv["fp32_plain"],
         "vit_sweep_bound_ms": vbound["fp32"],
         **scanned_keys("fp32"), **lm["fp32"], **rec["fp32"],
-        **dense["fp32"],
+        **dense["fp32"], **moe["fp32"],
         "max_abs_err": max(max_err, gmax_err["dampen"]),
         "ms": t["sweep_kernel"], "plain_ms": t["sweep_plain"],
         "bound_ms": bound["sweep"], "bound_by": "bytes",
@@ -3566,7 +4058,7 @@ def main() -> int:
         "vit_sweep_ms": tv["int8"], "vit_sweep_plain_ms": tv["int8_plain"],
         "vit_sweep_bound_ms": vbound["int8"],
         **scanned_keys("int8"), **lm["int8"], **rec["int8"],
-        **dense["int8"],
+        **dense["int8"], **moe["int8"],
         "max_abs_err": max(max_err8, gmax_err["dampen_int8"]),
         "ms": t8["sweep_kernel"], "plain_ms": t8["sweep_plain"],
         "bound_ms": bound8["sweep"], "bound_by": "bytes",

@@ -30,6 +30,9 @@ SHAPES: Dict[str, ShapeCell] = {
     "long_500k": ShapeCell("long_500k", 524_288, 1, "long_decode"),
 }
 
+PREFIX_CHUNKED_SKIP = ("stub modality prefix is injected ahead of the token "
+                       "stream; chunked prefill covers the token path only")
+
 
 @dataclasses.dataclass(frozen=True)
 class ArchSpec:

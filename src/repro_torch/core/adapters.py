@@ -2,9 +2,10 @@
 
 MAC formulas are per-sample forward multiply-accumulates — the hardware
 proxy the paper reports. The paper's two vision models, ResNet-18 and ViT,
-and the decoder LM (attention and recurrent blocks) are served. (The
-encoder-decoder adapter, and the LM's MoE and modality prefix, come with
-later slices.)
+and the decoder LM (attention and recurrent blocks, dense or MoE FFN) are
+served. An LM with a stub modality prefix gets its per-layer view, but the
+engine's layer sweep refuses it, as the reference's cannot run it
+(``lm_adapter``). (The encoder-decoder adapter comes with a later slice.)
 """
 from __future__ import annotations
 
@@ -116,7 +117,7 @@ def vit_adapter(cfg: V.ViTConfig, *, device="cuda") -> ModelAdapter:
 
 
 # ---------------------------------------------------------------------------
-# Causal LM (attention and recurrent blocks)
+# Causal LM (attention and recurrent blocks, dense or MoE FFN)
 # ---------------------------------------------------------------------------
 def _lm_block_macs(cfg: LM.LMConfig, btype: str, S: int) -> int:
     D, H, KV, dh, F = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.dh, cfg.d_ff
@@ -135,8 +136,12 @@ def _lm_block_macs(cfg: LM.LMConfig, btype: str, S: int) -> int:
         raise LM._not_ported(f"{cfg.name}: the MACs of block type {btype!r}")
     if cfg.d_ff > 0:
         if cfg.moe:
-            cfg.moe_cfg()
-        m += 3 * S * D * F
+            mo = cfg.moe
+            m += S * D * mo.num_experts + S * mo.top_k * 3 * D * F
+            if mo.shared_ff:
+                m += 3 * S * D * mo.shared_ff
+        else:
+            m += 3 * S * D * F
     return m
 
 
@@ -149,25 +154,33 @@ def lm_layer_macs(cfg: LM.LMConfig, S: int) -> List[int]:
 
 
 def lm_adapter(cfg: LM.LMConfig, seq_len: int,
-               prefix: Optional[torch.Tensor] = None, *,
+               prefix: Optional[torch.Tensor] = None,
+               exclude_router: bool = True, *,
                device="cuda") -> ModelAdapter:
     """inputs = tokens [N, S] (integer ids, never cast); labels [N, S]
     (next-token targets). The per-layer view of the LM whose parameters
-    live on ``device`` (raises without a card unless device="cpu")."""
+    live on ``device`` (raises without a card unless device="cpu").
+
+    With MoE and ``exclude_router`` the routers are excluded from every
+    edit (``exclude``), as in the reference. With ``prefix_len > 0`` the
+    embedding layer puts ``prefix`` ahead of the tokens, and the forward's
+    logits, the loss and the accuracy drop its positions, as the
+    reference's do; the adapter then carries ``sweep_refusal``: the
+    reference's layer sweep cannot run such a model (the head's output
+    keeps the prefix positions that the loss cotangent lacks), so the
+    port's engine refuses it rather than serve what the reference cannot."""
     dev = resolve_device(device)
-    if cfg.prefix_len > 0 or prefix is not None:
-        raise LM._not_ported(f"{cfg.name}: the stub modality prefix "
-                             f"(prefix_len={cfg.prefix_len})")
     for bt in cfg.layer_types:
         LM._check_block(cfg, bt)
     Lu = LM.n_unlearn_layers(cfg)
+    P = cfg.prefix_len
 
     def apply_layer(params, j, layer_p, act):
         # ``params`` may be the full tree or the engine's minimal context
         # from layer_ctx below (None, or embed-only for the tied head):
         # LM.apply_layer reads it only for the head
         if j == 0:
-            return LM._embed({"embed": layer_p}, cfg, act)
+            return LM._embed({"embed": layer_p}, cfg, act, prefix)
         return LM.apply_layer(params or {}, cfg, j, layer_p, act,
                               LM._positions(act))
 
@@ -185,25 +198,47 @@ def lm_adapter(cfg: LM.LMConfig, seq_len: int,
             return {"embed": p["embed"]}
         return None
 
+    def tokens_only(logits, labels):
+        # the prefix's positions carry no label
+        if P > 0 and logits.shape[1] != labels.shape[1]:
+            return logits[:, P:]
+        return logits
+
     def fc(params, tokens):
         acts = [tokens]
         x = apply_layer(params, 0, params["embed"], tokens)
         for j in range(1, Lu):
             acts.append(x)
             x = apply_layer(params, j, LM.get_layer(params, cfg, j), x)
+        if P > 0:
+            x = x[:, P:]
         return x, acts
 
     def loss(logits, labels):
-        return LM.softmax_xent(logits, labels, z_loss=0.0)
+        return LM.softmax_xent(tokens_only(logits, labels), labels,
+                               z_loss=0.0)
 
+    def acc(logits, labels):
+        return token_accuracy(tokens_only(logits, labels), labels)
+
+    exclude = ((lambda path: "router" in path)
+               if (cfg.moe and exclude_router) else None)
+    refusal = None
+    if P > 0:
+        refusal = (
+            f"{cfg.name} has a stub modality prefix (prefix_len={P}); the "
+            f"reference's layer sweep cannot run such a model: the head's "
+            f"output keeps the {P} prefix positions that the loss "
+            f"cotangent, taken on the token positions, lacks")
     return ModelAdapter(
         name=cfg.name, n_layers=Lu,
         forward_collect=fc,
         apply_layer=apply_layer,
         get_layer=lambda p, j: LM.get_layer(p, cfg, j),
         set_layer=lambda p, j, s: LM.set_layer(p, cfg, j, s),
-        loss=loss, acc=token_accuracy,
+        loss=loss, acc=acc,
         layer_fwd_macs=lm_layer_macs(cfg, seq_len),
         int_input_layer0=True,
+        exclude=exclude,
         layer_key=layer_key, layer_ctx=layer_ctx,
-        device=dev)
+        device=dev, sweep_refusal=refusal)

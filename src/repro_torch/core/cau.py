@@ -66,6 +66,9 @@ class ModelAdapter:
     layer_ctx: Optional[Callable[[Any, int], Any]] = None
     # the device the adapter's model lives on (the facade checks it)
     device: Optional[torch.device] = None
+    # why the engine's layer sweep cannot serve this model (None: it can);
+    # an engine session on such an adapter raises a ValueError with it
+    sweep_refusal: Optional[str] = None
 
 
 @dataclasses.dataclass(frozen=True)

@@ -70,6 +70,9 @@ class UnlearnSession:
     def __init__(self, adapter: ModelAdapter, fisher_global: Params,
                  *, donate: bool = False,
                  programs: Optional[ProgramCache] = None):
+        if adapter.sweep_refusal is not None:
+            raise ValueError(f"no unlearning session for adapter "
+                             f"{adapter.name!r}: {adapter.sweep_refusal}")
         self.adapter = adapter
         self.fisher_global = fisher_global
         self.donate = donate

@@ -1,5 +1,5 @@
-"""Transformer layers of the port: the half of ``repro.models.layers`` that
-the ViT classifier and the dense decoder LM run.
+"""Transformer layers of the port: the part of ``repro.models.layers`` that
+the ViT classifier and the decoder LM run.
 
   * LayerNorm (eps 1e-5, population variance, ``rsqrt``) and RMSNorm (eps
     1e-6); both take their statistics in f32 and cast back;
@@ -11,7 +11,11 @@ the ViT classifier and the dense decoder LM run.
     score divided by sqrt(Dh) AFTER the q.k product, masked scores set to
     -1e30, softmax, the product with v and the output projection ``wo`` (no
     bias);
-  * the SiLU-gated MLP (``w_gate``, ``w_up``, ``w_down``).
+  * the SiLU-gated MLP (``w_gate``, ``w_up``, ``w_down``);
+  * the token-choice top-k mixture of experts (``moe_ffn``): an f32 router,
+    per-block expert capacity, dispatch into ``[nb, E, C, D]`` buffers
+    through an overflow slot, SiLU-gated experts, the load-balancing aux
+    loss, and an optional always-on shared expert.
 
 Every product and the softmax run in f32, written out as the reference
 writes them: not ``F.scaled_dot_product_attention``, whose fused backends
@@ -24,13 +28,14 @@ Past ``2 * Q_CHUNK`` queries (a multiple of ``Q_CHUNK``) attention runs
 the reference's query-chunked path: blocks of ``Q_CHUNK`` queries against
 the whole of k/v, each rematerialised in the backward, so the S x S score
 matrix is never stored. (Context-parallel attention, cross attention,
-decode and prefill with a KV cache and MoE come with later slices.)
+decode and prefill with a KV cache and the MoE's expert-parallel sharding
+constraints come with later slices.)
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -221,3 +226,132 @@ def mlp(p: Dict, x: torch.Tensor) -> torch.Tensor:
     u = xf @ p["w_up"].to(F32)
     h = (F.silu(g) * u).to(x.dtype)
     return (h.to(F32) @ p["w_down"].to(F32)).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Mixture of experts (token choice, per-block capacity)
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    d_model: int
+    d_ff: int                 # per-expert hidden
+    num_experts: int
+    top_k: int
+    capacity_factor: float = 1.25
+    shared_ff: int = 0        # hidden dim of the always-on shared expert (0: none)
+    dispatch_blocks: int = 1  # data-parallel blocks for local-capacity dispatch
+    shard_constraints: bool = False  # expert-parallel shardings: not ported
+
+
+def _moe_not_ported() -> ValueError:
+    return ValueError("the MoE's expert-parallel sharding constraints "
+                      "(shard_constraints=True) are not ported yet: they "
+                      "need the distribution layer; see ROADMAP.md Queue 1")
+
+
+def init_moe(gen: torch.Generator, cfg: MoEConfig, *, device,
+             dtype=F32) -> Dict:
+    """The router stays f32 beside experts in ``dtype``; expert stacks are
+    [E, d, f] (``w_gate``, ``w_up``) and [E, f, d] (``w_down``)."""
+    E, d, f = cfg.num_experts, cfg.d_model, cfg.d_ff
+
+    def normal(shape, scale):
+        w = torch.randn(shape, generator=gen, dtype=F32, device=gen.device)
+        return (w * scale).to(device=device, dtype=dtype)
+
+    p = {
+        "router": dense_init(gen, d, E, device=device, dtype=F32),
+        "w_gate": normal((E, d, f), 1.0 / math.sqrt(d)),
+        "w_up": normal((E, d, f), 1.0 / math.sqrt(d)),
+        "w_down": normal((E, f, d), 1.0 / math.sqrt(f)),
+    }
+    if cfg.shared_ff:
+        p["shared"] = init_mlp(gen, d, cfg.shared_ff, device=device,
+                               dtype=dtype)
+    return p
+
+
+def moe_capacity(cfg: MoEConfig, tokens_per_block: int) -> int:
+    """Slots per expert and dispatch block, rounded up to a multiple of 8
+    (at least 8), as the reference sizes them."""
+    cap = int(math.ceil(tokens_per_block * cfg.top_k * cfg.capacity_factor
+                        / cfg.num_experts))
+    return max(8, -(-cap // 8) * 8)
+
+
+def moe_dispatch(p: Dict, cfg: MoEConfig, xt: torch.Tensor):
+    """The router and the dispatch on tokens ``xt`` [nb, Tb, D]: (probs
+    [nb, Tb, E] f32, gate [nb, Tb, K] renormalised, expert ids [nb, Tb, K],
+    in_cap [nb, Tb, K] (the choice got a slot), the slot of each choice in
+    the flat [E * C + 1] buffer [nb, Tb * K], capacity C). Top-k is a
+    stable descending sort, so equal probabilities go to the lower expert
+    id first, as ``lax.top_k`` breaks ties; each (token, k) choice takes
+    the next slot of its expert in token-major order, and a choice past C
+    goes to the overflow slot E * C."""
+    nb, Tb, _ = xt.shape
+    E, K = cfg.num_experts, cfg.top_k
+    C = moe_capacity(cfg, Tb)
+    logits = xt.to(F32) @ p["router"].to(F32)
+    probs = torch.softmax(logits, dim=-1)
+    gate, eidx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate, eidx = gate[..., :K], eidx[..., :K]
+    gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
+    sel = (eidx[..., None] == torch.arange(E, device=xt.device)
+           ).to(torch.int64)                                # [nb,Tb,K,E]
+    pos_in_e = sel.reshape(nb, Tb * K, E).cumsum(1) - 1
+    pos = pos_in_e.reshape(nb, Tb, K, E).gather(-1, eidx[..., None])[..., 0]
+    in_cap = pos < C
+    flat_dst = torch.where(in_cap, eidx * C + pos, E * C).reshape(nb, Tb * K)
+    return probs, gate, eidx, in_cap, flat_dst, C
+
+
+def moe_ffn(p: Dict, cfg: MoEConfig, x: torch.Tensor
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Token-choice top-k MoE with per-block capacity and slot dispatch.
+
+    x [B, S, D]: the tokens are cut into ``dispatch_blocks`` blocks of Tb
+    and dispatched (``moe_dispatch``); the overflow slot is discarded, so
+    every kept slot has one source. The experts' SiLU-gated products run in
+    f32 on ``[nb, E, C, D]`` buffers in x's dtype, and each token gathers
+    its kept slots weighted by its gate. Returns (output [B, S, D], aux):
+    the load-balancing loss, E times the block mean of dot(mean router
+    probabilities, top-1 fractions)."""
+    if cfg.shard_constraints:
+        raise _moe_not_ported()
+    B, S, D = x.shape
+    E, K = cfg.num_experts, cfg.top_k
+    nb = cfg.dispatch_blocks
+    T = B * S
+    if T % nb != 0:
+        raise ValueError(
+            f"MoE dispatch needs batch*seq tokens ({T}) divisible by "
+            f"dispatch_blocks ({nb})")
+    Tb = T // nb
+
+    xt = x.reshape(nb, Tb, D)
+    probs, gate, eidx, in_cap, flat_dst, C = moe_dispatch(p, cfg, xt)
+    top1 = eidx[..., 0, None] == torch.arange(E, device=x.device)
+    aux = (probs.mean(1) * top1.to(F32).mean(1)).sum(-1).mean() * E
+
+    rows = torch.arange(nb, device=x.device)[:, None].expand(nb, Tb * K)
+    src = xt[:, :, None].expand(nb, Tb, K, D).reshape(nb, Tb * K, D)
+    # only the discarded overflow row receives more than one addition
+    buf = torch.zeros((nb, E * C + 1, D), dtype=x.dtype, device=x.device
+                      ).index_put((rows, flat_dst), src, accumulate=True)
+    buf = buf[:, :E * C].reshape(nb, E, C, D).to(F32)
+
+    g = torch.einsum("necd,edf->necf", buf, p["w_gate"].to(F32))
+    u = torch.einsum("necd,edf->necf", buf, p["w_up"].to(F32))
+    h = (F.silu(g) * u).to(x.dtype)
+    out_e = torch.einsum("necf,efd->necd", h.to(F32),
+                         p["w_down"].to(F32)).to(x.dtype)
+
+    out_flat = torch.cat([out_e.reshape(nb, E * C, D),
+                          out_e.new_zeros((nb, 1, D))], dim=1)
+    gathered = out_flat[rows, flat_dst].reshape(nb, Tb, K, D)
+    w = (gate * in_cap.to(F32)).to(x.dtype)
+    y = torch.einsum("ntkd,ntk->ntd", gathered.to(F32), w.to(F32)
+                     ).to(x.dtype)
+    if "shared" in p:
+        y = y + mlp(p["shared"], xt)
+    return y.reshape(B, S, D), aux

@@ -1,4 +1,4 @@
-"""Causal decoder LM of the port: ``repro.models.lm`` without MoE.
+"""Causal decoder LM of the port: ``repro.models.lm``'s forward pass.
 
 Layer pattern
 -------------
@@ -6,22 +6,30 @@ Layer pattern
 e.g. ``("local",) * 5 + ("attn",)`` for gemma3's 5:1 local:global mix, or
 ``("rglru", "rglru", "local")`` for RecurrentGemma. Block types:
 
-  attn        full causal GQA self-attention + SwiGLU FFN
-  local       sliding-window causal attention + SwiGLU FFN
-  mlstm       xLSTM matrix-memory block (+ SwiGLU FFN when d_ff > 0)
-  slstm       xLSTM scalar-memory block (+ SwiGLU FFN when d_ff > 0)
-  rglru       Griffin RG-LRU recurrent block (+ SwiGLU FFN when d_ff > 0)
+  attn        full causal GQA self-attention + FFN
+  local       sliding-window causal attention + FFN
+  mlstm       xLSTM matrix-memory block (+ FFN when d_ff > 0)
+  slstm       xLSTM scalar-memory block (+ FFN when d_ff > 0)
+  rglru       Griffin RG-LRU recurrent block (+ FFN when d_ff > 0)
 
-MoE, the stub modality prefix, context-parallel attention and the decode /
-prefill paths with their caches are not ported yet: a config that asks for
-one raises a ``ValueError`` that says so. ``LMConfig`` keeps every field of
-the reference, so that configs copy over unchanged.
+The FFN is the dense SwiGLU unless ``moe`` is set; then every block's FFN
+is the token-choice top-k mixture of experts (``layers.moe_ffn``), whose
+load-balancing aux loss ``forward`` sums over the blocks and ``lm_loss``
+adds at ``aux_weight``. With ``prefix_len > 0`` a stub modality prefix
+(precomputed frame or patch embeddings [B, P, d_model]) goes ahead of the
+token embeddings, and ``lm_loss`` scores the token positions only.
+
+Context-parallel attention, the MoE's expert-parallel sharding constraints
+and the decode / prefill paths with their caches are not ported yet: a
+config that asks for one raises a ``ValueError`` that says so. ``LMConfig``
+keeps every field of the reference, so that configs copy over unchanged.
 
 Parameters keep the reference's layout and keys: ``period_stack`` holds the
 blocks of the ``n_periods`` whole pattern periods, each leaf stacked
-``[n_periods, ...]``; ``tail`` the blocks past them; then ``embed``,
-``final_norm`` and, without tied embeddings, ``lm_head``. ``forward`` walks
-the periods in a Python loop where the reference scans them.
+``[n_periods, ...]`` (an MoE block's expert stacks [n_periods, E, d, f]);
+``tail`` the blocks past them; then ``embed``, ``final_norm`` and, without
+tied embeddings, ``lm_head``. ``forward`` walks the periods in a Python
+loop where the reference scans them.
 
 The unlearn-layer view (``get_layer`` / ``set_layer`` / ``apply_layer``) is
 what the FiCABU engine edits: depth j = 0 is the embedding, j = 1..n_layers
@@ -53,7 +61,7 @@ PORTED_BLOCKS = ("attn", "local", "mlstm", "slstm", "rglru")
 def _not_ported(what: str) -> ValueError:
     return ValueError(f"{what} is not ported yet: the port builds the "
                       f"decoder LM's block types {PORTED_BLOCKS} with the "
-                      f"SwiGLU FFN; see ROADMAP.md Queue 1")
+                      f"SwiGLU or MoE FFN; see ROADMAP.md Queue 1")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -137,8 +145,18 @@ class LMConfig:
         d_rnn = -(-d_rnn // 8) * 8
         return R.RGLRUConfig(self.d_model, d_rnn)
 
-    def moe_cfg(self):
-        raise _not_ported(f"{self.name}: the MoE FFN")
+    def moe_cfg(self) -> L.MoEConfig:
+        if self.moe is None:
+            raise ValueError(
+                f"{self.name}: moe_cfg() called but this LMConfig has no "
+                "MoE spec (moe=None)")
+        return L.MoEConfig(
+            d_model=self.d_model, d_ff=self.d_ff,
+            num_experts=self.moe.num_experts, top_k=self.moe.top_k,
+            capacity_factor=self.moe.capacity_factor,
+            shared_ff=self.moe.shared_ff,
+            dispatch_blocks=self.dispatch_blocks,
+            shard_constraints=self.moe_shard_constraints)
 
     def with_(self, **kw) -> "LMConfig":
         return dataclasses.replace(self, **kw)
@@ -149,8 +167,8 @@ def _check_block(cfg: LMConfig, btype: str) -> None:
         raise _not_ported(f"{cfg.name}: block type {btype!r}")
     if btype in ("attn", "local"):
         cfg.attn_cfg(btype)
-    if cfg.moe is not None:
-        cfg.moe_cfg()
+    if cfg.moe is not None and cfg.moe_shard_constraints:
+        raise L._moe_not_ported()
 
 
 # ---------------------------------------------------------------------------
@@ -171,14 +189,15 @@ def init_block(gen: torch.Generator, cfg: LMConfig, btype: str, *,
         p["mixer"] = R.init_rglru(gen, cfg.rglru_cfg(), **kw)
     if cfg.d_ff > 0:
         p["ln2"] = L.init_rmsnorm(cfg.d_model, **kw)
-        p["ffn"] = L.init_mlp(gen, cfg.d_model, cfg.d_ff, **kw)
+        p["ffn"] = (L.init_moe(gen, cfg.moe_cfg(), **kw) if cfg.moe
+                    else L.init_mlp(gen, cfg.d_model, cfg.d_ff, **kw))
     return p
 
 
 def block_forward(p: Params, cfg: LMConfig, btype: str, x: torch.Tensor,
                   positions: torch.Tensor
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (x_out, moe_aux_loss); the aux loss is 0 for a dense FFN."""
+    """Returns (x_out, moe_aux_loss); the aux loss is 0 without MoE."""
     _check_block(cfg, btype)
     h = L.rmsnorm(p["ln1"], x)
     if btype in ("attn", "local"):
@@ -192,7 +211,12 @@ def block_forward(p: Params, cfg: LMConfig, btype: str, x: torch.Tensor,
     x = x + m
     aux = torch.zeros((), dtype=F32, device=x.device)
     if cfg.d_ff > 0:
-        x = x + L.mlp(p["ffn"], L.rmsnorm(p["ln2"], x))
+        h = L.rmsnorm(p["ln2"], x)
+        if cfg.moe:
+            f, aux = L.moe_ffn(p["ffn"], cfg.moe_cfg(), h)
+        else:
+            f = L.mlp(p["ffn"], h)
+        x = x + f
     return x, aux
 
 
@@ -230,9 +254,17 @@ def init_lm(gen: torch.Generator, cfg: LMConfig, *, device="cuda") -> Params:
 
 def _embed(params: Params, cfg: LMConfig, tokens: torch.Tensor,
            prefix: Optional[torch.Tensor] = None) -> torch.Tensor:
-    if cfg.prefix_len > 0 or prefix is not None:
-        raise _not_ported(f"{cfg.name}: the stub modality prefix")
-    return params["embed"]["w"].to(cfg.dtype)[tokens]
+    """Token embeddings, after the stub modality prefix [B, P, d_model]
+    when ``prefix_len > 0`` (a prefix is ignored otherwise, as in the
+    reference)."""
+    x = params["embed"]["w"].to(cfg.dtype)[tokens]
+    if cfg.prefix_len > 0:
+        if prefix is None:
+            raise ValueError(
+                f"{cfg.name} has prefix_len={cfg.prefix_len} and requires a "
+                "stub modality prefix; got prefix=None")
+        x = torch.cat([prefix.to(x.dtype), x], dim=1)
+    return x
 
 
 def _head(params: Params, cfg: LMConfig, x: torch.Tensor) -> torch.Tensor:
@@ -252,7 +284,8 @@ def _positions(x: torch.Tensor) -> torch.Tensor:
 def forward(params: Params, cfg: LMConfig, tokens: torch.Tensor,
             prefix: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens [B, S] -> (logits [B, S', V] f32, moe_aux scalar)."""
+    """tokens [B, S] -> (logits [B, S', V] f32, moe_aux scalar); S' = S
+    plus the prefix's positions when ``prefix_len > 0``."""
     x = _embed(params, cfg, tokens, prefix)
     positions = _positions(x)
     aux_total = torch.zeros((), dtype=F32, device=x.device)
@@ -290,6 +323,8 @@ def lm_loss(params: Params, cfg: LMConfig, tokens: torch.Tensor,
             labels: torch.Tensor, prefix: Optional[torch.Tensor] = None,
             aux_weight: float = 0.01) -> torch.Tensor:
     logits, aux = forward(params, cfg, tokens, prefix)
+    if cfg.prefix_len > 0:
+        logits = logits[:, cfg.prefix_len:]
     return softmax_xent(logits, labels) + aux_weight * aux
 
 

@@ -185,6 +185,21 @@ for precision in ("fp32", "int8"):
             ForgetRequest(tok[8:16, :-1], tok[8:16, 1:]), params=params)
     assert st["engine"]["sweep_mode"] == "scanned", st["engine"]
     out.append(st["stopped_at_l"])
+# an MoE request (llama4-scout-smoke: top-1 experts beside a shared one),
+# its router left as it was
+mcfg = configs.get("llama4-scout-17b-a16e").smoke
+mparams = LM.init_lm(torch.Generator().manual_seed(0), mcfg, device="cpu")
+mtok = tok.clamp(max=mcfg.vocab - 1)
+munl = Unlearner(adapters.lm_adapter(mcfg, 8, device="cpu"),
+                 spec=UnlearnSpec.for_mode("ssd", chunk_size=4,
+                                           use_kernel=True), device="cpu")
+munl.ensure_fisher(lambda p, b: LM.lm_loss(p, mcfg, b[0], b[1]), mparams,
+                   (mtok[:8, :-1], mtok[:8, 1:]))
+new, st = munl.forget(ForgetRequest(mtok[8:16, :-1], mtok[8:16, 1:]),
+                      params=mparams)
+assert torch.equal(new["period_stack"]["0"]["ffn"]["router"],
+                   mparams["period_stack"]["0"]["ffn"]["router"])
+out.append(st["stopped_at_l"])
 leaked = [m for m in sys.modules
           if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
 print("LEAKED", leaked, "STOP", out)
@@ -193,13 +208,13 @@ print("LEAKED", leaked, "STOP", out)
 
 def test_lm_serves_with_jax_and_repro_blocked():
     """The LM slice's modules (models.lm, the registry, the LM adapter and
-    data) serve a scanned fp32 and int8 request with JAX and the JAX
-    package blocked."""
+    data) serve a scanned fp32 and int8 request, and an MoE request, with
+    JAX and the JAX package blocked."""
     env = dict(os.environ, PYTHONPATH=str(SRC))
     proc = subprocess.run([sys.executable, "-c", _BLOCKED_LM_RUN], env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
-    assert "LEAKED [] STOP [9, 9]" in proc.stdout, proc.stdout
+    assert "LEAKED [] STOP [9, 9, 4]" in proc.stdout, proc.stdout
 
 
 def test_lm_entry_points_raise_without_a_card():

@@ -355,10 +355,11 @@ def test_registry_configs_equal_the_references():
             (jmod.SPEC.kind, jmod.SPEC.source, jmod.SPEC.shapes(),
              jmod.SPEC.skip_shapes), arch
     assert sorted(tconfigs.all_archs()) == [
-        "gemma3-1b", "qwen1.5-32b", "recurrentgemma-9b", "xlstm-125m",
-        "yi-6b", "yi-9b"]
+        "gemma3-1b", "internvl2-1b", "kimi-k2-1t-a32b",
+        "llama4-scout-17b-a16e", "qwen1.5-32b", "recurrentgemma-9b",
+        "xlstm-125m", "yi-6b", "yi-9b"]
     with pytest.raises(KeyError, match="yi-6b"):
-        tconfigs.get("internvl2-1b")
+        tconfigs.get("whisper-tiny")
     assert tconfigs.SHAPES["train_4k"].seq_len == 4096
 
 
@@ -397,22 +398,23 @@ def test_full_width_structure_matches_reference():
 
 
 def test_unported_parts_raise():
-    """MoE, an unknown block type, the modality prefix and context-parallel
-    attention are not ported: they raise a ValueError that says so (the
-    recurrent blocks are: tests/test_torch_recurrent.py)."""
+    """An unknown block type, context-parallel attention and the MoE's
+    expert-parallel sharding constraints are not ported: they raise a
+    ValueError that says so (the recurrent blocks are ported:
+    tests/test_torch_recurrent.py; MoE and the modality prefix:
+    tests/test_torch_moe.py, tests/test_torch_prefix.py)."""
+    moe = TLM.MoESpec(num_experts=4, top_k=2)
     for kw in ({"block_pattern": ("moe_block", "attn")},
-               {"moe": TLM.MoESpec(num_experts=4, top_k=2)},
-               {"cp_attention": 2}):
+               {"cp_attention": 2},
+               {"moe": moe, "moe_shard_constraints": True}):
         _, tc = _cfgs(**kw)
         with pytest.raises(ValueError, match="not ported yet"):
             TLM.init_lm(torch.Generator().manual_seed(0), tc, device="cpu")
         with pytest.raises(ValueError, match="not ported yet"):
             tadapters.lm_adapter(tc, S, device="cpu")
-    _, tc = _cfgs(prefix_len=2)
+    _, tc = _cfgs(moe=moe, moe_shard_constraints=True)
     with pytest.raises(ValueError, match="not ported yet"):
-        tadapters.lm_adapter(tc, S, device="cpu")
-    with pytest.raises(ValueError, match="not ported yet"):
-        _cfgs()[1].moe_cfg()
+        TL.moe_ffn({}, tc.moe_cfg(), torch.zeros(1, 8, tc.d_model))
 
 
 @pytest.mark.parametrize("seed", [0, 3])

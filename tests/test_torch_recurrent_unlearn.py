@@ -102,9 +102,10 @@ def _spec(cls, mode, **kw):
 
 
 def _setting(arch, dtype="float32", archs=ARCHS):
-    """The model on both sides, its Fisher on each, the adapters and the
-    forget sets of domains 1 and 2 (argmax labels); ``archs`` maps the arch
-    to its reference config module."""
+    """The model on both sides, its Fisher on each, the adapters, the
+    forget sets of domains 1 and 2 and the retain batch the Fisher ran on
+    (argmax labels); ``archs`` maps the arch to its reference config
+    module."""
     jcfg = archs[arch].SMOKE.with_(param_dtype=dtype)
     tcfg = tconfigs.get(arch).smoke.with_(param_dtype=dtype)
     params = JLM.init_lm(jax.random.PRNGKey(0), jcfg)
@@ -134,6 +135,7 @@ def _setting(arch, dtype="float32", archs=ARCHS):
         "jadapter": jad,
         "tadapter": tadapters.lm_adapter(tcfg, SEQ, device="cpu"),
         "sets": [labelled(split[d]["forget"][:8]) for d in (1, 2)],
+        "retain": retain,
     }
 
 

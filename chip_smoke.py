@@ -209,7 +209,36 @@ Phases, in order; any failure exits non-zero and prints no result line:
      loss (finite, > 0); the peak memory; the warm ssd requests' wall,
      device busy time, idle share and device kernels; the sweeps against
      their byte bounds, and the phase's seconds;
- 13. times: each kernel and its plain version at the main paths' shapes
+ 13. [encdec]: the encoder-decoder whisper-tiny FULL (4 encoder and 4
+     decoder blocks, d_model 384, 6 heads of 64, d_ff 1536, vocab 51,865,
+     untied; 61,074,432 bf16 parameters in 27 stored leaves, the decoder
+     chain's 59 layer leaves in 6 unlearn layers) and stub frames
+     [8, 1500, 384], both from a CUDA generator seeded with 0; a request
+     is 8 sequences of 448 tokens (the decoder's ceiling) at chunk 8, the
+     frames' batch, labelled with the model's argmax, the retain Fisher of
+     8 sequences on frames of their own; alpha 25, lambda 1, checkpoints
+     at every layer. First its 6 layer tables through the group kernels
+     against their plain versions; then, with the counters zeroed before
+     and read after: ssd cold and warm (6 launches over 59 leaves), ficabu
+     with tau = -1 and a ficabu that halts partway (cold and warm), ssd and
+     the halting ficabu with sweep_mode="scanned" (no plan: the layerwise
+     loop, == the layerwise request bit for bit), kernel forget == plain
+     forget, int8 ssd cold and warm (on its q8 grids, per-layer error
+     against fp32 within INT8_SWEEP_RTOL) and the halting ficabu, int8
+     scanned == layerwise and kernel == plain, a K = 2 ssd drain layerwise
+     and "scanned" (== bit for bit, 12 launches over 118 leaves). Every
+     parameter finite, the encoder and enc_norm of every result bit for
+     bit the caller's (in int8 their fake quantisation), the caller's tree
+     unchanged; the warm ssd requests' wall, device busy time, idle share
+     and device kernels; the sweeps against their byte bounds; then encode
+     and 64 tokenwise decode_steps against the forward's logits. The
+     decode checks of the LM phases run at the end of [lm] (gemma3-1b's
+     64-token chunked prefill against its tokenwise decode too, caches
+     included), of each [recurrent] model and of [moe] (at a capacity that
+     drops nothing), on their phases' models: the stepped logits within a
+     stated relative L2 of the forward's (DECODE_RTOL, DECODE_RTOL_CONV),
+     not bit for bit;
+ 14. times: each kernel and its plain version at the main paths' shapes
      (the dampen sweeps as a request launches them, one grouped launch per
      layer, with the 56 per-leaf launches beside them and the figures from
      before the grouped kernel; and, for fimd and the GEMMs, one PyTorch
@@ -226,8 +255,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
      beside two single requests. The dampen entries of the
      ``kernels`` line carry the [scanned] phase's launches and leaves,
      the [lm] phase's (``lm_*`` keys), the [recurrent] phase's
-     (``rec_*``), the [dense] phase's (``dense_*``) and the [moe]
-     phase's (``moe_*``).
+     (``rec_*``), the [dense] phase's (``dense_*``), the [moe] phase's
+     (``moe_*``) and the [encdec] phase's (``encdec_*``).
 
 The last line is the contract line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -1479,6 +1508,10 @@ def lm_phase(dev, rate, zero_counts, dampen_counts, fisher_counts):
             f": kernel {tl[path]:.5f} ms, plain {tl[path + '_plain']:.5f} ms,"
             f" bound {lbound[path]:.5f} ms ({lbound[path] / tl[path] * 100:.1f}"
             f"% of the memory bound)")
+    # decode: tokenwise decode_step against the forward, and the chunked
+    # prefill (wide: 64 tokens fit every window) against the tokenwise decode
+    dec = lm_decode_check("gemma3-1b", cfg, params,
+                          req.inputs[:2, :DECODE_TOKENS], prefill=True)
     peak = torch.cuda.max_memory_allocated() / gib
     log(f"[lm] phase done in {time.perf_counter() - t_phase:.1f} s; "
         f"torch.cuda.max_memory_allocated {peak:.2f} GiB")
@@ -1498,6 +1531,11 @@ def lm_phase(dev, rate, zero_counts, dampen_counts, fisher_counts):
         runs[("fp32", "ssd scanned")][2])
     out["fp32"]["lm_k2_drain_scanned_launches_leaves"] = list(
         runs[("fp32", "ficabu K=2 drain scanned")][2])
+    out["fp32"].update({
+        "lm_decode_rel_l2": dec["decode_vs_forward"][0],
+        "lm_prefill_rel_l2": dec["prefill_vs_decode"][0],
+        "lm_prefill_cache_rel_l2": dec["prefill_cache_rel_l2"],
+        "lm_decode_seconds": dec["seconds"]})
     out["peak_gib"] = peak
     del params, fisher, lssd, lssd8, ficabu, runs, stored
     torch.cuda.empty_cache()
@@ -1902,6 +1940,11 @@ def rec_model(arch, n_layers, n_seq, every, alpha, want, dev, rate,
             f"{sum(n_el.values())} elements): kernel {tl[path]:.5f} ms, plain "
             f"{tl[path + '_plain']:.5f} ms, bound {lbound[path]:.5f} ms "
             f"({lbound[path] / tl[path] * 100:.1f}% of the memory bound)")
+    # decode: each block's decode form (the recurrent states, the local
+    # attention's cache) token by token against the forward
+    dec = lm_decode_check(cfg.name, cfg, params,
+                          req.inputs[:2, :DECODE_TOKENS],
+                          rtol=DECODE_RTOL if xl else DECODE_RTOL_CONV)
     peak = torch.cuda.max_memory_allocated() / gib
     secs = time.perf_counter() - t_model
     log(f"[recurrent] {tag} done in {secs:.1f} s; "
@@ -1926,6 +1969,7 @@ def rec_model(arch, n_layers, n_seq, every, alpha, want, dev, rate,
             if prof[path][2] is not None:
                 out[path][f"rec_{tag}_warm_ssd_device_kernels"] = \
                     prof[path][2]
+    out["fp32"][f"rec_{tag}_decode_rel_l2"] = dec["decode_vs_forward"][0]
     out["fp32"][f"rec_{tag}_peak_gib"] = peak
     out["fp32"][f"rec_{tag}_seconds"] = secs
     del params, fisher, lssd, lssd8, runs, stored, layers
@@ -2767,6 +2811,16 @@ def moe_phase(dev, rate, zero_counts, dampen_counts, fisher_counts):
             f"{tl[path]:.5f} ms, plain {tl[path + '_plain']:.5f} ms, bound "
             f"{lbound[path]:.5f} ms ({lbound[path] / tl[path] * 100:.1f}% of "
             f"the memory bound)")
+    # decode: the MoE block's decode form token by token against the
+    # forward, at a capacity that drops no choice (a dispatch of a whole
+    # sequence may drop where one of a token per row cannot), as the
+    # reference's own check takes it
+    import dataclasses
+    del lssd8, scan, ficabu
+    torch.cuda.empty_cache()
+    dec = lm_decode_check(cfg.name, cfg.with_(moe=dataclasses.replace(
+        cfg.moe, capacity_factor=float(mcfg.num_experts))), params,
+        req.inputs[:, :DECODE_TOKENS])
     peak = torch.cuda.max_memory_allocated() / gib
     secs = time.perf_counter() - t_phase
     log(f"[moe] phase done in {secs:.1f} s; torch.cuda.max_memory_allocated"
@@ -2793,9 +2847,476 @@ def moe_phase(dev, rate, zero_counts, dampen_counts, fisher_counts):
                           "capacity": C, "dropped": dropped}
                          for j, what, T, C, dropped in figures],
         "moe_aux_loss": aux,
+        "moe_decode_rel_l2": dec["decode_vs_forward"][0],
         "moe_peak_gib": peak,
         "moe_phase_seconds": secs})
-    del params, fisher, lssd, lssd8, scan, ficabu, runs, stored, layers
+    del params, fisher, lssd, runs, stored, layers
+    torch.cuda.empty_cache()
+    return out, gerr
+
+
+# the decode checks: tokens stepped one at a time through decode_step
+# against the forward over the whole sequence (and gemma3-1b's chunked
+# prefill against the tokenwise decode), on the bf16 models the phases
+# build. The two paths run the same arithmetic per token in another
+# grouping (a [1, D] product beside a [T, D] one sums in another order, so
+# a bf16 rounding now and then lands on the other side), except
+# recurrentgemma's conv, which the reference's decode takes in f32 and its
+# forward in bf16 (2% apart in the logits on its bf16 SMOKE model on the
+# host): the logits must agree within these relative L2 distances, not bit
+# for bit (ROADMAP Queue 3), and be finite
+DECODE_TOKENS = 64
+DECODE_RTOL = 0.05
+DECODE_RTOL_CONV = 0.1
+
+
+def rel_l2(a, b):
+    """||a - b|| / ||b|| in f64."""
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / b.norm())
+
+
+def decode_agrees(tag, what, got, want, rtol):
+    """``got`` (stepped) against ``want``: finite, within relative L2
+    ``rtol``; logs the distance and the argmax agreement. Returns both."""
+    rel = rel_l2(got, want)
+    agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    log(f"[decode] {tag} {what}: logits {tuple(got.shape)}, relative L2 "
+        f"{rel:.3e} (must be <= {rtol}), argmax agreement {agree:.4f}")
+    if not (torch.isfinite(got).all() and rel <= rtol):
+        raise AssertionError(f"decode {tag} {what}: relative L2 {rel}")
+    return rel, agree
+
+
+def lm_decode_check(tag, cfg, params, tokens, *, prefill=False,
+                    rtol=DECODE_RTOL):
+    """An LM's tokenwise ``decode_step`` from an empty cache against its
+    ``forward`` on ``tokens`` [B, T], and (``prefill``) ``prefill`` of the
+    same prompt against the tokenwise decode, the caches too. Returns the
+    figures the kernels line carries."""
+    from repro_torch.models import lm as LM
+    from repro_torch.models.module import tree_leaves
+
+    B, T = tokens.shape
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        full = LM.forward(params, cfg, tokens)[0]
+        cache = LM.init_cache(cfg, B, T, device="cuda")
+        steps = []
+        for i in range(T):
+            lg, cache = LM.decode_step(params, cfg, tokens[:, i:i + 1], cache,
+                                       i)
+            steps.append(lg)
+        dec = torch.cat(steps, 1)
+    torch.cuda.synchronize()
+    out = {"decode_vs_forward": decode_agrees(
+        tag, f"{T} decode steps vs forward", dec, full, rtol)}
+    if prefill:
+        with torch.no_grad():
+            pre, pcache = LM.prefill(params, cfg, tokens, LM.init_cache(
+                cfg, B, T, device="cuda"), last_only=False)
+        out["prefill_vs_decode"] = decode_agrees(
+            tag, f"prefill ({T} tokens, wide "
+            f"{T <= LM._min_attn_cache(cfg, cache)}) vs tokenwise decode",
+            pre, dec, rtol)
+        crel = max(rel_l2(a.float(), b.float()) for a, b in
+                   zip(tree_leaves(pcache), tree_leaves(cache)))
+        log(f"[decode] {tag} prefill caches vs tokenwise decode caches: "
+            f"largest relative L2 {crel:.3e}")
+        if not crel <= rtol:
+            raise AssertionError(f"decode {tag} prefill caches: {crel}")
+        out["prefill_cache_rel_l2"] = crel
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+# the [encdec] phase: whisper-tiny FULL (4 encoder and 4 decoder blocks,
+# d_model 384, 6 heads, d_ff 1536, vocab 51,865, untied, bf16), its
+# expected (parameters, stored leaves, layer leaves, unlearn layers), the
+# decoder's ceiling of 448 tokens as the request's length, and a request
+# of 8 sequences at chunk 8: the stub frames' batch, where the reference's
+# cross attention pairs each query row with its own frames (ROADMAP Queue
+# 3). The adapter sweeps the decoder chain: the embedding, 4 blocks, the
+# head; each block re-encodes the frames, as the reference does
+ENCDEC_ARCH = "whisper-tiny"
+ENCDEC_WANT = (61_074_432, 27, 59, 6)
+ENCDEC_SEQ = 448
+ENCDEC_N = 8
+ENCDEC_ALPHA = 25.0
+
+
+def encdec_phase(dev, rate, zero_counts, dampen_counts, fisher_counts):
+    """Phase 13, [encdec]: the encoder-decoder at full width (module
+    docstring). Returns the figures the kernels line carries and the
+    largest |err| per kernel."""
+    from repro_torch import bridge
+    from repro_torch.api import (ForgetRequest, QuantSpec, Unlearner,
+                                 UnlearnSpec)
+    from repro_torch.configs import get as get_arch
+    from repro_torch.core import adapters
+    from repro_torch.core.schedule import checkpoint_set
+    from repro_torch.data import synthetic as syn
+    from repro_torch.engine import plan_scanned_sweep
+    from repro_torch.kernels import dampen as kd
+    from repro_torch.models import encdec as ED
+    from repro_torch.models.module import tree_leaves, tree_map
+    from repro_torch.optim.compression import (INT8_SWEEP_RTOL,
+                                               q8_fakequant_tree, q8_quantize)
+
+    t_phase = time.perf_counter()
+    gib = 2.0 ** 30
+    held = torch.cuda.memory_allocated() / gib
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_arch(ENCDEC_ARCH).full
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = ED.init_encdec(gen, cfg, device="cuda")
+    frames = torch.randn(ENCDEC_N, cfg.n_frames, cfg.d_model, generator=gen,
+                         device=dev)
+    frames_retain = torch.randn(ENCDEC_N, cfg.n_frames, cfg.d_model,
+                                generator=gen, device=dev)
+    adapter = adapters.encdec_adapter(cfg, ENCDEC_SEQ, frames, device="cuda")
+    torch.cuda.synchronize()
+    L = adapter.n_layers
+    stored = bridge.paths(params)
+    n_params = sum(t.numel() for t in stored.values())
+    layers = [tree_leaves(adapter.get_layer(params, j)) for j in range(L)]
+    layer_leaves = [len(ls) for ls in layers]
+    n_leaves = sum(layer_leaves)
+    log(f"[encdec] {cfg.name} FULL ({cfg.n_enc_layers} encoder and "
+        f"{cfg.n_dec_layers} decoder blocks, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads of {cfg.dh}, d_ff {cfg.d_ff}, vocab {cfg.vocab},"
+        f" untied, {cfg.param_dtype}) and stub frames "
+        f"{tuple(frames.shape)} from torch.Generator('cuda') seed {SEED} in "
+        f"{time.perf_counter() - t0:.1f} s: {n_params} parameters in "
+        f"{len(stored)} stored leaves; the decoder chain's {n_leaves} layer "
+        f"leaves in {L} unlearn layers; {held:.2f} GiB held on the card "
+        f"from earlier phases")
+    got = (n_params, len(stored), n_leaves, L)
+    if got != ENCDEC_WANT:
+        raise AssertionError(f"{cfg.name}: {got} (parameters, stored leaves,"
+                             f" layer leaves, layers), expected "
+                             f"{ENCDEC_WANT}")
+    if {t.dtype for ls in layers for t in ls} != {torch.bfloat16}:
+        raise AssertionError(f"{cfg.name}: layer dtypes are not all bf16")
+
+    # the group kernels on the tables its requests launch, before the path's
+    # counters are zeroed: each layer's bf16 leaves (fp32 requests) and its
+    # int8 codes (int8 requests)
+    t0 = time.perf_counter()
+    gcases, gerr = check_group_kernels_against_plain(
+        [[tuple(t.shape) for t in ls] for ls in layers], dev, edges=False,
+        whole=False, kinds=("bf16", "int8"))
+    log(f"[encdec] grouped dampen (bf16 theta) and dampen_int8 over the "
+        f"{L} layer tables its requests launch x 3 pairs: bit-identical to "
+        f"their plain versions, selection count, launch and leaf counters "
+        f"included, in {gcases} tables, max |err| {gerr} "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
+    toks, doms = syn.make_lm_domains(syn.LMDataConfig(
+        vocab=LM_DATA_VOCAB, n_domains=4, seq_len=ENCDEC_SEQ + 1,
+        n_per_domain=ENCDEC_N, seed=SEED))
+    splits = {d: syn.lm_split_forget_retain(toks, doms, d)
+              for d in (LM_FORGET, LM_OTHER)}
+
+    def request(seqs, tag, fr):
+        """Sequences [N, S + 1] as a request of their first S tokens,
+        labelled with the model's own argmax on the frames ``fr``."""
+        inputs = torch.as_tensor(seqs[:, :-1], device=dev).long().contiguous()
+        with torch.no_grad():
+            labels = ED.forward(params, cfg, inputs, fr).argmax(-1)
+        return ForgetRequest(inputs, labels, tag=tag)
+
+    req = request(splits[LM_FORGET]["forget"][:ENCDEC_N], LM_FORGET, frames)
+    req2 = request(splits[LM_OTHER]["forget"][:ENCDEC_N], LM_OTHER, frames)
+    retain = request(splits[LM_FORGET]["retain"][:ENCDEC_N], "retain",
+                     frames_retain)
+    log(f"[encdec] two {ENCDEC_N}-sequence forget requests of S = "
+        f"{ENCDEC_SEQ} tokens (domains {LM_FORGET}, {LM_OTHER}; "
+        f"make_lm_domains, vocab {LM_DATA_VOCAB}) on the adapter's frames and"
+        f" {ENCDEC_N} retain sequences on frames of their own, argmax "
+        f"labels, in {time.perf_counter() - t0:.1f} s")
+
+    def spec(mode, **kw):
+        return UnlearnSpec.for_mode(mode, **{
+            "alpha": ENCDEC_ALPHA, "lam": 1.0, "tau": -1.0,
+            "checkpoint_every": 1, "chunk_size": ENCDEC_N,
+            "use_kernel": True, **kw})
+
+    lssd = Unlearner(adapter, spec=spec("ssd"), device="cuda")
+    t0 = time.perf_counter()
+    lssd.ensure_fisher(lambda p, b: ED.lm_loss(p, cfg, b[0], b[1], b[2]),
+                       params, (retain.inputs, retain.labels, frames_retain),
+                       chunk_size=ENCDEC_N)
+    torch.cuda.synchronize()
+    fisher = lssd.fisher_global
+    log(f"[encdec] ensure_fisher (lm_loss, z-loss 1e-4) on the retain batch "
+        f"in {time.perf_counter() - t0:.1f} s, the encoder's leaves among "
+        f"its {len(bridge.paths(fisher))}; peak "
+        f"{torch.cuda.max_memory_allocated() / gib:.2f} GiB")
+    before = {k: v.clone() for k, v in stored.items()}
+    front = ("encoder/", "enc_norm/")
+    front8 = {k: v for k, v in bridge.paths(q8_fakequant_tree(params)).items()
+              if k.startswith(front)}
+    cps = checkpoint_set(L, 1)
+    if plan_scanned_sweep(adapter, params, req.inputs) is not None:
+        raise AssertionError("encdec: the scanned planner planned the "
+                             "decoder chain (it has no layer_ctx)")
+    runs = {}
+    stat_keys = ("stopped_at_l", "checkpoints_hit", "selected_per_layer",
+                 "forget_acc_trace", "macs", "macs_ssd", "macs_vs_ssd_pct")
+
+    def serve(name, unl, path, *, group=None, keep=False):
+        """One request (or a drain of ``group``), checked: one launch of its
+        precision's kernel per layer swept, over that layer's leaves, none
+        of the other's; the layerwise loop (no plan, whatever the mode
+        asked); every parameter finite; the encoder and enc_norm bit for bit
+        the caller's (fp32) or their fake quantisation (int8)."""
+        c0 = dampen_counts()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        if group is None:
+            new, st = unl.forget(req, params=params)
+            sts = [st]
+        else:
+            new, sts, st = unl.forget_group(group, params=params)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t1
+        dc = tuple(b - a for a, b in zip(c0, dampen_counts()))
+        mine, other = (dc[:2], dc[2:]) if path == "fp32" else (dc[2:], dc[:2])
+        eng = st["engine"]
+        want_l = (sum(s["stopped_at_l"] for s in sts),
+                  sum(sum(layer_leaves[L - l]
+                          for l in range(1, s["stopped_at_l"] + 1))
+                      for s in sts))
+        log(f"[encdec] {path} {name:22s}: stopped_at_l="
+            f"{[s['stopped_at_l'] for s in sts]} checkpoints="
+            f"{[s['checkpoints_hit'] for s in sts]} macs_vs_ssd_pct="
+            f"{[round(s['macs_vs_ssd_pct'], 4) for s in sts]} "
+            f"{eng['sweep_mode']}, launches {mine[0]} over {mine[1]} leaves, "
+            f"builds={eng['compiles']} hits={eng['cache_hits']} wall="
+            f"{secs * 1e3:.1f} ms, peak "
+            f"{torch.cuda.max_memory_allocated() / gib:.2f} GiB")
+        if (mine != want_l or other != (0, 0) or eng["precision"] != path
+                or eng["sweep_mode"] != "layerwise"):
+            raise AssertionError(f"encdec {path} {name}: {eng}, launches "
+                                 f"{dc}, expected {want_l} in {path}")
+        if not all(torch.isfinite(t).all() for t in tree_leaves(new)):
+            raise AssertionError(f"encdec {path} {name}: non-finite "
+                                 f"parameters")
+        got = bridge.paths(new)
+        for k, v in (stored.items() if path == "fp32" else front8.items()):
+            if k.startswith(front) and not torch.equal(bits(got[k]),
+                                                       bits(v)):
+                raise AssertionError(f"encdec {path} {name}: the request "
+                                     f"edited the encoder's {k}")
+        runs[(path, name)] = (new if keep else None, sts, mine, secs)
+        return new, sts
+
+    def same_as(new, sts, path, name):
+        want_new, want_sts = runs[(path, name)][:2]
+        a, b = bridge.paths(new), bridge.paths(want_new)
+        diff = [k for k in stat_keys for s, w in zip(sts, want_sts)
+                if s[k] != w[k]] + [
+            k for k in a if not torch.equal(bits(a[k]), bits(b[k]))]
+        if diff:
+            raise AssertionError(f"encdec {path}: != {name} at {diff}")
+
+    zero_counts()                                 # the [encdec] path starts
+    serve("ssd cold", lssd, "fp32")
+    _, (st_ssd,) = serve("ssd warm", lssd, "fp32", keep=True)
+    _, (st_nh,) = serve("ficabu tau=-1", lssd.with_spec(spec("ficabu")),
+                        "fp32")
+    if st_ssd["stopped_at_l"] != L or st_nh["stopped_at_l"] != L \
+            or st_nh["checkpoints_hit"] != cps:
+        raise AssertionError(f"encdec ssd stopped at "
+                             f"{st_ssd['stopped_at_l']}, ficabu tau=-1 at "
+                             f"{st_nh['stopped_at_l']} through "
+                             f"{st_nh['checkpoints_hit']}")
+    trace = st_nh["forget_acc_trace"]
+    tau = trace[len(trace) // 2][1]
+    ficabu = lssd.with_spec(spec("ficabu", tau=tau))
+    serve("ficabu cold", ficabu, "fp32")
+    _, (st_h,) = serve("ficabu warm", ficabu, "fp32", keep=True)
+    log(f"[encdec] ficabu tau=-1 forget-accuracy trace {trace}; the halting "
+        f"request's tau {tau} (the trace at its middle checkpoint): stopped "
+        f"at l = {st_h['stopped_at_l']} of {L}")
+    if not st_h["stopped_at_l"] < L:
+        raise AssertionError("encdec ficabu did not halt partway")
+    for name in ("ssd warm", "ficabu warm"):
+        if runs[("fp32", name)][1][0]["engine"]["compiles"] != 0:
+            raise AssertionError(f"encdec {name} request built steps")
+    # "scanned": no plan, so the layerwise loop, bit for bit
+    for name, mode, kw in (("ssd", "ssd", {}),
+                           ("ficabu", "ficabu", {"tau": tau})):
+        new, sts = serve(f"{name} scanned", lssd.with_spec(
+            spec(mode, sweep_mode="scanned", **kw)), "fp32")
+        same_as(new, sts, "fp32", f"{name} warm")
+    del new
+    # kernel forget == plain forget
+    p_plain, st = lssd.with_spec(spec("ssd", use_kernel=False)).forget(
+        req, params=params)
+    same_as(p_plain, [st], "fp32", "ssd warm")
+    del p_plain
+    log(f"[encdec] scanned ssd and ficabu (the layerwise loop: no plan) == "
+        f"their layerwise requests, and the ssd forget with the kernel == "
+        f"the plain forget, bit for bit (all {len(stored)} stored leaves and "
+        f"stats)")
+    # int8: ssd cold and warm and the halting ficabu, on their q8 grids,
+    # per layer within INT8_SWEEP_RTOL of fp32; scanned and kernel == plain
+    int8_kw = {"precision": "int8", "quant": QuantSpec()}
+    lssd8 = lssd.with_spec(spec("ssd", **int8_kw))
+    serve("ssd cold", lssd8, "int8")
+    new8, (st8,) = serve("ssd warm", lssd8, "int8", keep=True)
+    serve("ficabu", lssd.with_spec(spec("ficabu", tau=tau, **int8_kw)),
+          "int8")
+    if st8["engine"]["compiles"] != 0:
+        raise AssertionError("encdec int8 ssd warm request built steps")
+    if not lm_on_q8_grid(adapter, new8, params, st8["stopped_at_l"]):
+        raise AssertionError("encdec int8 ssd: a leaf left its q8 grid")
+    rel = layer_rel_l2(adapter, new8, runs[("fp32", "ssd warm")][0])
+    log(f"[encdec] int8 ssd vs fp32 ssd: every leaf on its q8 grid; "
+        f"per-layer relative L2 (j = 0..{L - 1}) "
+        f"{[round(r, 6) for r in rel]}")
+    if not all(0.0 < r <= INT8_SWEEP_RTOL for r in rel):
+        raise AssertionError(f"encdec int8 ssd: per-layer error {rel} "
+                             f"outside (0, {INT8_SWEEP_RTOL}]")
+    new, sts = serve("ssd scanned", lssd.with_spec(
+        spec("ssd", sweep_mode="scanned", **int8_kw)), "int8")
+    same_as(new, sts, "int8", "ssd warm")
+    p_plain, st = lssd.with_spec(spec("ssd", use_kernel=False, **int8_kw)
+                                 ).forget(req, params=params)
+    same_as(p_plain, [st], "int8", "ssd warm")
+    del new, new8, p_plain
+    log("[encdec] int8: scanned ssd == layerwise, and the forget with the "
+        "kernel == the plain forget, bit for bit")
+    # a K = 2 ssd drain over two domains, layerwise and "scanned"
+    group = [req, req2]
+    serve("ssd K=2 drain", lssd, "fp32", group=group, keep=True)
+    new, sts = serve("ssd K=2 drain scanned", lssd.with_spec(
+        spec("ssd", sweep_mode="scanned")), "fp32", group=group)
+    same_as(new, sts, "fp32", "ssd K=2 drain")
+    del new
+    log(f"[encdec] K=2 ssd drain: 'scanned' == layerwise bit for bit, "
+        f"{runs[('fp32', 'ssd K=2 drain')][2]} launches and leaves")
+    path_counts = dampen_counts()                  # the [encdec] path ends
+    if fisher_counts() != (0, 0, 0, 0):
+        raise AssertionError(f"encdec requests launched fimd/gemm/rowscale "
+                             f"{fisher_counts()}")
+    for k, t in stored.items():
+        if not torch.equal(bits(t), bits(before[k])):
+            raise AssertionError(f"encdec: a request edited the caller's {k}")
+    del before
+    log(f"[encdec] the caller's tree unchanged after every request, the "
+        f"encoder of every result the caller's (its fake quantisation in "
+        f"int8); dampen counters over the path {path_counts}; peak "
+        f"{torch.cuda.max_memory_allocated() / gib:.2f} GiB")
+    for key in list(runs):
+        runs[key] = (None,) + runs[key][1:]
+
+    # where a warm ssd request spends its time
+    prof = {}
+    for path, unl in (("fp32", lssd), ("int8", lssd8)):
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            unl.forget(req, params=params)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t1) * 1e3)
+        wall = sorted(walls)[1]
+        busy, n_kernels, ranked = profile_request(
+            lambda: unl.forget(req, params=params), cpu=False)
+        damp = [(ms, count) for name, ms, count in ranked
+                if "dampen_group_kernel" in name]
+        prof[path] = (wall, busy, n_kernels)
+        log(f"[profile] warm whisper-tiny {path} ssd request: wall "
+            f"{wall:.2f} ms (median of {[round(w, 2) for w in walls]}), "
+            f"device busy {busy:.3f} ms, idle share {1 - busy / wall:.3f}, "
+            f"{n_kernels} device kernels, of them {sum(c for _, c in damp)} "
+            f"dampen_group_kernel ({sum(ms for ms, _ in damp):.4f} ms)")
+        for name, ms, count in ranked[:6]:
+            log(f"[profile]   {ms:9.3f} ms  x{count:<6d} {name[:70]}")
+    # the dampen sweep of one ssd request against its byte bound
+    tables = lm_tables(adapter, params, fisher,
+                       torch.Generator(device=dev).manual_seed(SEED + 4), dev)
+    n_el = sum(t.numel() for ths, _, _ in tables for t in ths)
+
+    def sweep(fn, tabs):
+        for ths, i_fs, i_gs in tabs:
+            fn(ths, i_fs, i_gs, ENCDEC_ALPHA, 1.0)
+
+    tl = {"fp32": cuda_time_ms(lambda: sweep(kd.dampen_group_cuda, tables),
+                               20, queue_ahead=True),
+          "fp32_plain": cuda_time_ms(
+              lambda: sweep(kd.dampen_group_ref, tables), 3,
+              queue_ahead=True)}
+    tables = [([q8_quantize(th)[0] for th in ths], i_fs, i_gs)
+              for ths, i_fs, i_gs in tables]
+    tl["int8"] = cuda_time_ms(lambda: sweep(kd.dampen_int8_group_cuda,
+                                            tables), 20, queue_ahead=True)
+    tl["int8_plain"] = cuda_time_ms(
+        lambda: sweep(kd.dampen_int8_group_ref, tables), 3, queue_ahead=True)
+    del tables
+    # bf16 theta: 2 + 4 + 4 read, 2 + 1 written; int8 codes: 1 + 4 + 4
+    # read, 1 + 1 written; and each launch's 8-byte count
+    lbound = {"fp32": (n_el * 13 + 8 * L) / rate * 1e3,
+              "int8": (n_el * 11 + 8 * L) / rate * 1e3}
+    for kernel, path in (("dampen", "fp32"), ("dampen_int8", "int8")):
+        log(f"[time] {kernel} whisper-tiny sweep device ({L} grouped "
+            f"launches, {n_el} elements): kernel {tl[path]:.5f} ms, plain "
+            f"{tl[path + '_plain']:.5f} ms, bound {lbound[path]:.5f} ms "
+            f"({lbound[path] / tl[path] * 100:.1f}% of the memory bound)")
+
+    # decode: encode once, then DECODE_TOKENS tokens one at a time through
+    # decode_step against the forward's logits
+    del fisher, lssd, lssd8, ficabu
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    tokens = req.inputs[:2, :DECODE_TOKENS]
+    fr = frames[:2]
+    with torch.no_grad():
+        full = ED.forward(params, cfg, tokens, fr)
+        memory = ED.encode(params, cfg, fr)
+        cache = ED.init_cache(cfg, 2, DECODE_TOKENS, device="cuda")
+        steps = []
+        for i in range(DECODE_TOKENS):
+            lg, cache = ED.decode_step(params, cfg, tokens[:, i:i + 1], cache,
+                                       i, memory)
+            steps.append(lg)
+    dec = decode_agrees("whisper-tiny", f"encode + {DECODE_TOKENS} decode "
+                        f"steps vs forward", torch.cat(steps, 1), full,
+                        DECODE_RTOL)
+    dec_secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / gib
+    secs = time.perf_counter() - t_phase
+    log(f"[encdec] phase done in {secs:.1f} s; torch.cuda.max_memory_allocated"
+        f" {peak:.2f} GiB")
+    out = {}
+    for path in ("fp32", "int8"):
+        out[path] = {
+            "encdec_launches": path_counts[0 if path == "fp32" else 2],
+            "encdec_leaves": path_counts[1 if path == "fp32" else 3],
+            "encdec_launches_per_ssd_request": runs[(path, "ssd warm")][2][0],
+            "encdec_leaves_per_ssd_request": runs[(path, "ssd warm")][2][1],
+            "encdec_sweep_ms": tl[path],
+            "encdec_sweep_plain_ms": tl[path + "_plain"],
+            "encdec_sweep_bound_ms": lbound[path],
+            "encdec_warm_ssd_wall_ms": prof[path][0],
+            "encdec_warm_ssd_device_busy_ms": prof[path][1],
+            "encdec_warm_ssd_device_kernels": prof[path][2],
+        }
+    out["fp32"].update({
+        "encdec_k2_drain_launches_leaves": list(
+            runs[("fp32", "ssd K=2 drain")][2]),
+        "encdec_int8_rel_l2": rel,
+        "encdec_decode_rel_l2": dec[0],
+        "encdec_decode_argmax_agreement": dec[1],
+        "encdec_decode_seconds": dec_secs,
+        "encdec_peak_gib": peak,
+        "encdec_phase_seconds": secs})
+    del params, runs, stored, layers, frames, frames_retain
     torch.cuda.empty_cache()
     return out, gerr
 
@@ -3582,7 +4103,14 @@ def main() -> int:
     for k in gmax_err:
         gmax_err[k] = max(gmax_err[k], moe_err[k])
 
-    # 13. times at the main paths' shapes. The sweep as a request launches
+    # 13. [encdec]: whisper-tiny FULL, fp32 (bf16 weights) and int8, the
+    # layerwise loop (scanned has no plan), a K = 2 drain, and decode
+    encdec, encdec_err = encdec_phase(dev, rate, zero_counts, dampen_counts,
+                                      fisher_counts)
+    for k in gmax_err:
+        gmax_err[k] = max(gmax_err[k], encdec_err[k])
+
+    # 14. times at the main paths' shapes. The sweep as a request launches
     # it: one grouped launch per layer, back to front, on the layers' own
     # tensors against the global Fisher; beside it the same 56 leaves one
     # launch each, as the request launched them before the grouped kernel
@@ -4030,7 +4558,7 @@ def main() -> int:
         "vit_sweep_ms": tv["fp32"], "vit_sweep_plain_ms": tv["fp32_plain"],
         "vit_sweep_bound_ms": vbound["fp32"],
         **scanned_keys("fp32"), **lm["fp32"], **rec["fp32"],
-        **dense["fp32"], **moe["fp32"],
+        **dense["fp32"], **moe["fp32"], **encdec["fp32"],
         "max_abs_err": max(max_err, gmax_err["dampen"]),
         "ms": t["sweep_kernel"], "plain_ms": t["sweep_plain"],
         "bound_ms": bound["sweep"], "bound_by": "bytes",
@@ -4058,7 +4586,7 @@ def main() -> int:
         "vit_sweep_ms": tv["int8"], "vit_sweep_plain_ms": tv["int8_plain"],
         "vit_sweep_bound_ms": vbound["int8"],
         **scanned_keys("int8"), **lm["int8"], **rec["int8"],
-        **dense["int8"], **moe["int8"],
+        **dense["int8"], **moe["int8"], **encdec["int8"],
         "max_abs_err": max(max_err8, gmax_err["dampen_int8"]),
         "ms": t8["sweep_kernel"], "plain_ms": t8["sweep_plain"],
         "bound_ms": bound8["sweep"], "bound_by": "bytes",

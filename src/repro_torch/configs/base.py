@@ -2,8 +2,9 @@
 selectable config carrying its FULL published config, a REDUCED smoke
 config (CPU-runnable) and its input-shape cells.
 
-The port registers only the archs it can build; ``get`` of any other arch
-raises a ``KeyError`` that names the ported ones.
+The port registers the archs it builds (all ten of the reference's since
+the encoder-decoder came); ``get`` of any other name raises a ``KeyError``
+that names them.
 """
 from __future__ import annotations
 
@@ -30,6 +31,8 @@ SHAPES: Dict[str, ShapeCell] = {
     "long_500k": ShapeCell("long_500k", 524_288, 1, "long_decode"),
 }
 
+ENCDEC_CHUNKED_SKIP = ("enc-dec serving prefills the short decoder prompt "
+                       "full-sequence; chunked prefill targets LM prompts")
 PREFIX_CHUNKED_SKIP = ("stub modality prefix is injected ahead of the token "
                        "stream; chunked prefill covers the token path only")
 
@@ -37,8 +40,8 @@ PREFIX_CHUNKED_SKIP = ("stub modality prefix is injected ahead of the token "
 @dataclasses.dataclass(frozen=True)
 class ArchSpec:
     arch_id: str
-    kind: str                    # "lm" (the encoder-decoder is not ported)
-    full: Any                    # LMConfig (the published config)
+    kind: str                    # "lm" | "encdec"
+    full: Any                    # LMConfig | EncDecConfig (the published config)
     smoke: Any                   # reduced same-family config
     source: str                  # provenance tag
     skip_shapes: Dict[str, str] = dataclasses.field(default_factory=dict)

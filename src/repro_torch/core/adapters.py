@@ -2,10 +2,10 @@
 
 MAC formulas are per-sample forward multiply-accumulates — the hardware
 proxy the paper reports. The paper's two vision models, ResNet-18 and ViT,
-and the decoder LM (attention and recurrent blocks, dense or MoE FFN) are
-served. An LM with a stub modality prefix gets its per-layer view, but the
-engine's layer sweep refuses it, as the reference's cannot run it
-(``lm_adapter``). (The encoder-decoder adapter comes with a later slice.)
+the decoder LM (attention and recurrent blocks, dense or MoE FFN) and the
+encoder-decoder (its decoder chain) are served. An LM with a stub modality
+prefix gets its per-layer view, but the engine's layer sweep refuses it,
+as the reference's cannot run it (``lm_adapter``).
 """
 from __future__ import annotations
 
@@ -14,7 +14,9 @@ from typing import List, Optional
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.models import encdec as ED
 from repro_torch.models import lm as LM
+from repro_torch.models.module import index_tree, tree_map
 from repro_torch.models import vision as V
 
 from .cau import ModelAdapter
@@ -242,3 +244,89 @@ def lm_adapter(cfg: LM.LMConfig, seq_len: int,
         exclude=exclude,
         layer_key=layer_key, layer_ctx=layer_ctx,
         device=dev, sweep_refusal=refusal)
+
+
+# ---------------------------------------------------------------------------
+# Encoder-decoder (whisper): the sweep walks the DECODER chain; the encoder
+# is the front end (DESIGN.md §5), reached only by a whole-tree edit
+# ---------------------------------------------------------------------------
+def encdec_adapter(cfg: ED.EncDecConfig, seq_len: int,
+                   frames: torch.Tensor, *, device="cuda") -> ModelAdapter:
+    """inputs = decoder tokens [N, S] (integer ids, never cast); labels
+    [N, S]; ``frames`` [N_f, n_frames, d_model] the stub frontend's
+    embeddings, fixed for the adapter. Layers: j = 0 the embedding, the
+    decoder blocks, then the head (``final_norm`` and ``lm_head``).
+
+    A decoder block re-encodes ``frames`` with the full tree it is given,
+    on every call, as the reference does; the memory takes no part in any
+    gradient, so the encoder is never edited. With no ``layer_ctx`` the
+    engine hands every layer the full tree, and the scanned planner
+    declines the model (the reference's too). The cross attention
+    reshapes the memory's keys by the query's batch: a vjp chunk smaller
+    than ``frames``' batch attends each row to several rows' frames, as
+    in the reference (ROADMAP Queue 3)."""
+    dev = resolve_device(device)
+    Lu = cfg.n_dec_layers + 2  # embed + decoder blocks + head
+    D, F, V_ = cfg.d_model, cfg.d_ff, cfg.vocab
+    S, M = seq_len, cfg.n_frames
+    block = (S * D * (cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.dh * 2
+             + 2 * S * S * D + 2 * S * M * D + 3 * S * D * F)
+    macs = [0] + [block] * cfg.n_dec_layers + [S * D * V_]
+
+    def apply_layer(params, j, layer_p, act):
+        if j == 0:
+            return layer_p["w"].to(cfg.dtype)[act]
+        if j == Lu - 1:
+            return ED._logits(layer_p, cfg, act)
+        with torch.no_grad():
+            memory = ED.encode(params, cfg, frames)
+        return ED.dec_block(layer_p, cfg, act, memory, LM._positions(act))
+
+    def get_layer(p, j):
+        if j == 0:
+            return p["embed"]
+        if j == Lu - 1:
+            return {"final_norm": p["final_norm"], "lm_head": p["lm_head"]}
+        return index_tree(p["decoder"], j - 1)
+
+    def set_layer(p, j, s):
+        p = dict(p)
+        if j == 0:
+            p["embed"] = s
+        elif j == Lu - 1:
+            p["final_norm"] = s["final_norm"]
+            p["lm_head"] = s["lm_head"]
+        else:
+            p["decoder"] = tree_map(
+                lambda full, sub: LM._set_row(full, j - 1, sub),
+                p["decoder"], s)
+        return p
+
+    def fc(params, tokens):
+        acts = [tokens]
+        x = apply_layer(params, 0, params["embed"], tokens)
+        for j in range(1, Lu):
+            acts.append(x)
+            x = apply_layer(params, j, get_layer(params, j), x)
+        return x, acts
+
+    def loss(logits, labels):
+        return LM.softmax_xent(logits, labels, z_loss=0.0)
+
+    def layer_key(j):
+        # the decoder blocks share one fused step; no layer_ctx: the
+        # engine passes the full tree, which apply_layer re-encodes from
+        if j == 0:
+            return ("embed",)
+        if j == Lu - 1:
+            return ("head",)
+        return ("blk",)
+
+    return ModelAdapter(
+        name=cfg.name, n_layers=Lu,
+        forward_collect=fc,
+        apply_layer=apply_layer,
+        get_layer=get_layer, set_layer=set_layer,
+        loss=loss, acc=token_accuracy,
+        layer_fwd_macs=macs, int_input_layer0=True,
+        layer_key=layer_key, device=dev)

@@ -27,9 +27,19 @@ weights keep the JAX layout [d_in, d_out].
 Past ``2 * Q_CHUNK`` queries (a multiple of ``Q_CHUNK``) attention runs
 the reference's query-chunked path: blocks of ``Q_CHUNK`` queries against
 the whole of k/v, each rematerialised in the backward, so the S x S score
-matrix is never stored. (Context-parallel attention, cross attention,
-decode and prefill with a KV cache and the MoE's expert-parallel sharding
-constraints come with later slices.)
+matrix is never stored.
+
+Cross attention (``AttnConfig.cross``) takes its keys and values from
+``kv_src`` (an encoder's memory) with neither RoPE nor a causal mask. The
+keys and values are reshaped by the QUERY's batch, as the reference writes
+it: a query batch smaller than the memory's makes each row attend to the
+frames of several memory rows (ROADMAP Queue 3). The serving forms keep
+the reference's caches: ``attention_decode`` (one token against a KV cache,
+at one position for every row or at a position per row, a sliding window
+as a ring buffer), ``attention_prefill`` (a chunk of tokens against the
+cache, no ring wrap) and ``init_kv_cache``. (Context-parallel attention and
+the MoE's expert-parallel sharding constraints need the distribution layer
+and raise "not ported yet".)
 """
 from __future__ import annotations
 
@@ -100,7 +110,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Attention (GQA; bidirectional, causal, sliding-window causal)
+# Attention (GQA; bidirectional, causal, sliding-window causal, cross)
 # ---------------------------------------------------------------------------
 @dataclasses.dataclass(frozen=True)
 class AttnConfig:
@@ -116,15 +126,25 @@ class AttnConfig:
     use_rope: bool = False
     causal: bool = False
     window: int = 0          # 0: full attention; > 0: sliding window
+    cross: bool = False      # cross attention (k/v from an encoder's memory)
+    d_kv_in: int = 0         # input width of the k/v projections when cross
+    cp: int = 0              # context-parallel segments: not ported
+
+
+def _cp_not_ported(cp: int) -> ValueError:
+    return ValueError(f"context-parallel attention (cp={cp}) is not ported "
+                      f"yet: it shards the queries over a mesh; see "
+                      f"ROADMAP.md Queue 1")
 
 
 def init_attention(gen: torch.Generator, cfg: AttnConfig, *, device,
                    dtype=F32) -> Dict:
     d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    d_kv_in = cfg.d_kv_in or d
     p = {
         "wq": dense_init(gen, d, h * dh, device=device, dtype=dtype),
-        "wk": dense_init(gen, d, kv * dh, device=device, dtype=dtype),
-        "wv": dense_init(gen, d, kv * dh, device=device, dtype=dtype),
+        "wk": dense_init(gen, d_kv_in, kv * dh, device=device, dtype=dtype),
+        "wv": dense_init(gen, d_kv_in, kv * dh, device=device, dtype=dtype),
         "wo": dense_init(gen, h * dh, d, device=device, dtype=dtype),
     }
     if cfg.qkv_bias:
@@ -142,21 +162,29 @@ def _proj(x: torch.Tensor, w: torch.Tensor,
     return y.to(x.dtype)
 
 
-def _qkv(p: Dict, cfg: AttnConfig, x: torch.Tensor):
+def _qkv(p: Dict, cfg: AttnConfig, x: torch.Tensor,
+         kv_src: Optional[torch.Tensor] = None):
+    """q from x, k and v from ``kv_src`` (x itself when None), each
+    reshaped by x's batch B (the reference's reshape, also for a memory of
+    another batch)."""
     B = x.shape[0]
     h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    src = x if kv_src is None else kv_src
     q = _proj(x, p["wq"], p.get("bq")).reshape(B, -1, h, dh)
-    k = _proj(x, p["wk"], p.get("bk")).reshape(B, -1, kv, dh)
-    v = _proj(x, p["wv"], p.get("bv")).reshape(B, -1, kv, dh)
+    k = _proj(src, p["wk"], p.get("bk")).reshape(B, -1, kv, dh)
+    v = _proj(src, p["wv"], p.get("bv")).reshape(B, -1, kv, dh)
     return q, k, v
 
 
 def _sdpa_block(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 dtype, causal: bool = False, window: int = 0,
-                q_offset: int = 0) -> torch.Tensor:
+                q_offset: int = 0,
+                valid: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Attention over one block of queries, the first at position
     ``q_offset`` of the keys' sequence.
-    q [B, Sq, H, Dh]; k, v [B, Sk, KV, Dh] (H a multiple of KV)."""
+    q [B, Sq, H, Dh]; k, v [B, Sk, KV, Dh] (H a multiple of KV).
+    ``valid``: an optional bool mask of the keys, [Sk] (a decode cache's
+    filled slots) or [B, Sk] (each row at its own position)."""
     B, Sq, H, Dh = q.shape
     KV = k.shape[2]
     G = H // KV
@@ -171,6 +199,9 @@ def _sdpa_block(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         # a Python scalar, not a tensor made on the host: no copy to the
         # card (the scanned program runs without a host sync)
         scores = torch.where(m, scores, -1e30)
+    if valid is not None:
+        vmask = valid[:, None, None, None, :] if valid.dim() == 2 else valid
+        scores = torch.where(vmask, scores, -1e30)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", probs, v.to(F32))
     return out.reshape(B, Sq, H, Dh).to(dtype)
@@ -193,19 +224,107 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def attention(p: Dict, cfg: AttnConfig, x: torch.Tensor,
-              positions: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Full-sequence self-attention (train / prefill), x [B, S, D];
-    ``positions`` [B, S] default to 0..S-1 in every row."""
+              positions: Optional[torch.Tensor] = None,
+              kv_src: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Full-sequence attention (train / prefill), x [B, S, D]; ``positions``
+    [B, S] default to 0..S-1 in every row. With ``cross`` the keys and
+    values come from ``kv_src``, with no RoPE and no causal mask."""
     B, S = x.shape[0], x.shape[1]
+    if cfg.cp > 1 and S % cfg.cp == 0 and kv_src is None and S > 1:
+        raise _cp_not_ported(cfg.cp)
     if positions is None:
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
-    q, k, v = _qkv(p, cfg, x)
-    if cfg.use_rope:
+    q, k, v = _qkv(p, cfg, x, kv_src)
+    if cfg.use_rope and not cfg.cross:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-    out = _sdpa(q, k, v, x.dtype, cfg.causal,
-                cfg.window if cfg.causal else 0)
+    causal = cfg.causal and not cfg.cross
+    out = _sdpa(q, k, v, x.dtype, causal, cfg.window if causal else 0)
     return _proj(out.reshape(B, S, -1), p["wo"])
+
+
+def attention_decode(p: Dict, cfg: AttnConfig, x: torch.Tensor, cache: Dict,
+                     pos) -> Tuple[torch.Tensor, Dict]:
+    """One token per row against a KV cache.
+
+    x [B, 1, D]; cache {"k", "v"}: [B, S_max, KV, Dh] (a window cache is a
+    ring buffer of ``window`` slots); pos: the current position, a scalar
+    for every row or a [B] vector, a position per row (the slot pool of
+    continuous batching). The token's k/v are written at slot ``pos``
+    (``pos % S_max`` in a ring), and the query attends to the filled
+    slots. Returns (out [B, 1, D], the new cache); the caller's cache is
+    left as it was."""
+    B = x.shape[0]
+    pos = torch.as_tensor(pos, dtype=torch.int64, device=x.device)
+    per_row = pos.dim() == 1
+    q, k_new, v_new = _qkv(p, cfg, x)
+    if cfg.use_rope:
+        pvec = pos[:, None] if per_row else pos.expand(B, 1)
+        q = apply_rope(q, pvec, cfg.rope_theta)
+        k_new = apply_rope(k_new, pvec, cfg.rope_theta)
+    S_max = cache["k"].shape[1]
+    slot = pos % S_max if cfg.window > 0 else pos
+    kd, vd = cache["k"].dtype, cache["v"].dtype
+    if per_row:
+        rows = torch.arange(B, device=x.device)
+        k = cache["k"].index_put((rows, slot), k_new[:, 0].to(kd))
+        v = cache["v"].index_put((rows, slot), v_new[:, 0].to(vd))
+    else:
+        # the reference's dynamic_update_slice clamps the start into range
+        at = slot.clamp(max=S_max - 1).reshape(1)
+        k = cache["k"].index_copy(1, at, k_new.to(kd))
+        v = cache["v"].index_copy(1, at, v_new.to(vd))
+    ik = torch.arange(S_max, device=x.device)
+    if per_row:
+        if cfg.window > 0:
+            age = torch.remainder(slot[:, None] - ik[None, :], S_max)
+            valid = age < torch.clamp_max(pos[:, None] + 1, S_max)
+        else:
+            valid = ik[None, :] <= pos[:, None]
+    elif cfg.window > 0:
+        # a ring buffer: the valid slots hold the last ``window`` positions
+        age = torch.remainder(slot - ik, S_max)
+        valid = age < torch.clamp_max(pos + 1, S_max)
+    else:
+        valid = ik <= pos
+    out = _sdpa_block(q, k, v, x.dtype, valid=valid)
+    out = _proj(out.reshape(B, 1, -1), p["wo"])
+    return out, {"k": k, "v": v}
+
+
+def attention_prefill(p: Dict, cfg: AttnConfig, x: torch.Tensor, cache: Dict,
+                      pos0: int) -> Tuple[torch.Tensor, Dict]:
+    """A chunk of C tokens at positions pos0..pos0+C-1 against the KV
+    cache, x [B, C, D]: writes the chunk's k/v at those slots and attends
+    each query to its causal prefix in one block, the decode step's mask
+    values over the same key axis. Needs pos0 + C <= the cache's slots (no
+    ring wrap); ``lm.prefill`` checks it and otherwise steps token by
+    token. Returns (out [B, C, D], the new cache)."""
+    B, C = x.shape[0], x.shape[1]
+    pos0 = int(pos0)
+    q, k_new, v_new = _qkv(p, cfg, x)
+    if cfg.use_rope:
+        pvec = (pos0 + torch.arange(C, device=x.device))[None].expand(B, C)
+        q = apply_rope(q, pvec, cfg.rope_theta)
+        k_new = apply_rope(k_new, pvec, cfg.rope_theta)
+    k, v = cache["k"].clone(), cache["v"].clone()
+    k[:, pos0:pos0 + C] = k_new.to(k.dtype)
+    v[:, pos0:pos0 + C] = v_new.to(v.dtype)
+    # no wrap: the window never binds inside the cache, so the mask is
+    # causal only, as attention_decode's slot mask
+    out = _sdpa_block(q, k, v, x.dtype, causal=True, q_offset=pos0)
+    out = _proj(out.reshape(B, C, -1), p["wo"])
+    return out, {"k": k, "v": v}
+
+
+def init_kv_cache(cfg: AttnConfig, batch: int, seq_len: int, dtype, *,
+                  device) -> Dict:
+    """Zeroed k/v caches [batch, size, KV, Dh]: ``seq_len`` slots, or
+    ``min(seq_len, window)`` for a sliding window's ring buffer."""
+    size = min(seq_len, cfg.window) if cfg.window > 0 else seq_len
+    shape = (batch, size, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
 # ---------------------------------------------------------------------------

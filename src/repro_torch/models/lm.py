@@ -1,4 +1,4 @@
-"""Causal decoder LM of the port: ``repro.models.lm``'s forward pass.
+"""Causal decoder LM of the port: ``repro.models.lm``.
 
 Layer pattern
 -------------
@@ -19,17 +19,31 @@ adds at ``aux_weight``. With ``prefix_len > 0`` a stub modality prefix
 (precomputed frame or patch embeddings [B, P, d_model]) goes ahead of the
 token embeddings, and ``lm_loss`` scores the token positions only.
 
-Context-parallel attention, the MoE's expert-parallel sharding constraints
-and the decode / prefill paths with their caches are not ported yet: a
-config that asks for one raises a ``ValueError`` that says so. ``LMConfig``
-keeps every field of the reference, so that configs copy over unchanged.
+Execution modes
+---------------
+* ``forward``      the whole sequence (training, the forget request);
+* ``decode_step``  one token per row against per-block caches
+  (``init_cache``: KV caches, ring buffers for sliding windows, the
+  recurrent blocks' O(1) states), at one position or a position per row;
+  ``scatter_cache_rows`` writes a smaller batch's caches into a pool;
+* ``prefill``      a prompt [B, P] in chunks against the same caches: an
+  attention block with a dense FFN takes a chunk in one wide product when
+  no cache can wrap (``attention_prefill``), every other block steps
+  through the chunk token by token with ``block_decode``.
+
+Context-parallel attention and the MoE's expert-parallel sharding
+constraints are not ported yet: a config that asks for one raises a
+``ValueError`` that says so. ``LMConfig`` keeps every field of the
+reference, so that configs copy over unchanged.
 
 Parameters keep the reference's layout and keys: ``period_stack`` holds the
 blocks of the ``n_periods`` whole pattern periods, each leaf stacked
 ``[n_periods, ...]`` (an MoE block's expert stacks [n_periods, E, d, f]);
 ``tail`` the blocks past them; then ``embed``, ``final_norm`` and, without
-tied embeddings, ``lm_head``. ``forward`` walks the periods in a Python
-loop where the reference scans them.
+tied embeddings, ``lm_head``. A cache tree has the same ``period_stack`` /
+``tail`` layout (its stacked leaves [n_periods, B, ...]). ``forward``,
+``decode_step`` and ``prefill_block`` walk the periods in a Python loop
+where the reference scans them.
 
 The unlearn-layer view (``get_layer`` / ``set_layer`` / ``apply_layer``) is
 what the FiCABU engine edits: depth j = 0 is the embedding, j = 1..n_layers
@@ -42,7 +56,7 @@ reference's ``.at[i].set`` does.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Any, List, Optional, Tuple
 
 import torch
 
@@ -220,6 +234,55 @@ def block_forward(p: Params, cfg: LMConfig, btype: str, x: torch.Tensor,
     return x, aux
 
 
+def init_block_cache(cfg: LMConfig, btype: str, batch: int, seq_len: int,
+                     *, device) -> Any:
+    """A block's decode cache: the KV cache of an attention block, the
+    state of a recurrent one."""
+    _check_block(cfg, btype)
+    if btype in ("attn", "local"):
+        return L.init_kv_cache(cfg.attn_cfg(btype), batch, seq_len,
+                               cfg.dtype, device=device)
+    if btype == "mlstm":
+        return R.init_mlstm_state(cfg.mlstm_cfg(), batch, device=device)
+    if btype == "slstm":
+        return R.init_slstm_state(cfg.slstm_cfg(), batch, device=device)
+    return R.init_rglru_state(cfg.rglru_cfg(), batch, cfg.dtype,
+                              device=device)
+
+
+def block_decode(p: Params, cfg: LMConfig, btype: str, x: torch.Tensor,
+                 cache: Any, pos) -> Tuple[torch.Tensor, Any]:
+    """One token per row, x [B, 1, D], at ``pos`` (a scalar or [B]) ->
+    (x_out, the block's new cache)."""
+    _check_block(cfg, btype)
+    h = L.rmsnorm(p["ln1"], x)
+    if btype in ("attn", "local"):
+        m, cache = L.attention_decode(p["mixer"], cfg.attn_cfg(btype), h,
+                                      cache, pos)
+    elif btype == "mlstm":
+        m, cache = R.mlstm_decode(p["mixer"], cfg.mlstm_cfg(), h, cache)
+    elif btype == "slstm":
+        m, cache = R.slstm_decode(p["mixer"], cfg.slstm_cfg(), h, cache)
+    else:
+        m, cache = R.rglru_decode(p["mixer"], cfg.rglru_cfg(), h, cache)
+    x = x + m
+    if cfg.d_ff > 0:
+        h = L.rmsnorm(p["ln2"], x)
+        if cfg.moe:
+            f, _ = L.moe_ffn(p["ffn"], cfg.moe_cfg(), h)
+        else:
+            f = L.mlp(p["ffn"], h)
+        x = x + f
+    return x, cache
+
+
+def _stack(trees: List[Any]) -> Any:
+    """Trees of one structure -> one tree of their leaves stacked on a new
+    leading axis."""
+    return tree_unflatten(trees[0], [
+        torch.stack(xs) for xs in zip(*(tree_leaves(t) for t in trees))])
+
+
 # ---------------------------------------------------------------------------
 # Full model
 # ---------------------------------------------------------------------------
@@ -242,8 +305,7 @@ def init_lm(gen: torch.Generator, cfg: LMConfig, *, device="cuda") -> Params:
         "final_norm": L.init_rmsnorm(cfg.d_model, device=device, dtype=dt),
     }
     if periods:
-        p["period_stack"] = tree_unflatten(periods[0], [
-            torch.stack(xs) for xs in zip(*(tree_leaves(q) for q in periods))])
+        p["period_stack"] = _stack(periods)
     if tail:
         p["tail"] = {str(i): t for i, t in enumerate(tail)}
     if not cfg.tie_embeddings:
@@ -304,6 +366,185 @@ def forward(params: Params, cfg: LMConfig, tokens: torch.Tensor,
                                    cfg.layer_types[base + i], x, positions)
             aux_total = aux_total + aux
     return _head(params, cfg, x), aux_total
+
+
+# ---------------------------------------------------------------------------
+# Decode: caches and one token per row
+# ---------------------------------------------------------------------------
+def init_cache(cfg: LMConfig, batch: int, seq_len: int, *,
+               device="cuda") -> Params:
+    """Zeroed decode caches of every block for ``batch`` rows of up to
+    ``seq_len`` positions, in the parameters' layout (raises without a
+    card unless device="cpu")."""
+    device = resolve_device(device)
+    pat = cfg.block_pattern
+    cache: Params = {}
+    if cfg.n_periods > 0:
+        period = {str(i): init_block_cache(cfg, bt, batch, seq_len,
+                                           device=device)
+                  for i, bt in enumerate(pat)}
+        cache["period_stack"] = tree_map(
+            lambda x: x[None].expand(cfg.n_periods, *x.shape).clone(),
+            period)
+    if cfg.n_tail:
+        base = cfg.n_periods * len(pat)
+        cache["tail"] = {str(i): init_block_cache(
+            cfg, cfg.layer_types[base + i], batch, seq_len, device=device)
+            for i in range(cfg.n_tail)}
+    return cache
+
+
+def _walk(params: Params, cfg: LMConfig, x: torch.Tensor, cache: Params,
+          step) -> Tuple[torch.Tensor, Params]:
+    """``step(block_p, btype, x, block_cache) -> (x, new block cache)``
+    over every block, front to back: the new cache tree."""
+    pat = cfg.block_pattern
+    new_cache: Params = {}
+    if "period_stack" in params:
+        outs = []
+        for pi in range(cfg.n_periods):
+            period_p = index_tree(params["period_stack"], pi)
+            period_c = index_tree(cache["period_stack"], pi)
+            new_c = {}
+            for i, bt in enumerate(pat):
+                x, new_c[str(i)] = step(period_p[str(i)], bt, x,
+                                        period_c[str(i)])
+            outs.append(new_c)
+        new_cache["period_stack"] = _stack(outs)
+    if "tail" in params:
+        base = cfg.n_periods * len(pat)
+        new_cache["tail"] = {}
+        for i in range(cfg.n_tail):
+            x, new_cache["tail"][str(i)] = step(
+                params["tail"][str(i)], cfg.layer_types[base + i], x,
+                cache["tail"][str(i)])
+    return x, new_cache
+
+
+def decode_step(params: Params, cfg: LMConfig, token: torch.Tensor,
+                cache: Params, pos) -> Tuple[torch.Tensor, Params]:
+    """token [B, 1]; pos a scalar (every row at one position) or [B] (a
+    position per row) -> (logits [B, 1, V] f32, the new cache)."""
+    x = params["embed"]["w"].to(cfg.dtype)[token]
+    x, new_cache = _walk(params, cfg, x, cache,
+                         lambda p, bt, h, c: block_decode(p, cfg, bt, h, c,
+                                                          pos))
+    return _head(params, cfg, x), new_cache
+
+
+def scatter_cache_rows(pool: Params, sub: Params,
+                       rows: torch.Tensor) -> Params:
+    """``sub``'s batch rows written into a copy of ``pool`` at the row
+    indices ``rows``; both are ``init_cache`` trees of one config,
+    ``sub`` of a smaller batch. ``period_stack`` leaves hold the batch on
+    axis 1, ``tail`` leaves on axis 0. A row index past the pool's batch
+    is dropped (continuous batching pads its prefill batch with such
+    rows), as the reference's scatter in mode "drop"; a negative index
+    counts from the end, as there."""
+    rows = torch.as_tensor(rows, dtype=torch.int64)
+
+    def put(c, s, axis):
+        n = c.shape[axis]
+        r = rows.to(c.device)
+        r = torch.where(r < 0, r + n, r)
+        # a dropped row lands on one extra slot past the pool, cut off after
+        r = torch.where((r < 0) | (r > n), n, r)
+        pad = list(c.shape)
+        pad[axis] = 1
+        out = torch.cat([c, c.new_zeros(pad)], dim=axis).index_copy(
+            axis, r, s.to(c.dtype))
+        return out.narrow(axis, 0, n)
+
+    out: Params = {}
+    if "period_stack" in pool:
+        out["period_stack"] = tree_map(lambda c, s: put(c, s, 1),
+                                       pool["period_stack"],
+                                       sub["period_stack"])
+    if "tail" in pool:
+        out["tail"] = tree_map(lambda c, s: put(c, s, 0), pool["tail"],
+                               sub["tail"])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Chunked prefill: a prompt [B, P] in blocks against the decode caches
+# ---------------------------------------------------------------------------
+# Two forms of a block, both the decode step's arithmetic per token:
+#   * wide: an attention block takes the whole chunk in one product
+#     against its cache (layers.attention_prefill), and a dense FFN the
+#     chunk as one product; only with no ring wrap (P <= every attention
+#     cache's slots) and no MoE (capacity couples a dispatch's tokens);
+#   * stepwise: block_decode over the chunk's tokens, one after another.
+# The reference holds both bit-exact against decode_step token by token;
+# the port holds them within a tolerance (ROADMAP Queue 3).
+def block_prefill(p: Params, cfg: LMConfig, btype: str, x: torch.Tensor,
+                  cache: Any, pos0: int, wide: bool
+                  ) -> Tuple[torch.Tensor, Any]:
+    """x [B, C, D] for positions pos0..pos0+C-1 -> (x_out, new cache)."""
+    if wide and btype in ("attn", "local") and cfg.moe is None:
+        _check_block(cfg, btype)
+        h = L.rmsnorm(p["ln1"], x)
+        m, cache = L.attention_prefill(p["mixer"], cfg.attn_cfg(btype), h,
+                                       cache, pos0)
+        x = x + m
+        if cfg.d_ff > 0:
+            x = x + L.mlp(p["ffn"], L.rmsnorm(p["ln2"], x))
+        return x, cache
+    ys = []
+    for t in range(x.shape[1]):
+        y, cache = block_decode(p, cfg, btype, x[:, t:t + 1], cache,
+                                pos0 + t)
+        ys.append(y)
+    return torch.cat(ys, dim=1), cache
+
+
+def prefill_block(params: Params, cfg: LMConfig, tokens: torch.Tensor,
+                  cache: Params, pos0: int, wide: bool = True,
+                  last_only: bool = True) -> Tuple[torch.Tensor, Params]:
+    """One prefill chunk, tokens [B, C] at positions pos0.. -> (logits,
+    new cache). ``last_only`` applies the head to the chunk's last
+    position only (all a serving prefill needs); False gives [B, C, V]."""
+    pos0 = int(pos0)
+    x = params["embed"]["w"].to(cfg.dtype)[tokens]
+    x, new_cache = _walk(params, cfg, x, cache,
+                         lambda p, bt, h, c: block_prefill(p, cfg, bt, h, c,
+                                                           pos0, wide))
+    if last_only:
+        x = x[:, -1:]
+    return _head(params, cfg, x), new_cache
+
+
+def _min_attn_cache(cfg: LMConfig, cache: Params) -> int:
+    """The fewest slots of any attention cache: the no-wrap bound of the
+    wide prefill (a window's ring buffer wraps past it)."""
+    sizes = []
+    pat = cfg.block_pattern
+    if "period_stack" in cache:
+        for i, bt in enumerate(pat):
+            if bt in ("attn", "local"):
+                sizes.append(cache["period_stack"][str(i)]["k"].shape[2])
+    if "tail" in cache:
+        base = cfg.n_periods * len(pat)
+        for i in range(cfg.n_tail):
+            if cfg.layer_types[base + i] in ("attn", "local"):
+                sizes.append(cache["tail"][str(i)]["k"].shape[1])
+    return min(sizes) if sizes else (1 << 30)
+
+
+def prefill(params: Params, cfg: LMConfig, tokens: torch.Tensor,
+            cache: Params, *, block: int = 32,
+            last_only: bool = True) -> Tuple[torch.Tensor, Params]:
+    """Prompts [B, P] in chunks of ``block`` tokens -> (logits, the cache
+    positioned for decode at P). The wide form is taken when no attention
+    cache can wrap (P <= its slots)."""
+    P = tokens.shape[1]
+    wide = P <= _min_attn_cache(cfg, cache)
+    outs = []
+    for p0 in range(0, P, block):
+        logits, cache = prefill_block(params, cfg, tokens[:, p0:p0 + block],
+                                      cache, p0, wide, last_only)
+        outs.append(logits)
+    return (outs[-1] if last_only else torch.cat(outs, dim=1)), cache
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,8 @@
 """Recurrent blocks of the port: xLSTM's mLSTM and sLSTM and Griffin's
-RG-LRU, the parallel (training / forget-request) forms of
-``repro.models.recurrent``.
+RG-LRU, ``repro.models.recurrent``'s parallel (training / forget-request)
+forms and its O(1)-state decode forms (``init_*_state``, ``*_decode``: one
+token per row against a state carried in f32, the conv history of the
+RG-LRU in the model's dtype).
 
 - mLSTM: matrix-memory LSTM, i.e. gated linear attention, in the chunkwise
   form: a Python loop over ``ceil(S / chunk)`` chunks carrying the state
@@ -30,16 +32,14 @@ combines elements in another tree), and the sLSTM's gate pre-activations:
 the input projections with their biases for all steps in one product
 before the loop, the recurrent term added to them by one ``addmm`` per
 step (the reference forms each gate's three terms step by step inside its
-``lax.scan``, the bias last).
-
-(The O(1)-state decode forms, ``init_*_state`` and ``*_decode``, come with
-the decode / prefill slice.)
+``lax.scan``, the bias last). ``slstm_decode`` takes one step of the same
+loop, so that a prompt stepped token by token and the forward agree.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -143,6 +143,34 @@ def mlstm_forward(p: Dict, cfg: MLSTMConfig, x: torch.Tensor) -> torch.Tensor:
     return _mm(h.to(x.dtype), p["wo"]).to(x.dtype)
 
 
+def init_mlstm_state(cfg: MLSTMConfig, batch: int, *, device) -> Dict:
+    """The matrix memory C [B, H, Dh, Dh] and normaliser n [B, H, Dh], f32."""
+    H, Dh = cfg.n_heads, cfg.head_dim
+    return {"C": torch.zeros(batch, H, Dh, Dh, dtype=F32, device=device),
+            "n": torch.zeros(batch, H, Dh, dtype=F32, device=device)}
+
+
+def mlstm_decode(p: Dict, cfg: MLSTMConfig, x: torch.Tensor,
+                 state: Dict) -> Tuple[torch.Tensor, Dict]:
+    """x [B, 1, D]: one step of the gated state update."""
+    B = x.shape[0]
+    H, Dh = cfg.n_heads, cfg.head_dim
+    q = _mm(x, p["wq"]).reshape(B, H, Dh) / math.sqrt(Dh)
+    k = _mm(x, p["wk"]).reshape(B, H, Dh)
+    v = _mm(x, p["wv"]).reshape(B, H, Dh)
+    log_i, log_f = _mlstm_gates(p, x)                       # [B, 1, H]
+    fi = torch.exp(log_f[:, 0])[..., None]                  # [B, H, 1]
+    ii = torch.exp(log_i[:, 0])[..., None]
+    C = state["C"] * fi[..., None] + \
+        ii[..., None] * k[..., :, None] * v[..., None, :]
+    n = state["n"] * fi + ii * k
+    num = torch.einsum("bhd,bhde->bhe", q, C)
+    den = torch.clamp_min(torch.abs(torch.einsum("bhd,bhd->bh", q, n)),
+                          1.0)[..., None]
+    h = (num / den).reshape(B, 1, H * Dh).to(x.dtype)
+    return _mm(h, p["wo"]).to(x.dtype), {"C": C, "n": n}
+
+
 # ---------------------------------------------------------------------------
 # sLSTM (scalar memory, hidden-to-gate recurrence; block-diagonal heads)
 # ---------------------------------------------------------------------------
@@ -180,6 +208,36 @@ def init_slstm(gen: torch.Generator, cfg: SLSTMConfig, *, device,
     }
 
 
+def _slstm_mats(p: Dict):
+    """The four gates' input projections [D, 4D], biases [4D] and
+    block-diagonal recurrent weights [D, 4D], side by side in f32."""
+    W = torch.cat([p[w].to(F32) for w, _, _ in _SLSTM_GATES], dim=1)
+    bias = torch.cat([p[b].to(F32) for _, _, b in _SLSTM_GATES])
+    R = torch.cat([torch.block_diag(*p[r].to(F32))
+                   for _, r, _ in _SLSTM_GATES], dim=1)
+    return W, bias, R
+
+
+def _slstm_step(g_t: torch.Tensor, R: torch.Tensor, carry: Tuple):
+    """One step of the stabilised exponential-gated cell: g_t [B, 4D] the
+    gates' input terms with their biases, carry (c, n, m, h) [B, D]."""
+    c, n, m, h = carry
+    B, D = h.shape
+    pre = torch.addmm(g_t, h, R)                             # [B, 4D]
+    pre_z, i_t, f_t, pre_o = pre.view(B, 4, D).unbind(1)
+    z = torch.tanh(pre_z)
+    o = torch.sigmoid(pre_o)
+    log_f = _log_sigmoid(f_t)
+    lf_m = log_f + m
+    m_new = torch.maximum(lf_m, i_t)
+    i_p = torch.exp(i_t - m_new)
+    f_p = torch.exp(lf_m - m_new)
+    c = f_p * c + i_p * z
+    n = f_p * n + i_p
+    h = o * (c / torch.clamp_min(torch.abs(n), 1.0))
+    return c, n, m_new, h
+
+
 def slstm_forward(p: Dict, cfg: SLSTMConfig, x: torch.Tensor) -> torch.Tensor:
     """x [B, S, D] -> [B, S, D]: the stabilised exponential-gated cell over
     the S steps, carrying (c, n, m, h) [B, D] in f32 from zeros.
@@ -192,31 +250,30 @@ def slstm_forward(p: Dict, cfg: SLSTMConfig, x: torch.Tensor) -> torch.Tensor:
     block-diagonal weights laid out as one [D, 4D] matrix (the zeros off the
     blocks add nothing to a sum), taken apart by ``unbind`` too."""
     B, S, D = x.shape
-    W = torch.cat([p[w].to(F32) for w, _, _ in _SLSTM_GATES], dim=1)
-    bias = torch.cat([p[b].to(F32) for _, _, b in _SLSTM_GATES])
-    R = torch.cat([torch.block_diag(*p[r].to(F32))
-                   for _, r, _ in _SLSTM_GATES], dim=1)
+    W, bias, R = _slstm_mats(p)
     gx = x.to(F32) @ W + bias                                # [B, S, 4D]
-    c, n, m, h = (torch.zeros(B, D, dtype=F32, device=x.device)
-                  for _ in range(4))
+    carry = init_slstm_state(cfg, B, device=x.device)
     hs = []
     for g_t in gx.unbind(1):
-        pre = torch.addmm(g_t, h, R)                         # [B, 4D]
-        pre_z, i_t, f_t, pre_o = pre.view(B, 4, D).unbind(1)
-        z = torch.tanh(pre_z)
-        o = torch.sigmoid(pre_o)
-        log_f = _log_sigmoid(f_t)
-        lf_m = log_f + m
-        m_new = torch.maximum(lf_m, i_t)
-        i_p = torch.exp(i_t - m_new)
-        f_p = torch.exp(lf_m - m_new)
-        c = f_p * c + i_p * z
-        n = f_p * n + i_p
-        m = m_new
-        h = o * (c / torch.clamp_min(torch.abs(n), 1.0))
-        hs.append(h)
+        carry = _slstm_step(g_t, R, carry)
+        hs.append(carry[3])
     hseq = torch.stack(hs, dim=1).to(x.dtype)
     return _mm(hseq, p["w_out"]).to(x.dtype)
+
+
+def init_slstm_state(cfg: SLSTMConfig, batch: int, *, device) -> Tuple:
+    """(c, n, m, h), each [B, D] f32 zeros."""
+    return tuple(torch.zeros(batch, cfg.d_model, dtype=F32, device=device)
+                 for _ in range(4))
+
+
+def slstm_decode(p: Dict, cfg: SLSTMConfig, x: torch.Tensor,
+                 state: Tuple) -> Tuple[torch.Tensor, Tuple]:
+    """x [B, 1, D]: one step of ``slstm_forward``'s loop."""
+    W, bias, R = _slstm_mats(p)
+    carry = _slstm_step(x[:, 0].to(F32) @ W + bias, R, state)
+    h = carry[3][:, None].to(x.dtype)
+    return _mm(h, p["w_out"]).to(x.dtype), carry
 
 
 # ---------------------------------------------------------------------------
@@ -296,3 +353,34 @@ def rglru_forward(p: Dict, cfg: RGLRUConfig, x: torch.Tensor) -> torch.Tensor:
     h = _rglru_core(p, cfg, u)
     y = h.to(x.dtype) * gb
     return _mm(y, p["w_out"]).to(x.dtype)
+
+
+def init_rglru_state(cfg: RGLRUConfig, batch: int, dtype=F32, *,
+                     device) -> Dict:
+    """The recurrence h [B, Dr] in f32 and the conv's last W - 1 inputs
+    [B, W - 1, Dr] in ``dtype``."""
+    return {"h": torch.zeros(batch, cfg.d_rnn, dtype=F32, device=device),
+            "conv": torch.zeros(batch, cfg.conv_width - 1, cfg.d_rnn,
+                                dtype=dtype, device=device)}
+
+
+def rglru_decode(p: Dict, cfg: RGLRUConfig, x: torch.Tensor,
+                 state: Dict) -> Tuple[torch.Tensor, Dict]:
+    """x [B, 1, D]: the conv over the kept history and the new input (one
+    f32 product, as the reference's decode takes it), then one step of
+    the recurrence."""
+    xb = _mm(x, p["w_x"]).to(x.dtype)
+    gb = F.gelu(_mm(x, p["w_gate_branch"]), approximate="tanh").to(x.dtype)
+    hist = torch.cat([state["conv"], xb], dim=1)             # [B, W, Dr]
+    u = (torch.einsum("bwd,wd->bd", hist.to(F32), p["conv_w"].to(F32))
+         + p["conv_b"].to(F32))[:, None].to(x.dtype)
+    uf = u.to(F32)
+    r = torch.sigmoid(uf @ p["w_rg"].to(F32))
+    i = torch.sigmoid(uf @ p["w_ig"].to(F32))
+    log_a = -cfg.c * F.softplus(p["log_lambda"].to(F32)) * r
+    a = torch.exp(log_a)[:, 0]
+    gated = (torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-6))
+             * (i * uf))[:, 0]
+    h = a * state["h"] + gated
+    y = h[:, None].to(x.dtype) * gb
+    return _mm(y, p["w_out"]).to(x.dtype), {"h": h, "conv": hist[:, 1:]}

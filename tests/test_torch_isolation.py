@@ -200,6 +200,27 @@ new, st = munl.forget(ForgetRequest(mtok[8:16, :-1], mtok[8:16, 1:]),
 assert torch.equal(new["period_stack"]["0"]["ffn"]["router"],
                    mparams["period_stack"]["0"]["ffn"]["router"])
 out.append(st["stopped_at_l"])
+# a whisper request (the encoder-decoder's decoder chain), then decode
+from repro_torch.models import encdec as ED
+wcfg = configs.get("whisper-tiny").smoke
+wparams = ED.init_encdec(torch.Generator().manual_seed(0), wcfg, device="cpu")
+frames = torch.randn(8, wcfg.n_frames, wcfg.d_model,
+                     generator=torch.Generator().manual_seed(1))
+wunl = Unlearner(adapters.encdec_adapter(wcfg, 8, frames, device="cpu"),
+                 spec=UnlearnSpec.for_mode("ssd", chunk_size=8,
+                                           use_kernel=True), device="cpu")
+wunl.ensure_fisher(lambda p, b: ED.lm_loss(p, wcfg, b[0], b[1], frames),
+                   wparams, (tok[:8, :-1], tok[:8, 1:]), chunk_size=8)
+new, st = wunl.forget(ForgetRequest(tok[8:16, :-1], tok[8:16, 1:]),
+                      params=wparams)
+assert torch.equal(new["encoder"]["attn"]["wq"], wparams["encoder"]["attn"]["wq"])
+out.append(st["stopped_at_l"])
+memory = ED.encode(wparams, wcfg, frames[:2])
+cache = ED.init_cache(wcfg, 2, 4, device="cpu")
+for i in range(4):
+    lg, cache = ED.decode_step(wparams, wcfg, tok[:2, i:i + 1], cache, i,
+                               memory)
+assert torch.isfinite(lg).all() and lg.shape == (2, 1, wcfg.vocab)
 leaked = [m for m in sys.modules
           if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
 print("LEAKED", leaked, "STOP", out)
@@ -208,13 +229,14 @@ print("LEAKED", leaked, "STOP", out)
 
 def test_lm_serves_with_jax_and_repro_blocked():
     """The LM slice's modules (models.lm, the registry, the LM adapter and
-    data) serve a scanned fp32 and int8 request, and an MoE request, with
-    JAX and the JAX package blocked."""
+    data) serve a scanned fp32 and int8 request, an MoE request and a
+    whisper request (the encoder left as it was), and whisper decodes,
+    with JAX and the JAX package blocked."""
     env = dict(os.environ, PYTHONPATH=str(SRC))
     proc = subprocess.run([sys.executable, "-c", _BLOCKED_LM_RUN], env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
-    assert "LEAKED [] STOP [9, 9, 4]" in proc.stdout, proc.stdout
+    assert "LEAKED [] STOP [9, 9, 4, 4]" in proc.stdout, proc.stdout
 
 
 def test_lm_entry_points_raise_without_a_card():

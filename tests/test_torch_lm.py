@@ -341,8 +341,9 @@ def test_lm_layer_macs_match_reference(which):
 def test_registry_configs_equal_the_references():
     """The FULL and SMOKE configs of gemma3-1b and the dense GQA archs
     field by field, with their kind, source and shape cells (the recurrent
-    archs' are held in tests/test_torch_recurrent.py); only ported archs
-    are registered, and an unported one raises a KeyError naming them."""
+    archs' are held in tests/test_torch_recurrent.py, whisper-tiny's in
+    tests/test_torch_encdec.py); all ten of the reference's archs are
+    registered, and an unknown one raises a KeyError naming them."""
     for arch, jmod in (("gemma3-1b", jgemma), ("yi-6b", jyi6),
                        ("yi-9b", jyi9), ("qwen1.5-32b", jqwen)):
         spec = tconfigs.get(arch)
@@ -357,9 +358,9 @@ def test_registry_configs_equal_the_references():
     assert sorted(tconfigs.all_archs()) == [
         "gemma3-1b", "internvl2-1b", "kimi-k2-1t-a32b",
         "llama4-scout-17b-a16e", "qwen1.5-32b", "recurrentgemma-9b",
-        "xlstm-125m", "yi-6b", "yi-9b"]
+        "whisper-tiny", "xlstm-125m", "yi-6b", "yi-9b"]
     with pytest.raises(KeyError, match="yi-6b"):
-        tconfigs.get("whisper-tiny")
+        tconfigs.get("whisper-large")
     assert tconfigs.SHAPES["train_4k"].seq_len == 4096
 
 

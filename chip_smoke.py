@@ -129,9 +129,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
  10. [recurrent]: the recurrent LMs at full width, bf16, from a CUDA
      generator seeded with 0, on the [lm] phase's data (vocabulary 512,
      S = 1024, chunk 2, argmax labels, the retain Fisher of 4 sequences
-     from ensure_fisher), lambda 1: xlstm-125m at full width and 8 of its
-     12 blocks (two periods of mLSTM and sLSTM blocks 3:1, no FFN;
-     98,550,576 parameters, 85 layer leaves in 10 unlearn layers; the
+     from ensure_fisher), lambda 1: xlstm-125m at full width and 4 of its
+     12 blocks (one period of mLSTM and sLSTM blocks 3:1, no FFN;
+     87,909,144 parameters, 44 layer leaves in 6 unlearn layers; the
      sLSTM's host-bound time loop makes its requests the script's
      slowest), 8 sequences a request, checkpoints every 4 layers,
      alpha 50; recurrentgemma-9b at full width and 5 of its 38 blocks (one
@@ -156,15 +156,17 @@ Phases, in order; any failure exits non-zero and prints no result line:
      against their byte bounds, and each model's and the phase's seconds;
  11. [dense]: the dense GQA LM yi-6b at full width (d_model 4096, 32
      heads over 4 KV heads of 128, d_ff 11008, vocab 64,000, RoPE theta
-     5e6, untied) and 16 of its 32 blocks (3,292,663,808 bf16 parameters in
-     12 stored leaves, 147 layer leaves in 18 unlearn layers; all 32 do not
-     fit one card with their Fisher and a request), from a CUDA generator
+     5e6, untied) and 8 of its 32 blocks (1,908,477,952 bf16 parameters in
+     12 stored leaves, 75 layer leaves in 10 unlearn layers; all 32 do not
+     fit one card with their Fisher and a request, and since the [serve]
+     phase it runs 8 rather than 16 to keep the script near 800 s), from a
+     CUDA generator
      seeded with 0, on the [lm] phase's data (vocabulary 512, 8 sequences
      of S = 1024 at chunk 2, argmax labels, the retain Fisher of 4
      sequences), alpha 25, lambda 1, checkpoints every 4 layers. First its
      three distinct layer tables through the group kernels against their
      plain versions; then, with the counters zeroed before and read after:
-     ssd cold and warm (18 launches over 147 leaves), ficabu with tau = -1
+     ssd cold and warm (10 launches over 75 leaves), ficabu with tau = -1
      and a ficabu that halts partway (cold and warm), ssd with
      sweep_mode="scanned" (the blocks are uniform: a plan, one program per
      request; cold and warm, the warm program call under
@@ -238,7 +240,36 @@ Phases, in order; any failure exits non-zero and prints no result line:
      drops nothing), on their phases' models: the stepped logits within a
      stated relative L2 of the forward's (DECODE_RTOL, DECODE_RTOL_CONV),
      not bit for bit;
- 14. times: each kernel and its plain version at the main paths' shapes
+ 14. [serve]: the streamed Fisher refresh and the serving loop
+     (``repro_torch.launch.serve.ForgetService`` on a one-tenant
+     ``repro_torch.fleet.Fleet``) on gemma3-1b FULL, bf16, from a CUDA
+     generator seeded with 0: make_lm_domains (vocabulary 512, 4 domains x
+     16 sequences of 160 tokens); 3 batches of 8 prompts of 128 tokens, 32
+     greedy tokens each (chunked prefill, then decode_step); forget bursts
+     "1,2;3,2" due after batches 1 and 2, a flush at inf;
+     ``ServeSpec(chunk_size=4, refresh_every=1, sweep_mode="scanned")``
+     (ficabu, alpha 8, tau 0.6, checkpoints every 2 layers, a refresh of 2
+     retain microbatches at decay 0.5 after every drain), under
+     deterministic algorithms. In fp32 and int8: the service (the plain
+     dampen, as the reference's ServeSpec lowers) passes every gate of the
+     reference's ``serve --check`` (one sweep per drain point, no build for
+     a drain signature already seen, one scanned launch per drain, the
+     precision tag, an int8 sweep launched, a refresh with no build after
+     the first, the staleness oracle), every parameter finite, int8 on its
+     q8 grids; then a one-tenant Fleet on the same ServeSpec's lowering
+     with ``use_kernel=True`` and the same submissions, the counters zeroed
+     before and read after (56 launches over 472 leaves a drain), its
+     served tree and Fisher bit for bit the service's; the fp32 service
+     layerwise == scanned bit for bit; a guarded drain (``GuardSpec()``)
+     under a ``nan_batch`` fault in both its attempts: rejected, requeued,
+     dead-lettered, the live tree bit for bit as it was. Each warm drain's
+     program call runs under ``torch.cuda.set_sync_debug_mode("error")``.
+     Per drain its wall (cold, warm), layers reached and MACs against SSD;
+     per refresh its wall and the staleness errors; generate's wall and
+     tokens/s per batch, and NVML's busy share over one batch; the warm
+     kernel drain's profile and its dampen time against the byte bound;
+     the phase's peak memory and seconds;
+ 15. times: each kernel and its plain version at the main paths' shapes
      (the dampen sweeps as a request launches them, one grouped launch per
      layer, with the 56 per-leaf launches beside them and the figures from
      before the grouped kernel; and, for fimd and the GEMMs, one PyTorch
@@ -256,7 +287,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
      ``kernels`` line carry the [scanned] phase's launches and leaves,
      the [lm] phase's (``lm_*`` keys), the [recurrent] phase's
      (``rec_*``), the [dense] phase's (``dense_*``), the [moe] phase's
-     (``moe_*``) and the [encdec] phase's (``encdec_*``).
+     (``moe_*``), the [encdec] phase's (``encdec_*``) and the [serve]
+     phase's (``serve_*``).
 
 The last line is the contract line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -1983,16 +2015,17 @@ def rec_model(arch, n_layers, n_seq, every, alpha, want, dev, rate,
 # its 38 blocks: one whole (rglru, rglru, local) period and the two-layer
 # rglru tail, 3.4 B parameters; all 38 would hold 11.6 B, 23 GB in bf16 and
 # a 46 GB f32 Fisher, more than one card (PERF.md section 4). xlstm-125m
-# runs at full width and 8 of its 12 blocks, two (mlstm x3, slstm) periods:
+# runs at full width and 4 of its 12 blocks, one (mlstm x3, slstm) period:
 # its requests are host-bound in the sLSTM's time loop (R8), a third of its
-# requests' time per sLSTM layer, and the whole 12 took 190-254 s of the
-# script's time, which the [moe] phase pushed past 800 s (PERF.md section
-# 4). It takes alpha 50: at [lm]'s 25 its int8 ssd request reads more than
+# requests' time per sLSTM layer; the whole 12 took 190-254 s of the
+# script's time, which the [moe] phase pushed past 800 s, and 8 blocks 183
+# s, which the [serve] phase pushed past it again (PERF.md section 4). It
+# takes alpha 50: at [lm]'s 25 its int8 ssd request reads more than
 # INT8_SWEEP_RTOL against fp32 in its first mLSTM block, with 4% of the
 # block's entries selected (tools/recurrent_profile.py measures both
 # settings on the whole model; PERF.md section 7)
 REC_MODELS = (
-    ("xlstm-125m", 8, 8, 4, 50.0, (98_550_576, 44, 85, 10)),
+    ("xlstm-125m", 4, 8, 4, 50.0, (87_909_144, 44, 44, 6)),
     ("recurrentgemma-9b", 5, 4, 2, 25.0, (3_395_363_392, 64, 64, 7)),
 )
 
@@ -2024,10 +2057,11 @@ def recurrent_phase(dev, rate, zero_counts, dampen_counts, fisher_counts):
 # queries: every block takes the query-chunked attention). All 32 blocks
 # hold 6.06 B parameters, 12.1 GB in bf16 and a 24.2 GB f32 Fisher; at the
 # ~20 bytes of peak per parameter recurrentgemma-9b's requests take, more
-# than one 80 GB card (PERF.md section 4)
+# than one 80 GB card. It ran 16 blocks before the [serve] phase, 8 since,
+# to keep the script near 800 s (PERF.md section 4)
 DENSE_ARCH = "yi-6b"
-DENSE_BLOCKS = 16
-DENSE_WANT = (3_292_663_808, 12, 147, 18)
+DENSE_BLOCKS = 8
+DENSE_WANT = (1_908_477_952, 12, 75, 10)
 DENSE_LONG_SEQ = 2048
 
 
@@ -3321,6 +3355,405 @@ def encdec_phase(dev, rate, zero_counts, dampen_counts, fisher_counts):
     return out, gerr
 
 
+# the [serve] phase: gemma3-1b FULL served through the port's batch-mode
+# serving loop (``repro_torch.launch.serve``) as ``serve.main`` builds it:
+# make_lm_domains, 4 domains x 16 sequences of 128 + 32 tokens (at the LM
+# phases' data vocabulary: serve.main's cfg.vocab would make four 65,536 x
+# 65,536 transition matrices at FULL, 34 GB each); 3 batches of 8 prompts
+# of 128 tokens, 32 greedy tokens each; forget bursts "1,2;3,2" due after
+# batches 1 and 2, a final flush at inf. ServeSpec(chunk_size=4, refresh_every=1) lowers to ficabu, alpha 8,
+# lambda 1, tau 0.6, checkpoints every 2 layers, chunk 4, and a refresh of
+# 2 retain microbatches at decay 0.5 after every drain
+SERVE_ARCH = "gemma3-1b"
+SERVE_PROMPT = 128
+SERVE_GEN = 32
+SERVE_REQUESTS = 8
+SERVE_BATCHES = 3
+SERVE_BURSTS = ((1, 2), (3, 2))
+SERVE_AFTER = 1
+
+
+def serve_phase(dev, rate, zero_counts, dampen_counts, fisher_counts):
+    """Phase 14, [serve]: the streamed Fisher refresh and the serving loop
+    at full width (module docstring), under deterministic algorithms: every
+    run computes its own Fisher, and the embedding's gradient accumulates
+    by atomics otherwise, so two runs' Fishers would differ in their last
+    bits. Returns the figures the kernels line carries."""
+    prev = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        return _serve_phase(dev, rate, zero_counts, dampen_counts,
+                            fisher_counts)
+    finally:
+        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
+
+
+def _serve_phase(dev, rate, zero_counts, dampen_counts, fisher_counts):
+    import dataclasses
+    import types
+
+    from repro_torch import bridge
+    from repro_torch.api import ForgetRequest, ServeSpec
+    from repro_torch.configs import get as get_arch
+    from repro_torch.data import synthetic as syn
+    from repro_torch.fleet import Fleet
+    from repro_torch.launch import serve as S
+    from repro_torch.models import lm as LM
+    from repro_torch.models.module import tree_leaves
+    from repro_torch.robust import faults
+    from repro_torch.robust.guards import GuardSpec
+
+    t_phase = time.perf_counter()
+    gib = 2.0 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_arch(SERVE_ARCH).full
+    params = LM.init_lm(torch.Generator(device=dev).manual_seed(SEED), cfg,
+                        device="cuda")
+    stored = bridge.paths(params)
+    n_params = sum(t.numel() for t in stored.values())
+    if (n_params, len(stored)) != (999_812_736, 74):
+        raise AssertionError(f"serve {cfg.name}: {n_params} parameters in "
+                             f"{len(stored)} stored leaves")
+    seq_len = SERVE_PROMPT + SERVE_GEN
+    tokens, domains = syn.make_lm_domains(syn.LMDataConfig(
+        vocab=LM_DATA_VOCAB, n_domains=4, seq_len=seq_len, n_per_domain=16,
+        seed=SEED))
+    batches = [tokens[i:i + SERVE_REQUESTS, :SERVE_PROMPT]
+               for i in range(0, len(tokens) - SERVE_REQUESTS,
+                              SERVE_REQUESTS)][:SERVE_BATCHES]
+    before = {k: v.clone() for k, v in stored.items()}
+    log(f"[serve] {cfg.name} FULL from torch.Generator('cuda') seed {SEED}: "
+        f"{n_params} parameters in {len(stored)} stored leaves; "
+        f"make_lm_domains (vocab {LM_DATA_VOCAB}, 4 domains x 16, "
+        f"{seq_len} tokens); {len(batches)} batches of {SERVE_REQUESTS} "
+        f"prompts of {SERVE_PROMPT} tokens, {SERVE_GEN} generated each; "
+        f"bursts {SERVE_BURSTS} due after batches {SERVE_AFTER}..")
+
+    def same(p, q):
+        a, b = bridge.paths(p), bridge.paths(q)
+        return sorted(a) == sorted(b) and all(
+            torch.equal(bits(a[k]), bits(b[k])) for k in a)
+
+    def timed_refreshes(rt, walls):
+        """Time each refresh the drains run, on the host's clock between
+        synchronizes."""
+        inner = rt.maybe_refresh
+
+        def run(p, batch_idx):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ran = inner(p, batch_idx)
+            torch.cuda.synchronize()
+            if ran:
+                walls.append(time.perf_counter() - t0)
+            return ran
+        rt.maybe_refresh = run
+
+    def decode(p, c, t, pos):
+        return LM.decode_step(p, cfg, t, c, pos)
+
+    def drive(label, rt, drain, *, generate):
+        """The serving loop of ``serve.main``: per batch generate (or not),
+        then the drain due after it, the flush at inf last; the warm
+        drain's scanned program call under set_sync_debug_mode("error").
+        Returns the final tree and the run's figures."""
+        refresh_walls, drain_walls, gen = [], [], []
+        timed_refreshes(rt, refresh_walls)
+        calls = [0]
+        p = last_in = params
+        for bi in range(len(batches) + 1):
+            if bi < len(batches) and generate:
+                prompts = torch.as_tensor(batches[bi], device=dev).long()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = S.generate(p, cfg, prompts, SERVE_GEN, decode)
+                secs = time.perf_counter() - t0
+                gen.append((secs, out.size / secs))
+                if out.shape != (SERVE_REQUESTS, SERVE_GEN):
+                    raise AssertionError(f"serve generate {out.shape}")
+            idx = bi + 1 if bi < len(batches) else float("inf")
+            n_ref = len(refresh_walls)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p_in = p
+            p, ran = drain(p, idx)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            if ran:
+                last_in = p_in
+                drain_walls.append(secs - sum(refresh_walls[n_ref:]))
+                if rt.spec.exec.sweep_mode == "scanned" and calls[0] == 0:
+                    guard_syncs(rt.unlearner, calls)
+        for g, wall in zip(rt.group_log, drain_walls):
+            log(f"[serve] {label} drain {g['group']} at batch {g['batch']}: "
+                f"domains {g['domains']} sig {g['sweep_sig']}, stopped_at_l="
+                f"{[e['stopped_at_l'] for e in rt.log if e.get('group') == g['group']]} "
+                f"of {rt.adapter.n_layers}, macs_vs_ssd_pct="
+                f"{[round(e['macs_vs_ssd_pct'], 4) for e in rt.log if e.get('group') == g['group']]}, "
+                f"{g['engine']['sweep_mode']}, builds="
+                f"{g['engine']['compiles']} hits={g['engine']['cache_hits']}"
+                f", wall {wall * 1e3:.1f} ms "
+                f"({'cold' if g['group'] == 0 else 'warm'}, refresh apart)")
+        for i, (r, wall) in enumerate(zip(rt.refresh_log, refresh_walls)):
+            log(f"[serve] {label} refresh {i} after batch {r['batch']}: "
+                f"{r['batches']} microbatches, ema_count {r['ema_count']}, "
+                f"refresh builds={r['engine']['refresh_compiles']} "
+                f"hits={r['engine']['refresh_hits']}, wall "
+                f"{wall * 1e3:.1f} ms")
+        for bi, (secs, tps) in enumerate(gen):
+            log(f"[serve] {label} generate batch {bi}: {SERVE_REQUESTS} x "
+                f"{SERVE_GEN} tokens in {secs * 1e3:.1f} ms, {tps:.1f} "
+                f"tokens/s")
+        if rt.spec.exec.sweep_mode == "scanned" and calls[0] != 1:
+            raise AssertionError(f"serve {label}: {calls[0]} guarded warm "
+                                 f"program calls")
+        if not all(torch.isfinite(t).all() for t in tree_leaves(p)):
+            raise AssertionError(f"serve {label}: non-finite parameters")
+        return p, {"drain_walls": drain_walls, "refresh_walls":
+                   refresh_walls, "gen": gen, "last_in": last_in}
+
+    def gates(label, rt, serve_spec, p, staleness=True):
+        """Every gate of the reference's ``serve --check`` on a finished
+        run (the staleness oracle where asked)."""
+        stale = rt.staleness_report(p) if staleness else None
+        view = types.SimpleNamespace(
+            group_log=rt.group_log, spec=rt.spec, unlearner=rt.unlearner,
+            refresh_log=rt.refresh_log, serve_spec=serve_spec)
+        problems = S.check_problems(view, {
+            "refreshes": len(rt.refresh_log), "staleness": stale})
+        if len(rt.group_log) != len(SERVE_BURSTS):
+            problems.append(f"{len(rt.group_log)} drain groups")
+        if problems:
+            raise AssertionError(f"serve {label} check: {problems}")
+        if stale is not None:
+            log(f"[serve] {label} staleness oracle: stale I_D rel err "
+                f"{stale['stale_rel_err']:.6f}, refreshed "
+                f"{stale['refreshed_rel_err']:.6f} against a recompute at "
+                f"the served weights; improved {stale['improved']}")
+        log(f"[serve] {label} passes every serve --check gate")
+        return stale
+
+    def service(serve_spec):
+        svc = S.ForgetService(cfg, tokens, domains, seq_len, serve=serve_spec,
+                              device="cuda")
+        for i, burst in enumerate(SERVE_BURSTS):
+            for d in burst:
+                svc.submit(d, due_batch=SERVE_AFTER + i)
+        return svc, svc._rt
+
+    def kernel_fleet(serve_spec, name):
+        """A one-tenant Fleet on the lowering of ``serve_spec`` with the
+        CUDA dampen kernels, the same weights and submissions."""
+        low = serve_spec.to_unlearn_spec()
+        fleet = Fleet()
+        rt = fleet.add_tenant(
+            name, cfg, tokens, domains, seq_len, params=params,
+            spec=dataclasses.replace(low, exec=dataclasses.replace(
+                low.exec, use_kernel=True)), device="cuda")
+        for i, burst in enumerate(SERVE_BURSTS):
+            for d in burst:
+                fleet.submit(name, d, due_batch=SERVE_AFTER + i)
+
+        def drain(p, idx):
+            entries = fleet.drain(idx)
+            return rt.params, any(e["ran"] for e in entries)
+        return fleet, rt, drain
+
+    runs, counts = {}, {}
+    for path in ("fp32", "int8"):
+        spec = ServeSpec(chunk_size=4, refresh_every=1, sweep_mode="scanned",
+                         precision=path)
+        # the serving default: the plain dampen (use_kernel=False)
+        zero_counts()
+        svc, rt = service(spec)
+        p, fig = drive(f"{path} scanned", rt, svc.drain, generate=True)
+        if dampen_counts() != (0, 0, 0, 0):
+            raise AssertionError(f"serve {path}: the plain service launched "
+                                 f"{dampen_counts()}")
+        stale = gates(f"{path} scanned", rt, spec, p)
+        if path == "int8":
+            # every layer on the per-row grid of the tree its last drain
+            # started from (the scanned program quantises per layer and
+            # row, reached or not)
+            if not lm_on_q8_grid(rt.adapter, p, fig.pop("last_in"),
+                                 rt.adapter.n_layers):
+                raise AssertionError("serve int8: a leaf left its q8 grid")
+            log("[serve] int8 scanned: every leaf on its q8 grid")
+        fig.pop("last_in", None)
+        if path == "fp32":
+            # where a batch's generate spends its time: NVML's busy share
+            # (a batch launches some 230,000 kernels; torch.profiler's
+            # trace of them took 43.6 s on an H100)
+            prompts = torch.as_tensor(batches[0], device=dev).long()
+            t0 = time.perf_counter()
+            share, n_samples = nvml_busy(
+                lambda: S.generate(p, cfg, prompts, SERVE_GEN, decode))
+            gwall = time.perf_counter() - t0
+            fig["gen_prof"] = (gwall, share)
+            log(f"[profile] serve generate (8 x {SERVE_PROMPT} prompt, "
+                f"{SERVE_GEN} tokens): wall {gwall * 1e3:.1f} ms, NVML busy "
+                f"share {share:.3f} over {n_samples} samples")
+        fisher = rt.unlearner.fisher_global
+        runs[path] = {"fig": fig, "stale": stale,
+                      "stops": [e["stopped_at_l"] for e in rt.log],
+                      "macs": [e["macs_vs_ssd_pct"] for e in rt.log]}
+        del svc, rt
+        # the same with the CUDA dampen kernels on a one-tenant Fleet:
+        # the served tree and the Fisher bit for bit
+        zero_counts()                               # the [serve] path starts
+        fleet, krt, kdrain = kernel_fleet(spec, f"kernel-{path}")
+        kp, kfig = drive(f"{path} scanned kernel", krt, kdrain,
+                         generate=False)
+        kfig.pop("last_in")
+        counts[path] = dampen_counts()              # the [serve] path ends
+        gates(f"{path} scanned kernel", krt, spec, kp, staleness=False)
+        mine = counts[path][:2] if path == "fp32" else counts[path][2:]
+        other = counts[path][2:] if path == "fp32" else counts[path][:2]
+        L = krt.adapter.n_layers
+        n_leaves = sum(len(tree_leaves(krt.adapter.get_layer(params, j)))
+                       for j in range(L))
+        want = (2 * len(SERVE_BURSTS) * L, 2 * len(SERVE_BURSTS) * n_leaves)
+        log(f"[serve] {path} kernel fleet: dampen launches {mine[0]} over "
+            f"{mine[1]} leaves (expected {want}: each K = 2 scanned drain "
+            f"walks every layer per set), other path {other}")
+        if mine != want or other != (0, 0) or fisher_counts() != (0, 0, 0, 0):
+            raise AssertionError(f"serve {path} kernel counts {counts[path]}")
+        if not same(kp, p) or not same(krt.unlearner.fisher_global, fisher):
+            raise AssertionError(f"serve {path}: the kernel fleet's tree or "
+                                 f"Fisher != the plain service's")
+        log(f"[serve] {path} kernel fleet == plain service, bit for bit: "
+            f"all {len(stored)} served leaves and the Fisher")
+        runs[path]["kernel_fig"] = kfig
+        if path == "fp32":
+            # the warm drain's profile: the second drain's sets again on
+            # the kernel tenant's warm session
+            reqs = []
+            fbs = [krt._forget_batch(d)[0] for d in SERVE_BURSTS[1]]
+            widest = max(len(fb) for fb in fbs)
+            for d, fb in zip(SERVE_BURSTS[1], fbs):
+                fb = krt._wrap_pad(fb, widest - len(fb))
+                reqs.append(ForgetRequest(fb[:, :-1], fb[:, 1:], tag=d))
+            busy, n_kernels, ranked = profile_request(
+                lambda: krt.unlearner.forget_group(reqs, params=kp))
+            damp = [(ms, c) for name, ms, c in ranked
+                    if "dampen_group_kernel" in name]
+            n_el = sum(t.numel() for j in range(L)
+                       for t in tree_leaves(krt.adapter.get_layer(params, j)))
+            runs[path]["prof"] = (busy, n_kernels, sum(c for _, c in damp),
+                                  sum(ms for ms, _ in damp),
+                                  (2 * n_el * 13 + 8 * 2 * L) / rate * 1e3)
+            wall = kfig["drain_walls"][1]
+            log(f"[profile] warm serve fp32 K=2 scanned drain (kernel): "
+                f"wall {wall * 1e3:.1f} ms (refresh apart), device busy "
+                f"{busy:.3f} ms, {n_kernels} device kernels, of them "
+                f"{runs[path]['prof'][2]} dampen_group_kernel "
+                f"({runs[path]['prof'][3]:.4f} ms; bound "
+                f"{runs[path]['prof'][4]:.4f} ms for 2 x {n_el} bf16 "
+                f"elements at 13 bytes)")
+            for name, ms, c in ranked[:6]:
+                log(f"[profile]   {ms:9.3f} ms  x{c:<5d} {name[:70]}")
+            # layerwise: the same service's tree, bit for bit
+            lspec = dataclasses.replace(spec, sweep_mode="layerwise")
+            lsvc, lrt = service(lspec)
+            lp, lfig = drive("fp32 layerwise", lrt, lsvc.drain,
+                             generate=False)
+            lfig.pop("last_in")
+            gates("fp32 layerwise", lrt, lspec, lp, staleness=False)
+            if not same(lp, p) or not same(lrt.unlearner.fisher_global,
+                                           fisher):
+                raise AssertionError("serve: layerwise != scanned")
+            log(f"[serve] fp32 layerwise == scanned, bit for bit; drain "
+                f"walls {[round(w * 1e3, 1) for w in lfig['drain_walls']]} "
+                f"ms against scanned "
+                f"{[round(w * 1e3, 1) for w in fig['drain_walls']]} ms")
+            runs[path]["layerwise_fig"] = lfig
+            del lsvc, lrt, lp
+        del fleet, krt, kp, p, fisher
+        torch.cuda.empty_cache()
+    # a guarded abort: a nan_batch fault in both attempts of the group,
+    # a finite guard with one retry at a backoff of one batch
+    gspec = ServeSpec(chunk_size=4, sweep_mode="scanned",
+                      guard=GuardSpec())
+    fleet = Fleet()
+    grt = fleet.add_tenant("guarded", cfg, tokens, domains, seq_len,
+                           params=params, spec=gspec.to_unlearn_spec(),
+                           device="cuda")
+    for d in SERVE_BURSTS[0]:
+        fleet.submit("guarded", d, due_batch=SERVE_AFTER)
+    inj = faults.FaultInjector([faults.FaultSpec("nan_batch",
+                                                 tenant="guarded", count=2)])
+    prev = faults.install(inj)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e1 = fleet.drain(SERVE_AFTER)
+        e2 = fleet.drain(SERVE_AFTER + 1)
+        torch.cuda.synchronize()
+        gsecs = time.perf_counter() - t0
+    finally:
+        faults.install(prev)
+    acts = [e["aborted"]["action"] if e.get("aborted") else None
+            for e in e1 + e2]
+    acc = fleet.accounting()["guarded"]
+    log(f"[serve] guarded nan_batch drains: actions {acts}, abort guards "
+        f"{[a['guard'] for a in grt.abort_log]} at leaves "
+        f"{[a.get('leaf') for a in grt.abort_log]}, dead-lettered "
+        f"{fleet.scheduler.dead('guarded')}, requeues "
+        f"{fleet.scheduler.requeues['guarded']}, accounting {acc}, fired "
+        f"{len(inj.fired)}; {gsecs:.1f} s")
+    if (acts != ["requeue", "dead_letter"] or grt.groups != 0
+            or [a["guard"] for a in grt.abort_log] != ["finite", "finite"]
+            or fleet.scheduler.dead("guarded") != 2 or not acc["ok"]
+            or grt.params is not params or len(inj.fired) != 2):
+        raise AssertionError("serve guarded abort: the drain was not "
+                             "rejected, requeued and dead-lettered")
+    for k, t in stored.items():
+        if not torch.equal(bits(t), bits(before[k])):
+            raise AssertionError(f"serve: the live tree's {k} changed")
+    log("[serve] the live tree bit for bit as it was after the rejected "
+        "drains (and after every service)")
+    del fleet, grt, before
+    peak = torch.cuda.max_memory_allocated() / gib
+    secs = time.perf_counter() - t_phase
+    log(f"[serve] phase done in {secs:.1f} s; torch.cuda.max_memory_allocated"
+        f" {peak:.2f} GiB")
+    busy, n_kernels, n_damp, damp_ms, bound = runs["fp32"]["prof"]
+    out = {}
+    for path in ("fp32", "int8"):
+        c = counts[path]
+        fig, kfig = runs[path]["fig"], runs[path]["kernel_fig"]
+        out[path] = {
+            "serve_launches": c[0] if path == "fp32" else c[2],
+            "serve_leaves": c[1] if path == "fp32" else c[3],
+            "serve_drain_walls_ms": [w * 1e3 for w in fig["drain_walls"]],
+            "serve_kernel_drain_walls_ms": [
+                w * 1e3 for w in kfig["drain_walls"]],
+            "serve_refresh_walls_ms": [w * 1e3 for w in fig["refresh_walls"]],
+            "serve_generate_tokens_per_s": [t for _, t in fig["gen"]],
+            "serve_stale_rel_err": runs[path]["stale"]["stale_rel_err"],
+            "serve_refreshed_rel_err":
+                runs[path]["stale"]["refreshed_rel_err"],
+            "serve_stopped_at_l": runs[path]["stops"],
+        }
+    gwall, gshare = runs["fp32"]["fig"].pop("gen_prof")
+    out["fp32"].update({
+        "serve_generate_wall_ms": gwall * 1e3,
+        "serve_generate_nvml_busy_share": gshare,
+        "serve_layerwise_drain_walls_ms": [
+            w * 1e3 for w in runs["fp32"]["layerwise_fig"]["drain_walls"]],
+        "serve_warm_drain_device_busy_ms": busy,
+        "serve_warm_drain_device_kernels": n_kernels,
+        "serve_warm_drain_dampen_launches": n_damp,
+        "serve_warm_drain_dampen_ms": damp_ms,
+        "serve_warm_drain_dampen_bound_ms": bound,
+        "serve_guarded_seconds": gsecs,
+        "serve_peak_gib": peak, "serve_phase_seconds": secs})
+    del params, stored, runs
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
@@ -3331,6 +3764,9 @@ def main() -> int:
     # expert leaves do not strand reserved memory between fixed segments
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
                           "expandable_segments:True")
+    # cuBLAS's deterministic workspace, for the [serve] phase's
+    # deterministic algorithms (the default size on Hopper)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     t_main = time.perf_counter()
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import bridge
@@ -4081,7 +4517,7 @@ def main() -> int:
     # int8, layerwise and scanned, and a K = 2 drain
     lm = lm_phase(dev, rate, zero_counts, dampen_counts, fisher_counts)
 
-    # 10. [recurrent]: xlstm-125m (8 blocks) and recurrentgemma-9b (5
+    # 10. [recurrent]: xlstm-125m (4 blocks) and recurrentgemma-9b (5
     # blocks) at full width, fp32 (bf16 weights) and int8, layerwise and
     # scanned
     rec, rec_err = recurrent_phase(dev, rate, zero_counts, dampen_counts,
@@ -4089,7 +4525,7 @@ def main() -> int:
     for k in gmax_err:
         gmax_err[k] = max(gmax_err[k], rec_err[k])
 
-    # 11. [dense]: yi-6b at full width and 16 of its 32 blocks, fp32 (bf16
+    # 11. [dense]: yi-6b at full width and 8 of its 32 blocks, fp32 (bf16
     # weights) and int8, layerwise and scanned, and a 2048-token request
     dense, dense_err = dense_phase(dev, rate, zero_counts, dampen_counts,
                                    fisher_counts)
@@ -4110,7 +4546,11 @@ def main() -> int:
     for k in gmax_err:
         gmax_err[k] = max(gmax_err[k], encdec_err[k])
 
-    # 14. times at the main paths' shapes. The sweep as a request launches
+    # 14. [serve]: gemma3-1b FULL through the serving loop, the streamed
+    # Fisher refresh, the kernel fleet, layerwise and a guarded abort
+    served = serve_phase(dev, rate, zero_counts, dampen_counts, fisher_counts)
+
+    # 15. times at the main paths' shapes. The sweep as a request launches
     # it: one grouped launch per layer, back to front, on the layers' own
     # tensors against the global Fisher; beside it the same 56 leaves one
     # launch each, as the request launched them before the grouped kernel
@@ -4559,6 +4999,7 @@ def main() -> int:
         "vit_sweep_bound_ms": vbound["fp32"],
         **scanned_keys("fp32"), **lm["fp32"], **rec["fp32"],
         **dense["fp32"], **moe["fp32"], **encdec["fp32"],
+        **served["fp32"],
         "max_abs_err": max(max_err, gmax_err["dampen"]),
         "ms": t["sweep_kernel"], "plain_ms": t["sweep_plain"],
         "bound_ms": bound["sweep"], "bound_by": "bytes",
@@ -4587,6 +5028,7 @@ def main() -> int:
         "vit_sweep_bound_ms": vbound["int8"],
         **scanned_keys("int8"), **lm["int8"], **rec["int8"],
         **dense["int8"], **moe["int8"], **encdec["int8"],
+        **served["int8"],
         "max_abs_err": max(max_err8, gmax_err["dampen_int8"]),
         "ms": t8["sweep_kernel"], "plain_ms": t8["sweep_plain"],
         "bound_ms": bound8["sweep"], "bound_by": "bytes",

@@ -10,24 +10,35 @@ each a frozen dataclass:
   ``HaltSpec``    when to stop: the CAU early-stop target tau, checkpoint
                   cadence, and an optional sweep bound.
   ``ExecSpec``    how to run: Fisher chunking, the CUDA dampening kernel,
-                  buffer donation, the drive loop and the numeric path
-                  (with ``QuantSpec``, the int8 calibration).
+                  buffer donation, the drive loop, the numeric path (with
+                  ``QuantSpec``, the int8 calibration) and the drain guard
+                  (``repro_torch.robust.GuardSpec``).
+
+A fourth, optional concern — ``RefreshSpec`` — schedules the streamed
+global-Fisher refresh (``repro_torch.engine.fisher_stream``).
 
 ``UnlearnSpec`` composes them under a paper ``mode`` ("ssd" | "cau" |
-"bd" | "ficabu"): JSON round-trip via ``to_json``/``from_json``, validation
-that raises ``ValueError`` with actionable messages, and ``to_config()``
-lowering to the engine-level ``core.cau.UnlearnConfig`` with the
-reference's mode mapping. (Refresh, mesh, guard and serving specs come with
-later slices.)
+"bd" | "ficabu"): JSON round-trip via ``to_json``/``from_json`` (the same
+JSON as the reference's, read by either package), validation that raises
+``ValueError`` with actionable messages, and ``to_config()`` lowering to
+the engine-level ``core.cau.UnlearnConfig`` with the reference's mode
+mapping. ``ServeSpec`` is the serving deployment's configuration and lowers
+to an ``UnlearnSpec``.
+
+Not ported yet: mesh placement (``ExecSpec.mesh_axes``) and the persistent
+compilation cache (``ExecSpec.cache_dir`` / ``ServeSpec.cache_dir``), both
+ROADMAP Queue 1 item 5. The fields exist so that the reference's JSON
+reads here; a value other than None raises.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 from repro_torch.core.cau import PRECISIONS, SWEEP_MODES, UnlearnConfig
+from repro_torch.robust.guards import GuardSpec
 
 MODES = ("ssd", "cau", "bd", "ficabu")
 
@@ -48,6 +59,11 @@ def _finite(x, name: str, *, positive: bool = False,
         _require(x > 0, f"{name} must be > 0, got {x!r}")
     if non_negative:
         _require(x >= 0, f"{name} must be >= 0, got {x!r}")
+
+
+def _not_ported(what: str, item: str) -> ValueError:
+    return ValueError(f"{what} is not ported yet (ROADMAP Queue 1 item "
+                      f"{item})")
 
 
 def _from_dict(cls, d: Any, what: str):
@@ -115,6 +131,50 @@ class HaltSpec:
 
 
 @dataclasses.dataclass(frozen=True)
+class RefreshSpec:
+    """When to refresh the global Fisher I_D between drains (and how hard).
+
+    The stored I_D describes the weights it was computed on; every forget
+    drain edits the served parameters, so I_D goes stale and the dampening
+    ratio I_Df/I_D drifts.  A ``RefreshSpec`` schedules the streamed EMA
+    refresh (``repro_torch.engine.fisher_stream``, DESIGN.md §10):
+
+    ``every_drains``        refresh after every N-th drain (0: cadence off,
+                            staleness trigger only).
+    ``staleness_threshold`` refresh once this fraction of parameters was
+                            edited since the last refresh (0: off).
+    ``max_batches``         retain microbatches folded per refresh — the
+                            budget a drain point may spend.
+    ``decay``               EMA retention: 0 replaces I_D with the fresh
+                            microbatch Fisher, 1 disables the update.
+    """
+    every_drains: int = 1
+    staleness_threshold: float = 0.0
+    max_batches: int = 1
+    decay: float = 0.9
+
+    def __post_init__(self):
+        # one source of truth for the bounds: validate by lowering to the
+        # engine-level policy, rephrasing its errors in this spec's words
+        try:
+            self.to_policy()
+        except ValueError as e:
+            raise ValueError(
+                str(e).replace("RefreshPolicy", "RefreshSpec")) from None
+
+    def to_policy(self):
+        """Lower to the engine-level ``RefreshPolicy``."""
+        from repro_torch.engine.fisher_stream import RefreshPolicy
+        return RefreshPolicy(every_drains=self.every_drains,
+                             staleness_threshold=self.staleness_threshold,
+                             max_batches=self.max_batches, decay=self.decay)
+
+
+_SHARDING_MODES = ("tp", "fsdp")
+_PUBLISH_MODES = ("immediate", "step")
+
+
+@dataclasses.dataclass(frozen=True)
 class QuantSpec:
     """Calibration of the int8 unlearning path (DESIGN.md §12).
 
@@ -170,13 +230,25 @@ class ExecSpec:
     ``quant`` optionally pins the int8 calibration (a ``QuantSpec``); it may
     only be set when ``precision="int8"`` — a quant table on an fp32
     request is a config contradiction and raises.
+
+    ``guard`` (a ``repro_torch.robust.GuardSpec``) validates a drain's
+    edited tree before the fleet may publish it. ``mesh_axes`` and
+    ``cache_dir`` are not ported yet (ROADMAP Queue 1 item 5): None only;
+    ``sharding`` names the reference's layout rule and is inert without a
+    mesh.
     """
     chunk_size: int = 8
     use_kernel: bool = False          # CUDA dampening kernels
     donate: Optional[bool] = None     # None: no donation
+    mesh_axes: Optional[Tuple[str, ...]] = None  # not ported yet (item 5)
+    sharding: str = "tp"              # the reference's layout rule
+    cache_dir: Optional[str] = None   # not ported yet (item 5)
     sweep_mode: str = "layerwise"     # "layerwise" | "scanned"
     precision: str = "fp32"           # "fp32" | "int8"
     quant: Optional[QuantSpec] = None  # int8 calibration (int8 only)
+    # pre-publication drain guard: a drain whose edited tree fails
+    # validation is discarded and retried/dead-lettered by the fleet
+    guard: Optional[GuardSpec] = None
 
     def __post_init__(self):
         _require(isinstance(self.chunk_size, int)
@@ -189,6 +261,18 @@ class ExecSpec:
         _require(self.donate is None or isinstance(self.donate, bool),
                  f"ExecSpec.donate must be None (no donation) or a bool, "
                  f"got {self.donate!r}")
+        if self.mesh_axes is not None:
+            raise _not_ported("ExecSpec.mesh_axes (mesh placement)", "5")
+        _require(self.sharding in _SHARDING_MODES,
+                 f"ExecSpec.sharding must be one of {_SHARDING_MODES}, "
+                 f"got {self.sharding!r}")
+        _require(self.cache_dir is None or
+                 (isinstance(self.cache_dir, str) and self.cache_dir),
+                 f"ExecSpec.cache_dir must be None or a non-empty path, "
+                 f"got {self.cache_dir!r}")
+        if self.cache_dir is not None:
+            raise _not_ported("ExecSpec.cache_dir (the persistent "
+                              "compilation cache)", "5")
         _require(self.sweep_mode in SWEEP_MODES,
                  f"ExecSpec.sweep_mode must be one of {SWEEP_MODES} "
                  f'("scanned" lowers the whole sweep as one compiled '
@@ -209,17 +293,24 @@ class ExecSpec:
                  f"a quantisation calibration on an fp32 request is a "
                  f'config contradiction — set precision="int8" or drop '
                  f"quant")
+        if isinstance(self.guard, dict):  # convenience: accept mappings
+            object.__setattr__(self, "guard", GuardSpec.from_dict(self.guard))
+        _require(self.guard is None or isinstance(self.guard, GuardSpec),
+                 f"ExecSpec.guard must be None or a "
+                 f"repro_torch.robust.GuardSpec (or a mapping of its fields), "
+                 f"got {type(self.guard).__name__}")
 
 
 @dataclasses.dataclass(frozen=True)
 class UnlearnSpec:
-    """mode + (DampenSpec, HaltSpec, ExecSpec): one auditable request config.
-    ``to_config()`` lowers to the engine-level ``UnlearnConfig`` with the
-    reference's mode mapping."""
+    """mode + (DampenSpec, HaltSpec, ExecSpec), and an optional
+    RefreshSpec: one auditable request config. ``to_config()`` lowers to
+    the engine-level ``UnlearnConfig`` with the reference's mode mapping."""
     mode: str = "ficabu"
     dampen: DampenSpec = DampenSpec()
     halt: HaltSpec = HaltSpec()
     exec: ExecSpec = ExecSpec()
+    refresh: Optional[RefreshSpec] = None  # None: I_D stays frozen (SSD)
 
     def __post_init__(self):
         _require(isinstance(self.mode, str) and self.mode in MODES,
@@ -235,6 +326,16 @@ class UnlearnSpec:
                          f"UnlearnSpec.{name} must be a {cls.__name__} "
                          f"(or a mapping of its fields), "
                          f"got {type(val).__name__}")
+        if isinstance(self.refresh, dict):
+            object.__setattr__(self, "refresh",
+                               _from_dict(RefreshSpec, self.refresh,
+                                          "refresh"))
+        else:
+            _require(self.refresh is None
+                     or isinstance(self.refresh, RefreshSpec),
+                     f"UnlearnSpec.refresh must be None (no streamed "
+                     f"refresh), a RefreshSpec, or a mapping of its fields, "
+                     f"got {type(self.refresh).__name__}")
 
     # -- constructors -------------------------------------------------------
     @classmethod
@@ -244,9 +345,12 @@ class UnlearnSpec:
                  c_m: Optional[float] = None, max_layers: Optional[int] = None,
                  chunk_size: int = 8, use_kernel: bool = False,
                  donate: Optional[bool] = None,
+                 cache_dir: Optional[str] = None,
                  sweep_mode: str = "layerwise",
                  precision: str = "fp32",
-                 quant: Optional[QuantSpec] = None) -> "UnlearnSpec":
+                 quant: Optional[QuantSpec] = None,
+                 guard: Optional[GuardSpec] = None,
+                 refresh: Optional[RefreshSpec] = None) -> "UnlearnSpec":
         """Flat-kwargs constructor mirroring the reference's."""
         return cls(
             mode=mode,
@@ -254,8 +358,10 @@ class UnlearnSpec:
             halt=HaltSpec(tau=tau, checkpoint_every=checkpoint_every,
                           max_layers=max_layers),
             exec=ExecSpec(chunk_size=chunk_size, use_kernel=use_kernel,
-                          donate=donate, sweep_mode=sweep_mode,
-                          precision=precision, quant=quant))
+                          donate=donate, cache_dir=cache_dir,
+                          sweep_mode=sweep_mode, precision=precision,
+                          quant=quant, guard=guard),
+            refresh=refresh)
 
     # -- mode semantics -----------------------------------------------------
     @property
@@ -294,10 +400,11 @@ class UnlearnSpec:
         _require(isinstance(d, dict),
                  f"UnlearnSpec.from_dict expects a mapping, "
                  f"got {type(d).__name__}")
-        unknown = set(d) - {"mode", "dampen", "halt", "exec"}
+        unknown = set(d) - {"mode", "dampen", "halt", "exec", "refresh"}
         _require(not unknown,
                  f"unknown UnlearnSpec field(s) {sorted(unknown)}; expected "
-                 f"a subset of ['mode', 'dampen', 'halt', 'exec']")
+                 f"a subset of ['mode', 'dampen', 'halt', 'exec', "
+                 f"'refresh']")
         kw: Dict[str, Any] = {}
         if "mode" in d:
             kw["mode"] = d["mode"]
@@ -307,6 +414,10 @@ class UnlearnSpec:
                 sub = d[name]
                 kw[name] = (sub if isinstance(sub, sub_cls)
                             else _from_dict(sub_cls, sub, name))
+        if "refresh" in d:
+            sub = d["refresh"]
+            kw["refresh"] = (sub if sub is None or isinstance(sub, RefreshSpec)
+                             else _from_dict(RefreshSpec, sub, "refresh"))
         return cls(**kw)
 
     def to_json(self, **json_kw) -> str:
@@ -318,5 +429,170 @@ class UnlearnSpec:
             d = json.loads(s)
         except json.JSONDecodeError as e:
             raise ValueError(f"UnlearnSpec.from_json: not valid JSON: {e}") \
+                from e
+        return cls.from_dict(d)
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeSpec:
+    """The serving deployment's configuration — ONE frozen, auditable spec
+    consumed by both the single-tenant ``serve.py`` path and the fleet
+    (``repro_torch.fleet``), replacing ``ForgetService``'s positional-argument
+    signature and its ``CHUNK`` class constant (port of the reference's).
+
+    ``chunk_size``      Fisher/engine gradient chunking; forget batches are
+                        padded (never trimmed) to a multiple of it.
+    ``coalesce``        union all forget requests due at a drain point into
+                        ONE engine sweep (the serving default); False drains
+                        one request per sweep (the sequential baseline).
+    ``refresh_every``   arm the streamed global-Fisher refresh every N
+                        drains (0 = keep the one-shot I_D).
+    ``sweep_mode``      engine drive loop ("scanned" megaprogram default).
+    ``precision``       numeric path ("fp32" | "int8" program family).
+    ``cache_dir``       the persistent compilation cache: not ported yet
+                        (ROADMAP Queue 1 item 5) — None only.
+    ``max_forget_samples``  per-request forget-batch cap (the serving
+                        harness slices each domain's forget split to this).
+    ``publish``         how a drain's edits reach the served weights:
+                        ``"immediate"`` (the historical in-place semantics —
+                        ``Fleet.drain`` installs the swept tree before
+                        returning, bit-identical to every pre-existing
+                        caller) or ``"step"`` — the sweep runs against a
+                        SHADOW copy of the live tree and the result is
+                        STAGED; publication is an atomic pointer swap the
+                        serving engine performs only between decode steps
+                        (``TenantRuntime.publish_staged``), so a decode
+                        step can never observe a half-edited tree.
+    ``max_batch``       continuous-batching decode slot-pool width (the
+                        stream engine's fixed [B] decode batch; the stream
+                        engine waits for ROADMAP Queue 1 item 4b, so this
+                        and the next two fields are validated, not used).
+    ``admit_chunk``     max sequences admitted per engine step; admission
+                        prefills a fixed-width sub-batch of this size (one
+                        compiled prefill/scatter program for every
+                        admission, padding rows dropped).
+    ``publish_lag``     steps between firing a drain and its deadline
+                        publication: the engine joins the background sweep
+                        and swaps pointers exactly ``publish_lag`` steps
+                        after the drain fired, making the publication step
+                        — and with it the telemetry event stream —
+                        deterministic regardless of sweep-thread timing.
+
+    JSON round-trip via ``to_json``/``from_json``; validation raises
+    ``ValueError`` with actionable messages, never ``assert`` — the same
+    discipline as ``UnlearnSpec``.  ``to_unlearn_spec()`` lowers to the
+    deployment's engine-facing ``UnlearnSpec`` (the mapping previously
+    hardcoded in ``serve.default_serve_spec``).
+    """
+    chunk_size: int = 4
+    coalesce: bool = True
+    refresh_every: int = 0
+    sweep_mode: str = "scanned"
+    precision: str = "fp32"
+    cache_dir: Optional[str] = None
+    max_forget_samples: int = 8
+    publish: str = "immediate"
+    max_batch: int = 8
+    admit_chunk: int = 4
+    publish_lag: int = 16
+    # pre-publication drain guard (repro_torch.robust.GuardSpec), threaded into
+    # the lowered UnlearnSpec's ExecSpec — see ``FleetSpec.guard`` for the
+    # fleet-wide default
+    guard: Optional[GuardSpec] = None
+
+    def __post_init__(self):
+        _require(isinstance(self.chunk_size, int)
+                 and not isinstance(self.chunk_size, bool)
+                 and self.chunk_size >= 1,
+                 f"ServeSpec.chunk_size must be an int >= 1, "
+                 f"got {self.chunk_size!r}")
+        _require(isinstance(self.coalesce, bool),
+                 f"ServeSpec.coalesce must be a bool, got {self.coalesce!r}")
+        _require(isinstance(self.refresh_every, int)
+                 and not isinstance(self.refresh_every, bool)
+                 and self.refresh_every >= 0,
+                 f"ServeSpec.refresh_every must be an int >= 0 (0 keeps the "
+                 f"one-shot I_D), got {self.refresh_every!r}")
+        _require(self.sweep_mode in SWEEP_MODES,
+                 f"ServeSpec.sweep_mode must be one of {SWEEP_MODES}, "
+                 f"got {self.sweep_mode!r}")
+        _require(self.precision in PRECISIONS,
+                 f"ServeSpec.precision must be one of {PRECISIONS}, "
+                 f"got {self.precision!r}")
+        _require(self.cache_dir is None
+                 or (isinstance(self.cache_dir, str) and self.cache_dir),
+                 f"ServeSpec.cache_dir must be None or a non-empty path, "
+                 f"got {self.cache_dir!r}")
+        if self.cache_dir is not None:
+            raise _not_ported("ServeSpec.cache_dir (the persistent "
+                              "compilation cache)", "5")
+        _require(isinstance(self.max_forget_samples, int)
+                 and not isinstance(self.max_forget_samples, bool)
+                 and self.max_forget_samples >= 1,
+                 f"ServeSpec.max_forget_samples must be an int >= 1, "
+                 f"got {self.max_forget_samples!r}")
+        _require(self.publish in _PUBLISH_MODES,
+                 f"ServeSpec.publish must be one of {_PUBLISH_MODES} "
+                 f'("immediate" installs a drain\'s edits in place, "step" '
+                 f"stages them for an atomic between-steps pointer swap), "
+                 f"got {self.publish!r}")
+        _require(isinstance(self.max_batch, int)
+                 and not isinstance(self.max_batch, bool)
+                 and self.max_batch >= 1,
+                 f"ServeSpec.max_batch must be an int >= 1 (the decode "
+                 f"slot-pool width), got {self.max_batch!r}")
+        _require(isinstance(self.admit_chunk, int)
+                 and not isinstance(self.admit_chunk, bool)
+                 and 1 <= self.admit_chunk,
+                 f"ServeSpec.admit_chunk must be an int >= 1, "
+                 f"got {self.admit_chunk!r}")
+        _require(self.admit_chunk <= self.max_batch,
+                 f"ServeSpec.admit_chunk ({self.admit_chunk}) cannot exceed "
+                 f"max_batch ({self.max_batch}) — an admission sub-batch "
+                 f"scatters into free pool slots")
+        _require(isinstance(self.publish_lag, int)
+                 and not isinstance(self.publish_lag, bool)
+                 and self.publish_lag >= 1,
+                 f"ServeSpec.publish_lag must be an int >= 1 step "
+                 f"(publication is always between decode steps), "
+                 f"got {self.publish_lag!r}")
+        if isinstance(self.guard, dict):
+            object.__setattr__(self, "guard", GuardSpec.from_dict(self.guard))
+        _require(self.guard is None or isinstance(self.guard, GuardSpec),
+                 f"ServeSpec.guard must be None or a "
+                 f"repro_torch.robust.GuardSpec (or a mapping of its fields), "
+                 f"got {type(self.guard).__name__}")
+
+    def to_unlearn_spec(self) -> "UnlearnSpec":
+        """Lower to the deployment's engine-facing ``UnlearnSpec`` — the
+        exact mapping the legacy ``serve.default_serve_spec`` hardcoded
+        (alpha/tau/checkpoint cadence pinned for the serving smoke lane;
+        ``refresh_every > 0`` arms a 2-microbatch, decay-0.5 EMA refresh)."""
+        refresh = (RefreshSpec(every_drains=self.refresh_every,
+                               max_batches=2, decay=0.5)
+                   if self.refresh_every > 0 else None)
+        return UnlearnSpec.for_mode(
+            "ficabu", alpha=8.0, lam=1.0, tau=0.6, checkpoint_every=2,
+            chunk_size=self.chunk_size, cache_dir=self.cache_dir,
+            sweep_mode=self.sweep_mode, precision=self.precision,
+            guard=self.guard, refresh=refresh)
+
+    # -- JSON round trip ----------------------------------------------------
+    def to_dict(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_dict(cls, d: Any) -> "ServeSpec":
+        return _from_dict(cls, d, "ServeSpec")
+
+    def to_json(self, **json_kw) -> str:
+        return json.dumps(self.to_dict(), **json_kw)
+
+    @classmethod
+    def from_json(cls, s: str) -> "ServeSpec":
+        try:
+            d = json.loads(s)
+        except json.JSONDecodeError as e:
+            raise ValueError(f"ServeSpec.from_json: not valid JSON: {e}") \
                 from e
         return cls.from_dict(d)

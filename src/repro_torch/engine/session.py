@@ -19,7 +19,13 @@ cache, so a serving process builds each step ONCE:
   * ``sweep_mode="scanned"`` runs the whole sweep as ONE cached program
     with on-device halting (``repro_torch.engine.sweep``; "sweep" and
     "int8_sweep" families) where the stack is shape-uniform, for one
-    request or a coalesced group (``forget_many``).
+    request or a coalesced group (``forget_many``);
+  * the streamed-Fisher refresh steps (``repro_torch.engine.fisher_stream``)
+    live in the same cache ("refresh" family, its own counters).
+
+``forget_many`` is the fault-injection shell of the fleet's failure model
+(``repro_torch.robust.faults``: the ``nan_batch`` and ``fisher_corrupt``
+sites, keyed by ``fault_scope``).
 
 In the layerwise loop the host drives the layer walk / checkpoint decisions
 / early stop exactly as the RISC-V core drives the paper's processor. Every
@@ -28,6 +34,7 @@ request emits one ``engine.sweep`` telemetry event, and the step cache one
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable, Dict, Hashable, List, Optional, Tuple
 
 import numpy as np
@@ -38,10 +45,12 @@ from repro_torch.core.cau import (ModelAdapter, UnlearnConfig, _chunk,
 from repro_torch.core.metrics import MacCounter
 from repro_torch.core.schedule import checkpoint_set, sigmoid_profile
 from repro_torch.kernels.ops import f32
+from repro_torch.models.module import tree_map
 from repro_torch.obs import telemetry as _t
 from repro_torch.optim.compression import (q8_dequantize_tree,
                                            q8_fakequant_tree,
                                            q8_quantize_tree)
+from repro_torch.robust import faults as _faults
 
 from .fused import _note_trace, build_fused_step, shape_signature
 from .programs import ProgramCache
@@ -79,10 +88,14 @@ class UnlearnSession:
         self.programs = programs if programs is not None else ProgramCache()
         self.programs.sessions += 1
         self._ns: Hashable = (adapter.name, adapter.n_layers, donate)
+        # which installed FaultSpecs hit this session (the facade sets its
+        # name; None keys them by the adapter family)
+        self.fault_scope: Optional[str] = None
         self.stats: Dict[str, int] = {
             "requests": 0, "group_sweeps": 0,
             "fused_compiles": 0, "fused_hits": 0,
             "partial_compiles": 0, "partial_hits": 0,
+            "refresh_compiles": 0, "refresh_hits": 0,
             "sweep_compiles": 0, "sweep_hits": 0, "sweep_launches": 0,
             # the int8 program family keeps its own counters so a silent
             # fp32 fallback is visible
@@ -101,6 +114,13 @@ class UnlearnSession:
         self.stats[f"{family}_compiles" if compiled
                    else f"{family}_hits"] += 1
         return prog
+
+    @property
+    def _refresh(self) -> Dict[Hashable, Callable]:
+        """This session's live refresh-family entries; keys are the
+        stream-level keys, namespace stripped."""
+        return {k[1:]: v for k, v in self.programs._progs.items()
+                if k[0] == self._ns and len(k) > 1 and k[1] == "refresh"}
 
     def _layer_key(self, j: int) -> Hashable:
         lk = self.adapter.layer_key
@@ -183,6 +203,24 @@ class UnlearnSession:
             return run
 
         return self._cached("quant", key, builder)
+
+    def refresh_program(self, key: Hashable, builder: Callable[[], Callable]
+                        ) -> Callable:
+        """The streamed-Fisher refresh family
+        (``repro_torch.engine.fisher_stream``): hosted next to the fused /
+        checkpoint families so ONE warm session owns every step a serving
+        process reuses."""
+        return self._cached("refresh", key, builder)
+
+    def evict_refresh_programs(self, token) -> int:
+        """Drop every refresh step keyed to ``token`` (a FisherStream's
+        ``cache_token``): re-arming a facade's refresh replaces the stream,
+        and the dead stream's steps must not accumulate. Scoped to THIS
+        session's namespace — a fleet tenant never evicts a sibling's."""
+        ns = self._ns
+        return self.programs.evict_where(
+            lambda k: (k[0] == ns and len(k) > 2 and k[1] == "refresh"
+                       and k[2] is token))
 
     # -- checkpoint partial inference ---------------------------------------
     def _uniform_suffix(self, acts: List[torch.Tensor]) -> bool:
@@ -500,9 +538,44 @@ class UnlearnSession:
                     cfg: UnlearnConfig, *,
                     reference: Optional[Params] = None
                     ) -> Tuple[Params, List[Dict], Dict]:
-        """One back-to-front sweep serving a GROUP of forget sets (the
-        reference's fault-injection shell around it comes with the port's
-        robustness slice).
+        """Fault-injection shell around the group sweep (DESIGN.md §16).
+
+        ``fault_scope`` (set by the facade to the tenant name; defaults to
+        the adapter family) keys which installed ``FaultSpec``s hit this
+        session. Both sites corrupt the CANDIDATE tree only — the caller's
+        guard discards it and the live weights never see the damage:
+
+        * ``nan_batch``      a non-finite dampening scale (lam = NaN), the
+                             numeric shape of a poisoned forget batch: every
+                             selected weight goes NaN (finite guard);
+        * ``fisher_corrupt`` the retain Fisher scaled to ~0, so selection
+                             grabs everything and beta ~= 0 zeroes it
+                             (edit-magnitude guard). Restored in a finally:
+                             the session's Fisher survives the injection.
+        """
+        scope = self.fault_scope or self.adapter.name
+        if _faults.fire("nan_batch", scope):
+            # alpha=0 widens selection to every weight with forget signal:
+            # the NaN scale lands however conservative the deployment's own
+            # alpha made the selection mask
+            cfg = dataclasses.replace(cfg, lam=float("nan"), alpha=0.0)
+        prev_fisher = None
+        if _faults.fire("fisher_corrupt", scope):
+            prev_fisher = self.fisher_global
+            self.fisher_global = tree_map(lambda x: x * 1e-12, prev_fisher)
+        try:
+            return self._forget_many_impl(params, forget_sets, cfg,
+                                          reference=reference)
+        finally:
+            if prev_fisher is not None:
+                self.fisher_global = prev_fisher
+
+    def _forget_many_impl(self, params: Params,
+                          forget_sets: List[Tuple[Any, torch.Tensor]],
+                          cfg: UnlearnConfig, *,
+                          reference: Optional[Params] = None
+                          ) -> Tuple[Params, List[Dict], Dict]:
+        """One back-to-front sweep serving a GROUP of forget sets.
 
         ``forget_sets`` is a list of (inputs, labels) pairs — e.g. every
         forget request due at a serving drain point. The layer stack is

@@ -59,7 +59,10 @@ def test_spec_json_round_trip_and_validation():
     with pytest.raises(ValueError, match="mode"):
         UnlearnSpec.for_mode("nope")
     with pytest.raises(ValueError, match="unknown"):
-        UnlearnSpec.from_dict({"mode": "ssd", "refresh": None})
+        UnlearnSpec.from_dict({"mode": "ssd", "shard": None})
+    # "refresh" is a field since the refresh slice: it round-trips
+    assert UnlearnSpec.from_dict({"mode": "ssd", "refresh": None}) == \
+        UnlearnSpec.for_mode("ssd")
     with pytest.raises(ValueError, match="alpha"):
         UnlearnSpec.for_mode("ssd", alpha=-1.0)
 

@@ -36,6 +36,9 @@ def test_no_module_imports_jax_or_repro():
     offenders = []
     files = sorted(PORT.rglob("*.py"))
     assert len(files) >= 20
+    # the serving slice's packages among them
+    for pkg in ("robust", "fleet", "launch"):
+        assert any(p.parent.name == pkg for p in files), pkg
     for path in files + [SMOKE]:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
             if isinstance(node, ast.Import):
@@ -221,6 +224,20 @@ for i in range(4):
     lg, cache = ED.decode_step(wparams, wcfg, tok[:2, i:i + 1], cache, i,
                                memory)
 assert torch.isfinite(lg).all() and lg.shape == (2, 1, wcfg.vocab)
+# one ForgetService drain of two domains, then its streamed Fisher refresh
+from repro_torch.api import ServeSpec
+from repro_torch.launch.serve import ForgetService
+stoks, sdoms = syn.make_lm_domains(syn.LMDataConfig(
+    vocab=64, n_domains=4, seq_len=8, n_per_domain=16))
+svc = ForgetService(cfg, stoks, sdoms, 8, serve=ServeSpec(refresh_every=1),
+                    device="cpu")
+svc.submit(1, due_batch=1)
+svc.submit(2, due_batch=1)
+served, ran = svc.drain(params, 1)
+assert ran and svc.group_log[0]["engine"]["sweep_mode"] == "scanned"
+assert len(svc.refresh_log) == 1, svc.refresh_log
+assert svc.staleness_report(served)["improved"]
+out.append(svc.group_log[0]["requests"])
 leaked = [m for m in sys.modules
           if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
 print("LEAKED", leaked, "STOP", out)
@@ -230,13 +247,14 @@ print("LEAKED", leaked, "STOP", out)
 def test_lm_serves_with_jax_and_repro_blocked():
     """The LM slice's modules (models.lm, the registry, the LM adapter and
     data) serve a scanned fp32 and int8 request, an MoE request and a
-    whisper request (the encoder left as it was), and whisper decodes,
-    with JAX and the JAX package blocked."""
+    whisper request (the encoder left as it was), whisper decodes, and a
+    ForgetService drains two domains and refreshes its Fisher, with JAX and
+    the JAX package blocked."""
     env = dict(os.environ, PYTHONPATH=str(SRC))
     proc = subprocess.run([sys.executable, "-c", _BLOCKED_LM_RUN], env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
-    assert "LEAKED [] STOP [9, 9, 4, 4]" in proc.stdout, proc.stdout
+    assert "LEAKED [] STOP [9, 9, 4, 4, 2]" in proc.stdout, proc.stdout
 
 
 def test_lm_entry_points_raise_without_a_card():

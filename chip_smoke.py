@@ -269,7 +269,57 @@ Phases, in order; any failure exits non-zero and prints no result line:
      tokens/s per batch, and NVML's busy share over one batch; the warm
      kernel drain's profile and its dampen time against the byte bound;
      the phase's peak memory and seconds;
- 15. times: each kernel and its plain version at the main paths' shapes
+ 15. [stream]: the continuous-batching ``StreamEngine``
+     (``repro_torch.launch.serve``) on [serve]'s gemma3-1b FULL weights
+     and data (26 blocks, 999,812,736 bf16 parameters), under
+     deterministic algorithms: the traffic of ``serve --serve-mode
+     stream``, 24 sequences of 128 prompt tokens, 32 generated each, 8
+     decode slots, admission in chunks of 4 (prefill block 8), bursts
+     "1,2;3,2" due at engine steps 32 and 64 and published 16 steps after
+     they fire, ``ServeSpec(chunk_size=4, refresh_every=1,
+     sweep_mode="scanned", publish="step")``; run twice, on a tenant whose
+     lowered spec sets ``use_kernel=True`` (the counters zeroed before and
+     read after: 112 dampen launches over 944 leaves, 2 drains x 2 sets x
+     28 layers) and on the plain path (0 launches). Each run passes every
+     gate of ``stream --check`` (``stream_check_problems``), publishes at
+     exactly its deadlines, and runs every step_once after its last
+     publication under ``torch.cuda.set_sync_debug_mode("error")``; the two
+     runs' engine fingerprints, published trees, Fishers and every
+     sequence's tokens equal bit for bit. The first 8 sequences (batch 0's
+     prompts, done before the first publication) against [serve]'s
+     generate of batch 0: where a token differs, generate's top-2 logit gap
+     at the first differing position is below 1e-2, a replica of the
+     engine's grouping (prefill per admission chunk of 4, decode of the
+     pool of 8 at per-row positions) gives the wave bit for bit and
+     chooses the engine's token there, and its logits teacher-forced on
+     generate's tokens lie within DECODE_RTOL of generate's. Then a guarded
+     drain under a ``worker_exc`` fault in both its attempts: aborted at
+     its deadline and requeued, then dead-lettered, the live tree bit for
+     bit as it was. Steps, tokens/s, decode-step wall p50 / p99 with and
+     without a drain in flight, each drain's wall on the worker, peak
+     memory and the phase's seconds;
+ 16. [fleet]: ``serve.run_fleet`` (the loop of ``serve --fleet``) on two
+     gemma3-1b FULL tenants, seeds 0 and 1 (one family), built by the
+     card's builder (data at vocabulary 512), with the reference CLI's
+     traffic (8 requests of 16 prompt tokens, 8 generated, prefill block 8,
+     3 batches, bursts "1,2;3,2" after batch 1, scanned), every gate of
+     ``fleet_check_problems`` (the solo replay on a fresh cache bit for bit
+     and with the fleet's builds), the shared cache's builds and hits;
+ 17. [recover]: the reference's kill-mid-drain scenario on the card:
+     gemma3-1b at full width and 6 of its 26 blocks (one local/global
+     period), ficabu (alpha 8, tau 0.6, checkpoints every 2 layers, chunk
+     4, scanned) with a WAL; a subprocess drains once, checkpoints (params
+     and Fisher, about 3.7 GB), WAL-accepts request 2 and is SIGKILLed at
+     the top of its drain; the parent recovers (restored step 1, one
+     replay, version 2, the WAL's accounting) to params and Fisher bit for
+     bit equal to an uninterrupted twin, and ``latest_step`` skips a step
+     that ``ckpt_crash`` cut between its shard and META;
+ 18. [load]: ``LoadHarness`` twice on freshly built [fleet]-like fleets
+     (``LoadScenario(ticks=8, forget=poisson 0.5, serve_generate=False,
+     domains=3, seed=0)``): equal fingerprints, the accounting equal to the
+     scheduler's, and ``report --slo`` rendering the first run's JSONL
+     stream against an ``SLOSpec`` (exit 0, every objective met);
+ 19. times: each kernel and its plain version at the main paths' shapes
      (the dampen sweeps as a request launches them, one grouped launch per
      layer, with the 56 per-leaf launches beside them and the figures from
      before the grouped kernel; and, for fimd and the GEMMs, one PyTorch
@@ -287,8 +337,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
      ``kernels`` line carry the [scanned] phase's launches and leaves,
      the [lm] phase's (``lm_*`` keys), the [recurrent] phase's
      (``rec_*``), the [dense] phase's (``dense_*``), the [moe] phase's
-     (``moe_*``), the [encdec] phase's (``encdec_*``) and the [serve]
-     phase's (``serve_*``).
+     (``moe_*``), the [encdec] phase's (``encdec_*``), the [serve]
+     phase's (``serve_*``) and the [stream], [fleet], [recover] and [load]
+     phases' (``stream_*``, ``fleet_*``, ``recover_*``, ``load_*``).
 
 The last line is the contract line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -3373,23 +3424,34 @@ SERVE_BURSTS = ((1, 2), (3, 2))
 SERVE_AFTER = 1
 
 
-def serve_phase(dev, rate, zero_counts, dampen_counts, fisher_counts):
-    """Phase 14, [serve]: the streamed Fisher refresh and the serving loop
-    at full width (module docstring), under deterministic algorithms: every
-    run computes its own Fisher, and the embedding's gradient accumulates
-    by atomics otherwise, so two runs' Fishers would differ in their last
-    bits. Returns the figures the kernels line carries."""
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """Deterministic algorithms for the serving phases: every run computes
+    its own Fisher, and the embedding's gradient accumulates by atomics
+    otherwise, so two runs' Fishers would differ in their last bits."""
     prev = (torch.are_deterministic_algorithms_enabled(),
             torch.is_deterministic_algorithms_warn_only_enabled())
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
-        return _serve_phase(dev, rate, zero_counts, dampen_counts,
-                            fisher_counts)
+        yield
     finally:
         torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
 
 
-def _serve_phase(dev, rate, zero_counts, dampen_counts, fisher_counts):
+def serve_phase(dev, rate, zero_counts, dampen_counts, fisher_counts,
+                keep=None):
+    """Phase 14, [serve]: the streamed Fisher refresh and the serving loop
+    at full width (module docstring), under deterministic algorithms.
+    Returns the figures the kernels line carries; ``keep`` (a dict) gets
+    the phase's config, weights, data and the tokens generate gave batch 0,
+    for [stream]."""
+    with deterministic_algorithms():
+        return _serve_phase(dev, rate, zero_counts, dampen_counts,
+                            fisher_counts, keep)
+
+
+def _serve_phase(dev, rate, zero_counts, dampen_counts, fisher_counts,
+                 keep=None):
     import dataclasses
     import types
 
@@ -3458,7 +3520,7 @@ def _serve_phase(dev, rate, zero_counts, dampen_counts, fisher_counts):
         then the drain due after it, the flush at inf last; the warm
         drain's scanned program call under set_sync_debug_mode("error").
         Returns the final tree and the run's figures."""
-        refresh_walls, drain_walls, gen = [], [], []
+        refresh_walls, drain_walls, gen, outs = [], [], [], []
         timed_refreshes(rt, refresh_walls)
         calls = [0]
         p = last_in = params
@@ -3470,6 +3532,7 @@ def _serve_phase(dev, rate, zero_counts, dampen_counts, fisher_counts):
                 out = S.generate(p, cfg, prompts, SERVE_GEN, decode)
                 secs = time.perf_counter() - t0
                 gen.append((secs, out.size / secs))
+                outs.append(out)
                 if out.shape != (SERVE_REQUESTS, SERVE_GEN):
                     raise AssertionError(f"serve generate {out.shape}")
             idx = bi + 1 if bi < len(batches) else float("inf")
@@ -3511,7 +3574,8 @@ def _serve_phase(dev, rate, zero_counts, dampen_counts, fisher_counts):
         if not all(torch.isfinite(t).all() for t in tree_leaves(p)):
             raise AssertionError(f"serve {label}: non-finite parameters")
         return p, {"drain_walls": drain_walls, "refresh_walls":
-                   refresh_walls, "gen": gen, "last_in": last_in}
+                   refresh_walls, "gen": gen, "last_in": last_in,
+                   "outs": outs}
 
     def gates(label, rt, serve_spec, p, staleness=True):
         """Every gate of the reference's ``serve --check`` on a finished
@@ -3749,9 +3813,720 @@ def _serve_phase(dev, rate, zero_counts, dampen_counts, fisher_counts):
         "serve_warm_drain_dampen_bound_ms": bound,
         "serve_guarded_seconds": gsecs,
         "serve_peak_gib": peak, "serve_phase_seconds": secs})
+    if keep is not None:
+        keep.update(cfg=cfg, params=params, tokens=tokens, domains=domains,
+                    seq_len=seq_len, gen0=runs["fp32"]["fig"]["outs"][0])
     del params, stored, runs
     torch.cuda.empty_cache()
     return out
+
+
+# [stream] (phase 15): the continuous-batching StreamEngine on [serve]'s
+# gemma3-1b FULL weights and data: the traffic of serve --serve-mode
+# stream (3 x 8 = 24 sequences of SERVE_PROMPT tokens, SERVE_GEN generated
+# each), 8 decode slots, admission in chunks of 4 with a prefill block of
+# 8, bursts "1,2;3,2" due at engine steps 32 and 64 (SERVE_AFTER + k times
+# SERVE_GEN) and published 16 steps after they fire; a shadow drain is
+# ficabu (alpha 8, tau 0.6, chunk 4, scanned) with a refresh after it
+STREAM_BATCH = 8
+STREAM_ADMIT = 4
+STREAM_PREFILL = 8
+STREAM_LAG = 16
+# the faulted run: one wave of 8 sequences of 8 tokens, a lag of 2 steps
+STREAM_FAULT_GEN = 8
+STREAM_FAULT_LAG = 2
+# a token of the first wave that differs from generate's is excused only
+# where generate's top-2 logit gap is below this (a near-tie)
+STREAM_TIE_GAP = 1e-2
+
+
+def serve_weights(dev):
+    """[serve]'s config, weights, data and the tokens ``generate`` gives
+    its batch 0, built anew (the serving phases without [serve] before
+    them)."""
+    from repro_torch.configs import get as get_arch
+    from repro_torch.data import synthetic as syn
+    from repro_torch.launch import serve as S
+    from repro_torch.models import lm as LM
+
+    cfg = get_arch(SERVE_ARCH).full
+    params = LM.init_lm(torch.Generator(device=dev).manual_seed(SEED), cfg,
+                        device="cuda")
+    seq_len = SERVE_PROMPT + SERVE_GEN
+    tokens, domains = syn.make_lm_domains(syn.LMDataConfig(
+        vocab=LM_DATA_VOCAB, n_domains=4, seq_len=seq_len, n_per_domain=16,
+        seed=SEED))
+    prompts = torch.as_tensor(tokens[:SERVE_REQUESTS, :SERVE_PROMPT],
+                              device=dev).long()
+    with deterministic_algorithms():
+        gen0 = S.generate(params, cfg, prompts, SERVE_GEN,
+                          lambda p, c, t, pos: LM.decode_step(p, cfg, t, c,
+                                                              pos))
+    return {"cfg": cfg, "params": params, "tokens": tokens,
+            "domains": domains, "seq_len": seq_len, "gen0": gen0}
+
+
+def stream_phase(dev, rate, zero_counts, dampen_counts, fisher_counts,
+                 shared=None):
+    """Phase 15, [stream] (module docstring), under deterministic
+    algorithms, on ``shared`` ([serve]'s ``keep``) or on weights built
+    anew. Returns the figures the kernels line carries."""
+    with deterministic_algorithms():
+        return _stream_phase(dev, rate, zero_counts, dampen_counts,
+                             fisher_counts, shared or serve_weights(dev))
+
+
+def _stream_phase(dev, rate, zero_counts, dampen_counts, fisher_counts,
+                  sh):
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import bridge
+    from repro_torch.api import ServeSpec
+    from repro_torch.launch import serve as S
+    from repro_torch.models import lm as LM
+    from repro_torch.models.module import tree_leaves
+    from repro_torch.obs import telemetry
+    from repro_torch.robust import faults
+    from repro_torch.robust.guards import GuardSpec
+
+    t_phase = time.perf_counter()
+    gib = 2.0 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    cfg, params, tokens, domains, seq_len, gen0 = (
+        sh[k] for k in ("cfg", "params", "tokens", "domains", "seq_len",
+                        "gen0"))
+    stored = bridge.paths(params)
+    before = {k: v.clone() for k, v in stored.items()}
+    n_seq = SERVE_BATCHES * SERVE_REQUESTS
+    prompts = np.asarray(tokens[:, :SERVE_PROMPT])
+    fires = [(SERVE_AFTER + i) * SERVE_GEN for i in range(len(SERVE_BURSTS))]
+    deadlines = [f + STREAM_LAG for f in fires]
+    spec = ServeSpec(chunk_size=4, refresh_every=1, sweep_mode="scanned",
+                     publish="step", max_batch=STREAM_BATCH,
+                     admit_chunk=STREAM_ADMIT, publish_lag=STREAM_LAG)
+    log(f"[stream] {cfg.name} FULL ({cfg.n_layers} blocks, {len(stored)} "
+        f"stored leaves), [serve]'s weights and data: {n_seq} sequences of "
+        f"{SERVE_PROMPT} prompt tokens, {SERVE_GEN} generated each, "
+        f"{STREAM_BATCH} slots, admission chunks of {STREAM_ADMIT} "
+        f"(prefill block {STREAM_PREFILL}), bursts {SERVE_BURSTS} fired at "
+        f"steps {fires}, publication deadlines {deadlines}; {spec}")
+
+    def run(label, use_kernel):
+        """One engine run, the [stream] path's counters zeroed just before
+        and read just after; after the last publication each step_once
+        runs under set_sync_debug_mode("error")."""
+        svc = S.ForgetService(cfg, tokens, domains, seq_len, serve=spec,
+                              device="cuda")
+        if use_kernel:
+            low = svc.spec
+            svc._rt.spec = dataclasses.replace(low, exec=dataclasses.replace(
+                low.exec, use_kernel=True))
+        for f, burst in zip(fires, SERVE_BURSTS):
+            for d in burst:
+                svc.submit(d, due_batch=f)
+        eng = S.StreamEngine(params, cfg, gen_len=SERVE_GEN,
+                             prompt_len=SERVE_PROMPT,
+                             max_batch=STREAM_BATCH,
+                             admit_chunk=STREAM_ADMIT,
+                             prefill_block=STREAM_PREFILL,
+                             publish_lag=STREAM_LAG, service=svc,
+                             device="cuda")
+        worker_walls = []
+        shadow = svc.run_shadow_guarded
+
+        def timed(payloads, step):
+            t0 = time.perf_counter()
+            out = shadow(payloads, step)
+            worker_walls.append(time.perf_counter() - t0)
+            return out
+        svc.run_shadow_guarded = timed
+        for i in range(n_seq):
+            eng.enqueue(i, prompts[i % len(prompts)])
+        inflight, guarded = [], 0
+        zero_counts()                          # the [stream] path starts
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with telemetry.capture() as cap:
+            while eng.pending or any(s is not None for s in eng.slot_seq):
+                busy = any(not p[1].done() for p in eng._pending_pubs)
+                quiet = (eng.step > deadlines[-1] and not eng._pending_pubs
+                         and not svc.scheduler.pending())
+                if quiet:
+                    torch.cuda.set_sync_debug_mode("error")
+                    try:
+                        eng.step_once()
+                    finally:
+                        torch.cuda.set_sync_debug_mode(0)
+                    guarded += 1
+                else:
+                    eng.step_once()
+                # a drain in flight: its sweep ran on the worker at the
+                # start or the end of the step (the step that fires it, and
+                # the one that waits for it at its deadline, among them)
+                inflight.append(busy or any(not p[1].done()
+                                            for p in eng._pending_pubs))
+            results = eng.finish()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = dampen_counts()               # the [stream] path ends
+        others = fisher_counts()
+        pubs = [e["step"] for e in cap.events
+                if e["kind"] == "params.publish"]
+        problems = S.stream_check_problems(eng, svc, n_seq, results)
+        if pubs != deadlines:
+            problems.append(f"publications at steps {pubs}, deadlines "
+                            f"{deadlines}")
+        if len(svc.group_log) != len(SERVE_BURSTS) or not guarded:
+            problems.append(f"{len(svc.group_log)} drain groups, {guarded} "
+                            f"guarded steps")
+        if problems:
+            raise AssertionError(f"stream {label} check: {problems}")
+        walls = [w * 1e3 for w in eng.step_wall]
+        drain = sorted(w for w, f in zip(walls, inflight) if f)
+        rest = sorted(w for w, f in zip(walls, inflight) if not f)
+        n_tok = sum(r.size for r in results.values())
+        fig = {"steps": eng.step, "secs": secs, "tokens": n_tok,
+               "p50": S._percentile(rest, 0.5), "p99": S._percentile(rest,
+                                                                     0.99),
+               "drain_p50": S._percentile(drain, 0.5),
+               "drain_p99": S._percentile(drain, 0.99),
+               "drain_steps": len(drain), "worker": worker_walls,
+               "guarded": guarded, "counts": counts}
+        log(f"[stream] {label}: {len(results)} sequences, {n_tok} tokens in "
+            f"{eng.step} steps, {secs:.2f} s ({n_tok / secs:.1f} tokens/s); "
+            f"publications at steps {pubs} (versions "
+            f"{[e['version'] for e in cap.events if e['kind'] == 'params.publish']}"
+            f"); decode step wall p50 {fig['p50']:.2f} / p99 "
+            f"{fig['p99']:.2f} ms over {len(rest)} steps without a drain in "
+            f"flight, p50 {fig['drain_p50']:.2f} / p99 "
+            f"{fig['drain_p99']:.2f} ms over {len(drain)} steps with one; "
+            f"worker walls per drain "
+            f"{[round(w * 1e3, 1) for w in worker_walls]} ms; drains "
+            f"{[(g['domains'], g['sweep_sig'], g['engine']['sweep_mode']) for g in svc.group_log]}"
+            f", stopped_at_l {[e['stopped_at_l'] for e in svc.log]}; "
+            f"{guarded} warm step_once under set_sync_debug_mode('error'); "
+            f"dampen launches {counts[0]} over {counts[1]} leaves, int8 "
+            f"{counts[2:]}, fimd/gemm/rowscale {others}; one decode "
+            f"signature; every stream --check gate holds")
+        if not all(torch.isfinite(t).all() for t in tree_leaves(eng.params)):
+            raise AssertionError(f"stream {label}: non-finite parameters")
+        return {"results": results, "params": eng.params,
+                "fisher": svc.unlearner.fisher_global, "fig": fig,
+                "fingerprint": S.engine_fingerprint(cap.events),
+                "others": others}
+
+    kernel = run("kernel", True)
+    plain = run("plain", False)
+    adapter = S.ForgetService(cfg, tokens, domains, seq_len, serve=spec,
+                              device="cuda").adapter
+    L = adapter.n_layers
+    n_leaves = sum(len(tree_leaves(adapter.get_layer(params, j)))
+                   for j in range(L))
+    want = (2 * len(SERVE_BURSTS) * L, 2 * len(SERVE_BURSTS) * n_leaves)
+    kc, pc = kernel["fig"]["counts"], plain["fig"]["counts"]
+    if kc != want + (0, 0) or pc != (0, 0, 0, 0) or \
+            kernel["others"] != (0, 0, 0, 0):
+        raise AssertionError(f"stream counts: kernel {kc}, plain {pc}, "
+                             f"expected {want}")
+    log(f"[stream] kernel run: dampen launches {kc[0]} over {kc[1]} leaves "
+        f"(expected {want}: 2 drains x 2 sets x {L} layers); plain run "
+        f"{pc[0]} launches")
+
+    def same(p, q):
+        a, b = bridge.paths(p), bridge.paths(q)
+        return sorted(a) == sorted(b) and all(
+            torch.equal(bits(a[k]), bits(b[k])) for k in a)
+
+    if kernel["fingerprint"] != plain["fingerprint"]:
+        raise AssertionError("stream: the two runs' engine fingerprints "
+                             "differ")
+    if not same(kernel["params"], plain["params"]) or \
+            not same(kernel["fisher"], plain["fisher"]):
+        raise AssertionError("stream: the kernel run's published tree or "
+                             "Fisher != the plain run's")
+    diff = [s for s in range(n_seq) if not np.array_equal(
+        kernel["results"][s], plain["results"][s])]
+    if diff:
+        raise AssertionError(f"stream: sequences {diff} differ between the "
+                             f"kernel and the plain run")
+    log(f"[stream] kernel run == plain run, bit for bit: the published "
+        f"tree ({len(stored)} leaves), the Fisher, all {n_seq} sequences' "
+        f"tokens; engine fingerprints equal ({kernel['fingerprint'][:16]})")
+    # the first wave (batch 0's prompts, done before the first
+    # publication) against [serve]'s generate of batch 0. The engine
+    # prefills them in admission chunks of STREAM_ADMIT rows where generate
+    # prefills all 8 at once: a [4 x 8, D] product sums in another order
+    # than an [8 x 8, D] one, so a bf16 rounding may land on the other side
+    # (as decode beside the forward, DECODE_RTOL). Where a token differs,
+    # generate's top-2 logit gap at the first differing position must be
+    # below STREAM_TIE_GAP; and a replica of the engine's grouping (prefill
+    # per admission chunk, the rows scattered into a pool of 8, decode at
+    # per-row positions) must give every token of the wave bit for bit and
+    # choose the engine's token there, and its logits, teacher-forced on
+    # generate's tokens, must lie within DECODE_RTOL (relative L2) of
+    # generate's
+    got0 = np.stack([plain["results"][s] for s in range(SERVE_REQUESTS)])
+    rows = [b for b in range(SERVE_REQUESTS)
+            if not np.array_equal(got0[b], gen0[b])]
+    flips = []
+    if rows:
+        P, S_len = SERVE_PROMPT, SERVE_PROMPT + SERVE_GEN
+        pr = torch.as_tensor(tokens[:SERVE_REQUESTS, :P], device=dev).long()
+        forced = torch.as_tensor(gen0, device=dev).long()
+
+        def walk(grouped, force):
+            """(greedy tokens [8, G], logits [8, G, V]) of one grouping,
+            teacher-forced on ``force`` when given."""
+            B = SERVE_REQUESTS
+            with torch.no_grad():
+                if grouped:
+                    cache = LM.init_cache(cfg, B, S_len, device="cuda")
+                    firsts = []
+                    for a in range(0, B, STREAM_ADMIT):
+                        lg, sub = LM.prefill(
+                            params, cfg, pr[a:a + STREAM_ADMIT],
+                            LM.init_cache(cfg, STREAM_ADMIT, S_len,
+                                          device="cuda"),
+                            block=STREAM_PREFILL)
+                        firsts.append(lg[:, -1])
+                        cache = LM.scatter_cache_rows(cache, sub, torch.arange(
+                            a, a + STREAM_ADMIT, device=dev))
+                    lg = torch.cat(firsts)
+                else:
+                    lg, cache = LM.prefill(params, cfg, pr, LM.init_cache(
+                        cfg, B, S_len, device="cuda"), block=STREAM_PREFILL)
+                    lg = lg[:, -1]
+                logits, toks = [lg], [torch.argmax(lg, -1)]
+                for j in range(SERVE_GEN - 1):
+                    tok = (force[:, j] if force is not None else toks[-1])
+                    pos = (torch.full((B,), P + j, device=dev)
+                           if grouped else P + j)
+                    lg, cache = LM.decode_step(params, cfg, tok[:, None],
+                                               cache, pos)
+                    logits.append(lg[:, -1])
+                    toks.append(torch.argmax(lg[:, -1], -1))
+            return (torch.stack(toks, 1).cpu().numpy(),
+                    torch.stack(logits, 1))
+
+        replica, _ = walk(True, None)
+        _, lg_gen = walk(False, forced)
+        _, lg_rep = walk(True, forced)
+        rel = float(torch.linalg.vector_norm(lg_rep - lg_gen)
+                    / torch.linalg.vector_norm(lg_gen))
+        top2 = lg_gen.topk(2, dim=-1).values.cpu()
+        for b in rows:
+            j = int(np.nonzero(got0[b] != gen0[b])[0][0])
+            gap = float(top2[b, j, 0] - top2[b, j, 1])
+            chose = int(torch.argmax(lg_rep[b, j]))
+            flips.append((b, j, gap, chose == int(got0[b, j])))
+            log(f"[stream] sequence {b}: first token that differs from "
+                f"generate at position {j}, generate's top-2 logit gap "
+                f"there {gap:.6f}; the grouping replica chooses the "
+                f"engine's token there: {chose == int(got0[b, j])}")
+        log(f"[stream] the engine's grouping replayed: its tokens == the "
+            f"engine's first wave bit for bit: "
+            f"{np.array_equal(replica, got0)}; its logits teacher-forced "
+            f"on generate's tokens within relative L2 {rel:.6f} of "
+            f"generate's (DECODE_RTOL {DECODE_RTOL})")
+        if not np.array_equal(replica, got0) or rel > DECODE_RTOL or \
+                not all(f[3] and f[2] < STREAM_TIE_GAP for f in flips):
+            raise AssertionError(f"stream: tokens differ from generate's "
+                                 f"beyond the grouping: {flips}, rel {rel}")
+        del lg_gen, lg_rep
+    log(f"[stream] the first {SERVE_REQUESTS} sequences (batch 0's prompts, "
+        f"generated before the first publication) == [serve]'s generate of "
+        f"batch 0 in {SERVE_REQUESTS - len(rows)} of {SERVE_REQUESTS} rows"
+        + (f"; the others first differ at (row, position, generate's "
+           f"top-2 gap) {[f[:3] for f in flips]}, the engine's grouping "
+           f"replayed bit for bit" if rows else ""))
+    fig_k, fig_p = kernel["fig"], plain["fig"]
+    del kernel, plain
+    torch.cuda.empty_cache()
+
+    # a worker exception in both attempts of a guarded drain: aborted at
+    # its deadline and requeued, then dead-lettered; the live tree serves on
+    gspec = ServeSpec(chunk_size=4, sweep_mode="scanned", publish="step",
+                      max_batch=STREAM_BATCH, admit_chunk=STREAM_ADMIT,
+                      publish_lag=STREAM_FAULT_LAG, guard=GuardSpec())
+    svc = S.ForgetService(cfg, tokens, domains, seq_len, serve=gspec,
+                          device="cuda")
+    for d in SERVE_BURSTS[0]:
+        svc.submit(d, due_batch=1)
+    eng = S.StreamEngine(params, cfg, gen_len=STREAM_FAULT_GEN,
+                         prompt_len=SERVE_PROMPT, max_batch=STREAM_BATCH,
+                         admit_chunk=STREAM_ADMIT,
+                         prefill_block=STREAM_PREFILL,
+                         publish_lag=STREAM_FAULT_LAG, service=svc,
+                         device="cuda")
+    for i in range(STREAM_BATCH):
+        eng.enqueue(i, prompts[i])
+    inj = faults.FaultInjector([faults.FaultSpec("worker_exc",
+                                                 tenant="default",
+                                                 count=2)])
+    prev = faults.install(inj)
+    t0 = time.perf_counter()
+    try:
+        with telemetry.capture() as cap:
+            fres = eng.run()
+    finally:
+        faults.install(prev)
+    fsecs = time.perf_counter() - t0
+    acts = [(e["batch"], e["action"]) for e in cap.events
+            if e["kind"] == "drain.abort"]
+    acc = svc._fleet.accounting()["default"]
+    log(f"[stream] worker_exc in both attempts: {len(fres)} sequences in "
+        f"{eng.step} steps; aborts {eng.aborts} (actions at batches "
+        f"{acts}), dead-lettered {svc.scheduler.dead()}, publications "
+        f"{eng.publications}, accounting {acc}; {fsecs:.1f} s")
+    if (eng.aborts != 2 or [a for _, a in acts] != ["requeue", "dead_letter"]
+            or svc.scheduler.dead() != 2 or eng.publications != 0
+            or not acc["ok"] or eng.params is not params
+            or len(inj.fired) != 2 or len(fres) != STREAM_BATCH):
+        raise AssertionError("stream worker_exc: the drain was not "
+                             "aborted, requeued and dead-lettered")
+    for k, t in stored.items():
+        if not torch.equal(bits(t), bits(before[k])):
+            raise AssertionError(f"stream: the live tree's {k} changed")
+    log("[stream] the live tree bit for bit as it was after every run")
+    del svc, eng, before
+    peak = torch.cuda.max_memory_allocated() / gib
+    secs = time.perf_counter() - t_phase
+    log(f"[stream] phase done in {secs:.1f} s; torch.cuda.max_memory_"
+        f"allocated {peak:.2f} GiB")
+    return {
+        "stream_launches": fig_k["counts"][0],
+        "stream_leaves": fig_k["counts"][1],
+        "stream_plain_launches": fig_p["counts"][0],
+        "stream_steps": fig_p["steps"],
+        "stream_tokens_per_s": fig_p["tokens"] / fig_p["secs"],
+        "stream_kernel_tokens_per_s": fig_k["tokens"] / fig_k["secs"],
+        "stream_step_p50_ms": fig_p["p50"], "stream_step_p99_ms":
+            fig_p["p99"],
+        "stream_drain_step_p50_ms": fig_p["drain_p50"],
+        "stream_drain_step_p99_ms": fig_p["drain_p99"],
+        "stream_drain_steps": fig_p["drain_steps"],
+        "stream_kernel_step_p50_ms": fig_k["p50"],
+        "stream_kernel_drain_step_p99_ms": fig_k["drain_p99"],
+        "stream_worker_drain_walls_ms": [w * 1e3 for w in fig_p["worker"]],
+        "stream_kernel_worker_drain_walls_ms": [
+            w * 1e3 for w in fig_k["worker"]],
+        "stream_guarded_steps": fig_p["guarded"] + fig_k["guarded"],
+        "stream_generate_rows_equal": SERVE_REQUESTS - len(rows),
+        "stream_generate_first_diffs": [list(f[:3]) for f in flips],
+        "stream_fault_seconds": fsecs,
+        "stream_peak_gib": peak, "stream_phase_seconds": secs}
+
+
+# [fleet] (phase 16), [recover] (17) and [load] (18): --fleet's loop on two
+# gemma3-1b FULL tenants (seeds 0 and 1: one family) with the reference
+# CLI's traffic, built by the card's own builder (data at LM_DATA_VOCAB)
+FLEET_SPEC = {"tenants": [{"name": "t0", "arch": SERVE_ARCH, "seed": 0},
+                          {"name": "t1", "arch": SERVE_ARCH, "seed": 1}],
+              "serve": {"chunk_size": 4}}
+FLEET_TRAFFIC = {"requests": 8, "prompt_len": 16, "gen_len": 8,
+                 "prefill_block": 8, "unlearn_after": 1,
+                 "forget_domains": "1,2;3,2", "coalesce": False,
+                 "forget_domain": 1}
+# [recover]: gemma3-1b at full width and one local/global period of its
+# blocks, sequences of RECOVER_SEQ tokens
+RECOVER_BLOCKS = 6
+RECOVER_SEQ = 128
+# [load]: the harness's virtual ticks
+LOAD_TICKS = 8
+
+
+def card_lm_tenant(tspec, seq_len, n_layers=None, n_per_domain=16):
+    """The card's tenant builder: ``serve._build_lm_tenant`` at FULL width
+    (``n_layers`` cuts the depth), with its data at LM_DATA_VOCAB (the
+    model's 262,144 cannot be drawn, [serve])."""
+    from repro_torch.configs import get as get_arch
+    from repro_torch.data import synthetic as syn
+    from repro_torch.models import lm as LM
+
+    cfg = get_arch(tspec.arch).full
+    if n_layers is not None:
+        cfg = cfg.with_(n_layers=n_layers)
+    params = LM.init_lm(torch.Generator(device="cuda").manual_seed(
+        tspec.seed), cfg, device="cuda")
+    tokens, domains = syn.make_lm_domains(syn.LMDataConfig(
+        vocab=LM_DATA_VOCAB, n_domains=4, seq_len=seq_len,
+        n_per_domain=n_per_domain, seed=tspec.seed))
+    return {"cfg": cfg, "tokens": tokens, "domains": domains,
+            "seq_len": seq_len, "params": params}
+
+
+def fleet_phase(dev, zero_counts, dampen_counts, fisher_counts):
+    """Phase 16, [fleet]: ``serve.run_fleet`` and every gate of
+    ``fleet_check_problems`` (module docstring), under deterministic
+    algorithms."""
+    import types
+
+    from repro_torch.fleet import FleetSpec
+    from repro_torch.launch import serve as S
+    from repro_torch.models.module import tree_leaves
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    args = types.SimpleNamespace(**FLEET_TRAFFIC)
+    fspec = FleetSpec.from_dict(FLEET_SPEC)
+
+    def build(t):
+        return card_lm_tenant(t, args.prompt_len + args.gen_len)
+
+    with deterministic_algorithms():
+        zero_counts()                          # the [fleet] path starts
+        fleet, result = S.run_fleet(fspec, build, args, device="cuda")
+        counts = dampen_counts() + fisher_counts()   # the path ends
+        t_check = time.perf_counter()
+        problems = S.fleet_check_problems(fleet, fspec, build)
+        check_secs = time.perf_counter() - t_check
+    pick = S._shared_family_tenant(fleet, fspec)
+    for name, rt in fleet.tenants.items():
+        if not all(torch.isfinite(t).all() for t in tree_leaves(rt.params)):
+            problems.append(f"tenant {name}: non-finite parameters")
+    if any(counts):
+        problems.append(f"the plain fleet launched kernels {counts}")
+    if problems:
+        raise AssertionError(f"fleet check: {problems}")
+    st = fleet.programs.stats()
+    for name, rt in fleet.tenants.items():
+        log(f"[fleet] tenant {name}: drains "
+            f"{[(g['batch'], g['domains'], g['sweep_sig'], g['engine']['compiles'], g['engine']['cache_hits']) for g in rt.group_log]}"
+            f" (batch, domains, signature, builds, hits); served "
+            f"{[(e['batch'], e['tokens'], e['latency_s']) for e in result['served'][name]]}"
+            f" (batch, tokens, latency s)")
+    secs = time.perf_counter() - t_phase
+    peak = torch.cuda.max_memory_allocated() / 2.0 ** 30
+    log(f"[fleet] fleet check ok: {len(fleet.tenants)} gemma3-1b FULL "
+        f"tenants, {sum(rt.groups for rt in fleet.tenants.values())} drain "
+        f"groups; the shared cache built {st['compiles']} programs and hit "
+        f"{st['hits']} times across {st['sessions']} sessions; tenant "
+        f"{pick!r} replayed alone on a fresh cache: bit for bit, the same "
+        f"builds ({check_secs:.1f} s); phase {secs:.1f} s, peak {peak:.2f} "
+        f"GiB")
+    del fleet, result
+    torch.cuda.empty_cache()
+    return {"fleet_builds": st["compiles"], "fleet_hits": st["hits"],
+            "fleet_phase_seconds": secs, "fleet_peak_gib": peak}
+
+
+def recover_fleet(wal_dir=None):
+    """[recover]'s one-tenant fleet: gemma3-1b at full width and
+    RECOVER_BLOCKS blocks from the seed, ficabu (alpha 8, tau 0.6,
+    checkpoints every 2 layers, chunk 4, scanned), a WAL in ``wal_dir``.
+    The victim process and the parent build it alike."""
+    from repro_torch.api import UnlearnSpec
+    from repro_torch.fleet import Fleet, TenantSpec
+    from repro_torch.robust import ForgetWAL
+
+    b = card_lm_tenant(TenantSpec("a", arch=SERVE_ARCH, seed=SEED),
+                       RECOVER_SEQ, n_layers=RECOVER_BLOCKS, n_per_domain=8)
+    fleet = Fleet()
+    rt = fleet.add_tenant("a", b["cfg"], b["tokens"], b["domains"],
+                          b["seq_len"], params=b["params"],
+                          spec=UnlearnSpec.for_mode(
+                              "ficabu", alpha=8.0, lam=1.0, tau=0.6,
+                              checkpoint_every=2, chunk_size=4,
+                              sweep_mode="scanned"), device="cuda")
+    if wal_dir is not None:
+        rt.wal = ForgetWAL(wal_dir, "a")
+    return fleet, rt
+
+
+# the [recover] victim: drain once, checkpoint, WAL-accept a second request,
+# die by SIGKILL at the top of its drain
+_VICTIM = """
+import sys
+import torch
+sys.path.insert(0, sys.argv[3])
+import chip_smoke as cs
+from repro_torch.robust import FaultInjector, FaultSpec, faults
+
+torch.use_deterministic_algorithms(True, warn_only=True)
+fleet, rt = cs.recover_fleet(sys.argv[1])
+fleet.submit("a", 1, due_batch=1)
+fleet.drain(1)
+fleet.checkpoint(sys.argv[2])
+fleet.submit("a", 2, due_batch=2)
+faults.install(FaultInjector([FaultSpec("kill_mid_drain", tenant="a")]))
+fleet.drain(2)
+print("UNREACHABLE", flush=True)
+"""
+
+
+def recover_phase(dev):
+    """Phase 17, [recover]: the reference's kill-mid-drain scenario on the
+    card (module docstring), under deterministic algorithms."""
+    import shutil
+    import tempfile
+
+    from repro_torch import bridge
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.robust import ForgetWAL, faults
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="recover_", dir=ROOT / "build"))
+    wal_dir, ckpt_dir = str(tmp / "wal"), str(tmp / "ckpt")
+    try:
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", _VICTIM, wal_dir,
+                               ckpt_dir, str(ROOT)], env=env,
+                              capture_output=True, text=True, timeout=600)
+        vsecs = time.perf_counter() - t0
+        if proc.returncode != -9 or "UNREACHABLE" in proc.stdout:
+            raise AssertionError(f"recover victim exited {proc.returncode}: "
+                                 f"{proc.stderr[-2000:]}")
+        size = sum(f.stat().st_size for f in (tmp / "ckpt").rglob("*")
+                   if f.is_file())
+        wacc = ForgetWAL(wal_dir, "a").accounting()
+        if wacc != {"accepted": 2, "applied": 1, "dead": 0, "pending": 1}:
+            raise AssertionError(f"recover: the victim's WAL {wacc}")
+        with deterministic_algorithms():
+            fleet, rt = recover_fleet(wal_dir)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            report = fleet.recover(ckpt_dir)["a"]
+            torch.cuda.synchronize()
+            rsecs = time.perf_counter() - t0
+            twin, rt_twin = recover_fleet()
+            twin.submit("a", 1, due_batch=1)
+            twin.drain(1)
+            twin.submit("a", 2, due_batch=2)
+            twin.drain(2)
+        n_leaves = len(bridge.paths(rt.params))
+        log(f"[recover] victim ({RECOVER_BLOCKS} of 26 blocks at full width,"
+            f" {n_leaves} stored leaves) drained, checkpointed "
+            f"({size / 1e9:.2f} GB on disk), WAL-accepted request 2 and was "
+            f"SIGKILLed mid-drain: exit {proc.returncode}, {vsecs:.1f} s; "
+            f"WAL {wacc}; recover: {report} in {rsecs:.1f} s, version "
+            f"{rt.params_version}, WAL {rt.wal.accounting()}")
+        if (report["restored_step"] != 1 or report["restored_version"] != 1
+                or len(report["replayed"]) != 1 or rt.params_version != 2
+                or rt.wal.accounting() != {"accepted": 2, "applied": 2,
+                                           "dead": 0, "pending": 0}):
+            raise AssertionError(f"recover: {report}")
+
+        def same(p, q):
+            a, b = bridge.paths(p), bridge.paths(q)
+            return sorted(a) == sorted(b) and all(
+                torch.equal(bits(a[k]), bits(b[k])) for k in a)
+
+        if not same(rt.params, rt_twin.params) or not same(
+                rt.unlearner.fisher_global, rt_twin.unlearner.fisher_global):
+            raise AssertionError("recover: params or Fisher != the "
+                                 "uninterrupted twin's")
+        log("[recover] recovered params and Fisher == the uninterrupted "
+            "twin's, bit for bit")
+        # a checkpoint cut between its shard and META is never restored
+        prev = faults.install(faults.FaultInjector(
+            [faults.FaultSpec("ckpt_crash")]))
+        try:
+            fleet.checkpoint(ckpt_dir)
+            raise AssertionError("recover: ckpt_crash did not fire")
+        except RuntimeError as e:
+            if "ckpt_crash" not in str(e):
+                raise
+        finally:
+            faults.install(prev)
+        cut = Path(ckpt_dir) / "a" / "step_00000002"
+        latest = ckpt.latest_step(str(Path(ckpt_dir) / "a"))
+        if latest != 1 or not (cut / "host_0.npz").exists() \
+                or (cut / "META.json").exists():
+            raise AssertionError(f"recover: latest_step {latest} after a "
+                                 f"cut step")
+        log(f"[recover] a checkpoint of version 2 cut by ckpt_crash (shard "
+            f"written, META withheld): latest_step still {latest}")
+        del fleet, rt, twin, rt_twin
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    secs = time.perf_counter() - t_phase
+    log(f"[recover] phase done in {secs:.1f} s")
+    return {"recover_victim_seconds": vsecs, "recover_seconds": rsecs,
+            "recover_checkpoint_bytes": size,
+            "recover_phase_seconds": secs}
+
+
+def load_phase(dev):
+    """Phase 18, [load]: ``LoadHarness`` twice on freshly built [fleet]-
+    like fleets and ``report --slo`` (module docstring), under
+    deterministic algorithms."""
+    import shutil
+    import tempfile
+
+    from repro_torch.fleet import Fleet, FleetSpec
+    from repro_torch.load import ArrivalSpec, LoadHarness, LoadScenario, SLOSpec
+    from repro_torch.obs import report, telemetry
+
+    t_phase = time.perf_counter()
+    sc = LoadScenario(ticks=LOAD_TICKS,
+                      forget=ArrivalSpec(kind="poisson", rate=0.5),
+                      serve_generate=False, domains=3, seed=0)
+    seq_len = FLEET_TRAFFIC["prompt_len"] + FLEET_TRAFFIC["gen_len"]
+    slo = SLOSpec(max_queue_depth=2 * LOAD_TICKS, max_dead_letter_fraction=0.0)
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="load_", dir=ROOT / "build"))
+    runs = []
+    try:
+        for i in range(2):
+            with deterministic_algorithms():
+                fleet = Fleet.from_spec(
+                    FleetSpec.from_dict(FLEET_SPEC),
+                    lambda t: card_lm_tenant(t, seq_len), device="cuda")
+                tel = telemetry.Telemetry(path=str(tmp / f"events{i}.jsonl"),
+                                          clock=telemetry.VirtualClock())
+                t0 = time.perf_counter()
+                try:
+                    res = LoadHarness(fleet, sc).run(tel)
+                finally:
+                    tel.close()
+                secs = time.perf_counter() - t0
+            acct = fleet.accounting()
+            applied = sum(rt.applied_requests
+                          for rt in fleet.tenants.values())
+            groups = sum(rt.groups for rt in fleet.tenants.values())
+            log(f"[load] run {i}: {res['admitted']} forget requests "
+                f"admitted over {LOAD_TICKS} ticks (flushed by tick "
+                f"{res['final_tick']}), {groups} drain groups, "
+                f"{res['n_events']} events, fingerprint "
+                f"{res['fingerprint'][:16]}; accounting {acct}; {secs:.1f} s")
+            if not all(a["ok"] for a in acct.values()) or \
+                    applied != res["admitted"] or \
+                    res["fleet"]["drained_requests"] != res["admitted"] or \
+                    res["admitted"] != sum(fleet.scheduler.submits.values()):
+                raise AssertionError(f"load run {i}: accounting {acct}, "
+                                     f"{applied} applied")
+            runs.append((res, secs))
+            del fleet
+            torch.cuda.empty_cache()
+        if runs[0][0]["fingerprint"] != runs[1][0]["fingerprint"] or \
+                runs[0][0]["event_counts"] != runs[1][0]["event_counts"]:
+            raise AssertionError("load: the two runs' event streams differ")
+        ev = slo.evaluate(runs[0][0])
+        slo_path = tmp / "slo.json"
+        slo_path.write_text(slo.to_json())
+        rc = report.main([str(tmp / "events0.jsonl"), "-o",
+                          str(tmp / "report.md"), "--slo", str(slo_path),
+                          "--warmup-t", str(sc.warmup_ticks)])
+        md = (tmp / "report.md").read_text()
+        if rc != 0 or not ev["ok"] or "## SLO attainment" not in md:
+            raise AssertionError(f"load: report --slo exit {rc}, {ev}")
+        log(f"[load] the two runs' fingerprints and event counts equal; "
+            f"report --slo {slo.to_json()}: exit {rc}, attained "
+            f"{ev['attained']}, "
+            f"{[(r['objective'], r['actual']) for r in ev['objectives']]}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    secs = time.perf_counter() - t_phase
+    log(f"[load] phase done in {secs:.1f} s")
+    return {"load_admitted": runs[0][0]["admitted"],
+            "load_run_seconds": [s for _, s in runs],
+            "load_phase_seconds": secs}
 
 
 def main() -> int:
@@ -4548,9 +5323,23 @@ def main() -> int:
 
     # 14. [serve]: gemma3-1b FULL through the serving loop, the streamed
     # Fisher refresh, the kernel fleet, layerwise and a guarded abort
-    served = serve_phase(dev, rate, zero_counts, dampen_counts, fisher_counts)
+    shared = {}
+    served = serve_phase(dev, rate, zero_counts, dampen_counts, fisher_counts,
+                         keep=shared)
 
-    # 15. times at the main paths' shapes. The sweep as a request launches
+    # 15. [stream]: the StreamEngine on [serve]'s weights, kernel == plain;
+    # 16. [fleet]: --fleet's loop and gates; 17. [recover]: a SIGKILLed
+    # drain recovered; 18. [load]: the load harness and report --slo
+    streamed = stream_phase(dev, rate, zero_counts, dampen_counts,
+                            fisher_counts, shared)
+    shared.clear()
+    torch.cuda.empty_cache()
+    streamed.update(fleet_phase(dev, zero_counts, dampen_counts,
+                                fisher_counts))
+    streamed.update(recover_phase(dev))
+    streamed.update(load_phase(dev))
+
+    # 19. times at the main paths' shapes. The sweep as a request launches
     # it: one grouped launch per layer, back to front, on the layers' own
     # tensors against the global Fisher; beside it the same 56 leaves one
     # launch each, as the request launched them before the grouped kernel
@@ -4999,7 +5788,7 @@ def main() -> int:
         "vit_sweep_bound_ms": vbound["fp32"],
         **scanned_keys("fp32"), **lm["fp32"], **rec["fp32"],
         **dense["fp32"], **moe["fp32"], **encdec["fp32"],
-        **served["fp32"],
+        **served["fp32"], **streamed,
         "max_abs_err": max(max_err, gmax_err["dampen"]),
         "ms": t["sweep_kernel"], "plain_ms": t["sweep_plain"],
         "bound_ms": bound["sweep"], "bound_by": "bytes",

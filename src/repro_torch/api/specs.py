@@ -464,9 +464,8 @@ class ServeSpec:
                         (``TenantRuntime.publish_staged``), so a decode
                         step can never observe a half-edited tree.
     ``max_batch``       continuous-batching decode slot-pool width (the
-                        stream engine's fixed [B] decode batch; the stream
-                        engine waits for ROADMAP Queue 1 item 4b, so this
-                        and the next two fields are validated, not used).
+                        stream engine's fixed [B] decode batch,
+                        ``launch.serve.StreamEngine``).
     ``admit_chunk``     max sequences admitted per engine step; admission
                         prefills a fixed-width sub-batch of this size (one
                         compiled prefill/scatter program for every

@@ -23,19 +23,21 @@ Fisher, forget batches) enters as an operand.  Step keys are namespaced by
 collide, and sharing steps NEVER shares weights.
 
 Every tenant lives on one device (``device=``, default ``"cuda"``; it
-raises without a card). ``checkpoint`` / ``recover`` / ``install_recovered``
-need ``ckpt/`` and are not ported yet (ROADMAP Queue 1 item 4b).
+raises without a card). ``checkpoint`` / ``recover`` write and read the
+reference's checkpoint format (``repro_torch.ckpt``) and replay the
+per-tenant WAL.
 """
 from __future__ import annotations
 
+import json
 import math
+import os
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.api import ForgetRequest, Unlearner, UnlearnSpec
-from repro_torch.api.specs import _not_ported
 from repro_torch.core import adapters
 from repro_torch.core import fisher as fisher_mod
 from repro_torch.data.synthetic import lm_split_forget_retain
@@ -418,9 +420,22 @@ class TenantRuntime:
                                   batch=batch)
 
     def install_recovered(self, params, fisher, version: int) -> None:
-        """Install a checkpoint-restored tree: needs ``ckpt/``."""
-        raise _not_ported("TenantRuntime.install_recovered (it needs "
-                          "ckpt/checkpoint.py)", "4b")
+        """Install a checkpoint-restored tree (``Fleet.recover``): resets
+        all shadow/staged state and rebuilds the facade around the
+        restored Fisher (or clears it for lazy recompute)."""
+        self.params = params
+        self.params_version = int(version)
+        self._staged = None
+        self._shadow_chain = None
+        self._staged_meta = []
+        self.last_violation = None
+        if fisher is not None:
+            self.unlearner = Unlearner(self.adapter, spec=self.spec,
+                                       programs=self._programs,
+                                       name=self.name, device=self.device)
+            self.unlearner.set_fisher(fisher)
+        else:
+            self.unlearner = None
 
     # -- double-buffered publication (DESIGN.md §15) -------------------------
     def run_due_shadow(self, due_domains, batch_idx):
@@ -765,14 +780,97 @@ class Fleet:
 
     # -- durability: checkpoint + crash recovery (DESIGN.md §16) ------------
     def checkpoint(self, ckpt_dir: str) -> Dict[str, str]:
-        """One checkpoint step per tenant: needs ``ckpt/``."""
-        raise _not_ported("Fleet.checkpoint (it needs ckpt/checkpoint.py)",
-                          "4b")
+        """Write one complete checkpoint step per tenant under
+        ``<ckpt_dir>/<tenant>/`` — params plus (when warmed) the tenant's
+        Fisher, keyed by ``params_version`` so WAL apply marks order
+        against it.  Returns the step dir per tenant."""
+        from repro_torch.ckpt import checkpoint as ckpt
+        out: Dict[str, str] = {}
+        for name, rt in self.tenants.items():
+            if rt.params is None:
+                continue
+            tree = {"params": rt.params}
+            has_fisher = (rt.unlearner is not None
+                          and rt.unlearner.fisher_global is not None)
+            if has_fisher:
+                tree["fisher"] = rt.unlearner.fisher_global
+            out[name] = ckpt.save(
+                os.path.join(ckpt_dir, name), rt.params_version, tree,
+                extra_meta={"params_version": rt.params_version,
+                            "has_fisher": has_fisher})
+        return out
 
     def recover(self, ckpt_dir: str) -> Dict[str, Dict]:
-        """Crash recovery from a checkpoint and the WAL: needs ``ckpt/``."""
-        raise _not_ported("Fleet.recover (it needs ckpt/checkpoint.py)",
-                          "4b")
+        """Crash recovery: per tenant, restore the newest COMPLETE
+        checkpoint (incomplete step dirs — shard without META — are
+        skipped by ``latest_step``) onto the tenant's device, then
+        deterministically replay the WAL entries the restored version has
+        not absorbed: never-applied accepts plus applies stamped with a
+        params_version NEWER than the checkpoint.  Dead entries never
+        replay.  A run killed between a WAL accept and its publication
+        recovers bit for bit to the uninterrupted run's weights."""
+        from repro_torch.ckpt import checkpoint as ckpt
+        report: Dict[str, Dict] = {}
+        for name, rt in self.tenants.items():
+            if rt.spec.refresh is not None:
+                raise ValueError(
+                    f"Fleet.recover: tenant {name!r} has a RefreshSpec — "
+                    "streamed-refresh EMA state is not checkpointed, so "
+                    "replay would diverge; recovery supports refresh=None")
+            tdir = os.path.join(ckpt_dir, name)
+            step = ckpt.latest_step(tdir)
+            version = 0
+            if step is not None:
+                with open(os.path.join(tdir, f"step_{step:08d}",
+                                       "META.json")) as f:
+                    head = json.load(f)
+                like = {"params": rt.params}
+                if head.get("has_fisher"):
+                    # Fisher leaves mirror the param tree at f32 (the
+                    # streaming estimator's dtype) — build the like-tree
+                    # explicitly so restore can't cast it to a param dtype
+                    like["fisher"] = tree_map(
+                        lambda t: torch.empty(t.shape, dtype=torch.float32,
+                                              device="meta"), rt.params)
+                tree, meta = ckpt.restore(tdir, step, like,
+                                          device=rt.device)
+                version = int(meta["params_version"])
+                rt.install_recovered(tree["params"], tree.get("fisher"),
+                                     version)
+            else:
+                rt.install_recovered(rt.params, None, 0)
+            replayed: List[int] = []
+            if rt.wal is not None:
+                recs = rt.wal.unapplied(up_to_version=version)
+                by_batch: Dict[int, List[Dict]] = {}
+                for r in recs:
+                    by_batch.setdefault(r["due_batch"], []).append(r)
+                # replay in the scheduler's order: due batch ascending,
+                # WAL id (= admission order) within a batch
+                for due in sorted(by_batch):
+                    batch_recs = by_batch[due]
+                    payloads = [r["payload"] for r in batch_recs]
+                    params, ran = rt.run_due(rt.params, payloads, due)
+                    if rt.last_violation is not None:
+                        raise RuntimeError(
+                            f"Fleet.recover: replaying tenant {name!r} WAL "
+                            f"ids {[r['id'] for r in batch_recs]} hit guard "
+                            f"{rt.last_violation['guard']!r} — the WAL "
+                            "records a drain that no longer re-applies")
+                    rt.params = params
+                    if ran:
+                        rt.params_version += 1
+                    rt.applied_requests += len(payloads)
+                    rt.wal.mark_applied([r["id"] for r in batch_recs],
+                                        params_version=rt.params_version,
+                                        batch=due)
+                    replayed.extend(r["id"] for r in batch_recs)
+            report[name] = {"restored_step": step,
+                            "restored_version": version,
+                            "replayed": replayed}
+            _t.emit("fleet.recover", tenant=name, restored_step=step,
+                    restored_version=version, replayed=replayed)
+        return report
 
     def accounting(self) -> Dict[str, Dict[str, int]]:
         """Per-tenant conservation check: every ADMITTED request is

@@ -140,9 +140,8 @@ class FleetSpec:
     ``wal_dir``     root directory of the per-tenant durable forget-request
                     WALs (``<wal_dir>/<tenant>/forget_wal.jsonl``): every
                     accepted request is journaled before it can drain
-                    (replay after a crash, ``Fleet.recover``, comes with
-                    ROADMAP Queue 1 item 4b).  None = no durability (the
-                    historical behaviour).
+                    (replay after a crash: ``Fleet.recover``).  None = no
+                    durability (the historical behaviour).
     """
     tenants: Tuple[TenantSpec, ...] = ()
     serve: ServeSpec = ServeSpec()

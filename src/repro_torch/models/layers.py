@@ -243,6 +243,23 @@ def attention(p: Dict, cfg: AttnConfig, x: torch.Tensor,
     return _proj(out.reshape(B, S, -1), p["wo"])
 
 
+def put_per_row(buf: torch.Tensor, idx: torch.Tensor,
+                vals: torch.Tensor) -> torch.Tensor:
+    """``buf`` [R, N, ...] with ``vals[r]`` written at ``buf[r, idx[r]]``,
+    a new tensor. An index past N is dropped and a negative one counts from
+    the end, as the reference's scatter (``.at[rows, idx].set``) does: the
+    write lands on one spare slot past N, cut off after, so the index is
+    never read on the host. An idle slot of continuous batching keeps
+    advancing its position past its cache this way."""
+    R, N = buf.shape[0], buf.shape[1]
+    at = torch.where(idx < 0, idx + N, idx)
+    at = torch.where((at < 0) | (at >= N), N, at)
+    spare = buf.new_zeros((R, 1) + tuple(buf.shape[2:]))
+    rows = torch.arange(R, device=buf.device)
+    return torch.cat([buf, spare], dim=1).index_put(
+        (rows, at), vals.to(buf.dtype))[:, :N]
+
+
 def attention_decode(p: Dict, cfg: AttnConfig, x: torch.Tensor, cache: Dict,
                      pos) -> Tuple[torch.Tensor, Dict]:
     """One token per row against a KV cache.
@@ -251,9 +268,10 @@ def attention_decode(p: Dict, cfg: AttnConfig, x: torch.Tensor, cache: Dict,
     ring buffer of ``window`` slots); pos: the current position, a scalar
     for every row or a [B] vector, a position per row (the slot pool of
     continuous batching). The token's k/v are written at slot ``pos``
-    (``pos % S_max`` in a ring), and the query attends to the filled
-    slots. Returns (out [B, 1, D], the new cache); the caller's cache is
-    left as it was."""
+    (``pos % S_max`` in a ring; a row past the end of a cache that is not
+    a ring writes nothing, as the reference's scatter drops it), and the
+    query attends to the filled slots. Returns (out [B, 1, D], the new
+    cache); the caller's cache is left as it was."""
     B = x.shape[0]
     pos = torch.as_tensor(pos, dtype=torch.int64, device=x.device)
     per_row = pos.dim() == 1
@@ -266,9 +284,12 @@ def attention_decode(p: Dict, cfg: AttnConfig, x: torch.Tensor, cache: Dict,
     slot = pos % S_max if cfg.window > 0 else pos
     kd, vd = cache["k"].dtype, cache["v"].dtype
     if per_row:
-        rows = torch.arange(B, device=x.device)
-        k = cache["k"].index_put((rows, slot), k_new[:, 0].to(kd))
-        v = cache["v"].index_put((rows, slot), v_new[:, 0].to(vd))
+        # a row whose slot lies past the cache (an idle slot of continuous
+        # batching keeps advancing) drops its write, as the reference's
+        # scatter does: it lands on one spare slot past the cache, cut off
+        # after, with no read of the index on the host
+        k = put_per_row(cache["k"], slot, k_new[:, 0])
+        v = put_per_row(cache["v"], slot, v_new[:, 0])
     else:
         # the reference's dynamic_update_slice clamps the start into range
         at = slot.clamp(max=S_max - 1).reshape(1)

@@ -442,28 +442,32 @@ def scatter_cache_rows(pool: Params, sub: Params,
     rows), as the reference's scatter in mode "drop"; a negative index
     counts from the end, as there."""
     rows = torch.as_tensor(rows, dtype=torch.int64)
-
-    def put(c, s, axis):
-        n = c.shape[axis]
-        r = rows.to(c.device)
-        r = torch.where(r < 0, r + n, r)
-        # a dropped row lands on one extra slot past the pool, cut off after
-        r = torch.where((r < 0) | (r > n), n, r)
-        pad = list(c.shape)
-        pad[axis] = 1
-        out = torch.cat([c, c.new_zeros(pad)], dim=axis).index_copy(
-            axis, r, s.to(c.dtype))
-        return out.narrow(axis, 0, n)
-
     out: Params = {}
     if "period_stack" in pool:
-        out["period_stack"] = tree_map(lambda c, s: put(c, s, 1),
+        out["period_stack"] = tree_map(lambda c, s: put_rows(c, 1, rows, s),
                                        pool["period_stack"],
                                        sub["period_stack"])
     if "tail" in pool:
-        out["tail"] = tree_map(lambda c, s: put(c, s, 0), pool["tail"],
-                               sub["tail"])
+        out["tail"] = tree_map(lambda c, s: put_rows(c, 0, rows, s),
+                               pool["tail"], sub["tail"])
     return out
+
+
+def put_rows(buf: torch.Tensor, axis: int, rows: torch.Tensor,
+             vals: torch.Tensor) -> torch.Tensor:
+    """``buf`` with ``vals`` written at the indices ``rows`` of ``axis``, a
+    new tensor. An index past the end is dropped and a negative one counts
+    from the end, as the reference's scatter in mode "drop": the write
+    lands on one spare slot past ``buf``, cut off after, so the index is
+    never read on the host."""
+    n = buf.shape[axis]
+    r = rows.to(buf.device)
+    r = torch.where(r < 0, r + n, r)
+    r = torch.where((r < 0) | (r >= n), n, r)
+    pad = list(buf.shape)
+    pad[axis] = 1
+    return torch.cat([buf, buf.new_zeros(pad)], dim=axis).index_copy(
+        axis, r, vals.to(buf.dtype)).narrow(axis, 0, n)
 
 
 # ---------------------------------------------------------------------------

@@ -2,12 +2,10 @@
 ``repro.obs.report``; pure Python, the port's own copy).
 
 ``summarize(events)`` folds a structured event list (or JSONL file, via the
-CLI) into the one rollup dict the observability stack shares, and
-``render()`` turns it into the human-facing markdown report (per-tenant
-drain throughput, queue-age percentiles, compile economics, and SLO
-attainment when an evaluation is passed in). The load harness's
-``SLOSpec`` comes with the port's load slice, so the CLI here has no
-``--slo``.
+CLI) into the one rollup dict the whole observability stack shares:
+``repro_torch.load.SLOSpec.evaluate`` scores it and ``render()`` turns it
+into the human-facing markdown report (per-tenant drain throughput,
+queue-age percentiles, compile economics, SLO attainment).
 
 The aggregation is streaming — queue ages and latencies go through the P²
 sketches in ``repro_torch.obs.metrics``, never a stored sample list — so
@@ -19,7 +17,7 @@ harness run.
 CLI:
 
     PYTHONPATH=src python -m repro_torch.obs.report events.jsonl \
-        -o report.md [--warmup-t N]
+        -o report.md [--slo slo.json] [--warmup-t N]
 """
 from __future__ import annotations
 
@@ -299,19 +297,26 @@ def main(argv=None) -> int:
     ap.add_argument("events", help="telemetry JSONL file (repro_torch.obs)")
     ap.add_argument("-o", "--out", default=None,
                     help="write markdown here (default: stdout)")
+    ap.add_argument("--slo", default=None,
+                    help="SLOSpec JSON file to evaluate against")
     ap.add_argument("--warmup-t", type=int, default=0,
                     help="virtual time before which compiles are warmup")
     args = ap.parse_args(argv)
 
     events = read_jsonl(args.events)
     summary = summarize(events, warmup_t=args.warmup_t)
-    md = render(summary)
+    evaluation = None
+    if args.slo:
+        from repro_torch.load.slo import SLOSpec
+        with open(args.slo) as f:
+            evaluation = SLOSpec.from_json(f.read()).evaluate(summary)
+    md = render(summary, evaluation)
     if args.out:
         with open(args.out, "w") as f:
             f.write(md + "\n")
     else:
         print(md)
-    return 0
+    return 0 if (evaluation is None or evaluation["ok"]) else 1
 
 
 if __name__ == "__main__":

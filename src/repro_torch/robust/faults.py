@@ -23,11 +23,10 @@ DESIGN.md §16):
   * ``worker_exc``     — the shadow-sweep worker raises mid-drain
                          (fleet/fleet.py, ``TenantRuntime.run_due``);
   * ``deadline_miss``  — a publication misses its deterministic deadline
-                         (fleet/fleet.py drain loop; the stream engine
-                         waits for ROADMAP Queue 1 item 4b);
+                         (fleet/fleet.py drain loop);
   * ``ckpt_crash``     — the checkpoint writer dies between the shard
-                         write and the META.json commit point (no site
-                         in the port until ``ckpt/``, item 4b);
+                         write and the META.json commit point
+                         (ckpt/checkpoint.py);
   * ``kill_mid_drain`` — the PROCESS is SIGKILLed at the top of a drain,
                          after WAL accept but before publication (the
                          crash-recovery proof; fleet/fleet.py).

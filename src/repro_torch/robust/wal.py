@@ -5,10 +5,9 @@ A forget request may never be silently lost or half-applied: every
 request the scheduler ACCEPTS is appended to the tenant's
 ``forget_wal.jsonl`` before it can be drained, and a drain that commits
 (publishes or applies in place) marks its requests applied with the
-resulting ``params_version``.  Recovery (``Fleet.recover``, which comes
-with ``ckpt/`` in ROADMAP Queue 1 item 4b) restores the latest complete
-checkpoint and replays exactly the entries the restored version has not
-absorbed — no loss, no double-apply.
+resulting ``params_version``.  Recovery (``Fleet.recover``) restores the
+latest complete checkpoint and replays exactly the entries the restored
+version has not absorbed — no loss, no double-apply.
 
 Record stream (JSONL, one op per line, folded by ``id``):
 

@@ -37,7 +37,7 @@ def test_no_module_imports_jax_or_repro():
     files = sorted(PORT.rglob("*.py"))
     assert len(files) >= 20
     # the serving slice's packages among them
-    for pkg in ("robust", "fleet", "launch"):
+    for pkg in ("robust", "fleet", "launch", "ckpt", "load"):
         assert any(p.parent.name == pkg for p in files), pkg
     for path in files + [SMOKE]:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
@@ -238,6 +238,28 @@ assert ran and svc.group_log[0]["engine"]["sweep_mode"] == "scanned"
 assert len(svc.refresh_log) == 1, svc.refresh_log
 assert svc.staleness_report(served)["improved"]
 out.append(svc.group_log[0]["requests"])
+# a few StreamEngine steps with one shadow drain published at its deadline,
+# then a checkpoint round trip of the published tree
+import tempfile
+from repro_torch.ckpt import checkpoint as ckpt
+from repro_torch.launch.serve import StreamEngine
+from repro_torch.models.module import tree_leaves
+ssvc = ForgetService(cfg, stoks, sdoms, 8, serve=ServeSpec(publish="step"),
+                     device="cpu")
+ssvc.submit(1, due_batch=1)
+eng = StreamEngine(params, cfg, gen_len=4, prompt_len=4, max_batch=2,
+                   admit_chunk=2, publish_lag=2, service=ssvc, device="cpu")
+for i in range(3):
+    eng.enqueue(i, stoks[i, :4])
+res = eng.run()
+assert len(res) == 3 and eng.decode_cache_size() == 1
+assert eng.params is ssvc.params and ssvc.params_version == 1
+ckdir = tempfile.mkdtemp()
+ckpt.save(ckdir, 1, {"params": eng.params})
+back, _ = ckpt.restore(ckdir, 1, {"params": params}, device="cpu")
+assert all(torch.equal(a, b) for a, b in zip(tree_leaves(back["params"]),
+                                             tree_leaves(eng.params)))
+out.append(eng.publications)
 leaked = [m for m in sys.modules
           if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
 print("LEAKED", leaked, "STOP", out)
@@ -247,14 +269,16 @@ print("LEAKED", leaked, "STOP", out)
 def test_lm_serves_with_jax_and_repro_blocked():
     """The LM slice's modules (models.lm, the registry, the LM adapter and
     data) serve a scanned fp32 and int8 request, an MoE request and a
-    whisper request (the encoder left as it was), whisper decodes, and a
-    ForgetService drains two domains and refreshes its Fisher, with JAX and
-    the JAX package blocked."""
+    whisper request (the encoder left as it was), whisper decodes, a
+    ForgetService drains two domains and refreshes its Fisher, and a
+    StreamEngine serves three sequences with one shadow drain published
+    at its deadline, whose tree a checkpoint round trip restores, with JAX
+    and the JAX package blocked."""
     env = dict(os.environ, PYTHONPATH=str(SRC))
     proc = subprocess.run([sys.executable, "-c", _BLOCKED_LM_RUN], env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
-    assert "LEAKED [] STOP [9, 9, 4, 4, 2]" in proc.stdout, proc.stdout
+    assert "LEAKED [] STOP [9, 9, 4, 4, 2, 1]" in proc.stdout, proc.stdout
 
 
 def test_lm_entry_points_raise_without_a_card():

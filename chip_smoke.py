@@ -38,8 +38,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
      |d| <= 1e-4 |ref| + 1e-4 max|ref|, its fish bit-equal to dw * dw and
      every case run twice with the same bits;
   4. the slices at full width: RESNET18_CIFAR20 (random weights from a
-     seed, pre-trained here for a few hundred AdamW steps so that halting
-     means something) served through ``Unlearner`` with ``use_kernel=True``:
+     seed, pre-trained here for a few hundred steps of the port's AdamW,
+     ``repro_torch.optim``, so that halting means something) served
+     through ``Unlearner`` with ``use_kernel=True``:
      ensure_fisher on a retain batch, a 64-image forget request of one
      class at chunk 8, in "ssd" mode (all 10 layers: 10 kernel launches
      over 56 leaves, one per layer) and "ficabu" mode (checkpoint_every=2;
@@ -99,18 +100,20 @@ Phases, in order; any failure exits non-zero and prints no result line:
      gradient, the fp32 dW (int8, its operands quantised per column of each
      1024-row block of N, within INT8_SWEEP_RTOL) and dampen_int8 on the
      dequantised Fisher;
-  9. [lm]: the dense decoder LM at full width, gemma3-1b FULL (26 blocks
-     of five local (window 512) to one global attention block, d_model
-     1152, 4 heads over 1 KV head of 256, d_ff 6912, vocab 262,144, tied
-     embeddings; 999,812,736 bf16 parameters in 74 stored leaves, 236
-     layer leaves in 28 unlearn layers), random weights from a CUDA
+  9. [lm]: the dense decoder LM at full width, gemma3-1b at 12 of its 26
+     blocks (two periods of five local (window 512) to one global
+     attention block, d_model 1152, 4 heads over 1 KV head of 256, d_ff
+     6912, vocab 262,144, tied embeddings; 624,062,592 bf16 parameters in
+     56 stored leaves, 110 layer leaves in 14 unlearn layers; all 26
+     blocks until the [train] phase, which the cut pays for; the serving
+     phases run all 26), random weights from a CUDA
      generator seeded with 0. Token data from ``make_lm_domains`` (data
      vocabulary 512, S = 1024 tokens, longer than the window); a request
      is 8 sequences of one domain at chunk 2, labelled with the model's own
      argmax, and the global Fisher comes from ``Unlearner.ensure_fisher``
      over 4 retain sequences labelled the same way; alpha 25, lambda 1,
      checkpoints every 4 layers. Served with the [lm] path's counters
-     zeroed before and read after: ssd (28 launches over 236 leaves) cold
+     zeroed before and read after: ssd (14 launches over 110 leaves) cold
      and warm, ficabu with tau = -1 (every checkpoint), a ficabu whose tau
      is the forget accuracy that one read at its middle checkpoint (it
      halts partway), int8 ssd and ficabu (every layer on the grid the
@@ -120,10 +123,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
      a K = 2 ficabu drain over two domains, layerwise and scanned (== bit
      for bit, each set halting at its first checkpoint at or below tau,
      beside single-set requests), and the ssd forget with the kernel
-     against the plain one in both precisions (bit for bit on all 74
+     against the plain one in both precisions (bit for bit on all 56
      stored leaves). Every parameter finite, the caller's tree unchanged;
      the peak of ``torch.cuda.max_memory_allocated``; warm ssd requests'
-     wall, device busy time, idle share and device kernels; the 28-launch
+     wall, device busy time, idle share and device kernels; the 14-launch
      sweeps' device time against their byte bounds (13 bytes per element
      with bf16 theta, 11 with int8 codes);
  10. [recurrent]: the recurrent LMs at full width, bf16, from a CUDA
@@ -134,13 +137,14 @@ Phases, in order; any failure exits non-zero and prints no result line:
      87,909,144 parameters, 44 layer leaves in 6 unlearn layers; the
      sLSTM's host-bound time loop makes its requests the script's
      slowest), 8 sequences a request, checkpoints every 4 layers,
-     alpha 50; recurrentgemma-9b at full width and 5 of its 38 blocks (one
-     (rglru, rglru, local) period and the two-layer rglru tail;
-     3,395,363,392 parameters, 64 leaves in 7 layers; the whole model does
-     not fit one card), 4 sequences a request, checkpoints every 2 layers,
-     alpha 25. First each model's layer tables (whole, and per dtype)
-     through the group kernels against their plain versions; then, with
-     the counters zeroed before and read after: ssd cold and warm, ficabu
+     alpha 50; recurrentgemma-9b at full width and 3 of its 38 blocks (one
+     (rglru, rglru, local) period; 2,839,587,104 parameters, 38 leaves in
+     5 layers; the whole model does not fit one card, and since the
+     [train] phase it runs 3 blocks rather than 5), 4 sequences a
+     request, checkpoints every 2 layers, alpha 25. First each model's
+     layer tables (whole, and per dtype) through the group kernels
+     against their plain versions; then, with the counters zeroed before
+     and read after: ssd cold and warm, ficabu
      with tau = -1, int8 ssd (on its q8 grids, per-layer error against
      fp32 within INT8_SWEEP_RTOL; cold and warm on recurrentgemma, cold on
      xlstm), ssd with sweep_mode="scanned" (no plan for layers of unequal
@@ -156,17 +160,18 @@ Phases, in order; any failure exits non-zero and prints no result line:
      against their byte bounds, and each model's and the phase's seconds;
  11. [dense]: the dense GQA LM yi-6b at full width (d_model 4096, 32
      heads over 4 KV heads of 128, d_ff 11008, vocab 64,000, RoPE theta
-     5e6, untied) and 8 of its 32 blocks (1,908,477,952 bf16 parameters in
-     12 stored leaves, 75 layer leaves in 10 unlearn layers; all 32 do not
-     fit one card with their Fisher and a request, and since the [serve]
-     phase it runs 8 rather than 16 to keep the script near 800 s), from a
+     5e6, untied) and 4 of its 32 blocks (1,216,385,024 bf16 parameters in
+     12 stored leaves, 39 layer leaves in 6 unlearn layers; all 32 do not
+     fit one card with their Fisher and a request; it ran 16 blocks before
+     the [serve] phase and 8 before the [train] phase, to keep the script
+     near 800 s), from a
      CUDA generator
      seeded with 0, on the [lm] phase's data (vocabulary 512, 8 sequences
      of S = 1024 at chunk 2, argmax labels, the retain Fisher of 4
      sequences), alpha 25, lambda 1, checkpoints every 4 layers. First its
      three distinct layer tables through the group kernels against their
      plain versions; then, with the counters zeroed before and read after:
-     ssd cold and warm (10 launches over 75 leaves), ficabu with tau = -1
+     ssd cold and warm (6 launches over 39 leaves), ficabu with tau = -1
      and a ficabu that halts partway (cold and warm), ssd with
      sweep_mode="scanned" (the blocks are uniform: a plan, one program per
      request; cold and warm, the warm program call under
@@ -319,7 +324,30 @@ Phases, in order; any failure exits non-zero and prints no result line:
      domains=3, seed=0)``): equal fingerprints, the accounting equal to the
      scheduler's, and ``report --slo`` rendering the first run's JSONL
      stream against an ``SLOSpec`` (exit 0, every objective met);
- 19. times: each kernel and its plain version at the main paths' shapes
+ 19. [train]: ``repro_torch.launch.train`` (the loop of ``main``) on
+     gemma3-1b at full width and 6 of its 26 blocks (one local/global
+     period; 463,026,816 bf16 parameters in 56 leaves), from a CUDA
+     generator seeded with 0, on make_lm_domains at vocabulary 512 (8
+     domains x 24 sequences of 128 tokens, the reference's draw), batch 8,
+     lr 3e-3, 5 warm-up steps, under deterministic algorithms: 10 steps
+     with checkpoints every 4 and the mid-run forget at step 8 (journal,
+     pre-unlearn checkpoint, the retain Fisher, a ficabu request on the
+     plain path: 0 kernel launches), every loss finite and the last below
+     the first; a run resumed from step 4 (alone in a directory) with the
+     same schedule and the same forget at step 8 (its pre-unlearn write
+     the fourth), whose losses and final params, mu, nu, ef, step and
+     data_step equal the first run's bit for bit (and the two step-8
+     METAs' data_step); the forget replayed from the pre-unlearn
+     checkpoint's params with ``use_kernel=True``, its counters zeroed
+     before and read after, equal to the run's forget bit for bit; 2 steps
+     under ``--compress int8`` with a finite EF state, and on one more
+     gradient, per leaf, the f32 value sent plus the residual equal to
+     ``g + e_prev`` within relative 1e-6, the bf16 ``sent`` that value
+     cast, as the reference sends it. The
+     warm step's wall, each checkpoint write's and the restore's seconds,
+     the bytes on disk, the peak memory and the phase's seconds, beside
+     the card's name and power limit. At most 4 checkpoint writes;
+ 20. times: each kernel and its plain version at the main paths' shapes
      (the dampen sweeps as a request launches them, one grouped launch per
      layer, with the 56 per-leaf launches beside them and the figures from
      before the grouped kernel; and, for fimd and the GEMMs, one PyTorch
@@ -339,7 +367,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
      (``rec_*``), the [dense] phase's (``dense_*``), the [moe] phase's
      (``moe_*``), the [encdec] phase's (``encdec_*``), the [serve]
      phase's (``serve_*``) and the [stream], [fleet], [recover] and [load]
-     phases' (``stream_*``, ``fleet_*``, ``recover_*``, ``load_*``).
+     phases' (``stream_*``, ``fleet_*``, ``recover_*``, ``load_*``) and
+     the [train] phase's (``train_*``: the kernel replay's launches and
+     leaves, and the phase's figures).
 
 The last line is the contract line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -383,6 +413,14 @@ L2_BYTES = 50e6
 # generator draws a dense span x span transition matrix per domain) and the
 # two forget domains
 LM_ARCH = "gemma3-1b"
+# the [lm] phase's depth (None: all 26 blocks) and its expected
+# (parameters, stored leaves, layer leaves, unlearn layers): two of the
+# 26 blocks' local/global periods since the [train] phase, which this cut
+# (114.8 -> 67.1 s), recurrentgemma-9b's 5 -> 3 and yi-6b's 8 -> 4 pay for
+# (tools/train_phase.py --cuts; PERF.md section 6). [serve], [stream] and
+# [fleet] run gemma3-1b with all 26 blocks
+LM_BLOCKS = 12
+LM_WANT = (624_062_592, 56, 110, 14)
 LM_SEQ = 1024
 LM_DATA_VOCAB = 512
 LM_FORGET = 1
@@ -1212,22 +1250,25 @@ def guard_syncs(unl, calls):
 
 
 def pretrain(params, forward, x, y, steps, batch, dev):
-    """A few hundred AdamW steps of ``forward(params, images) -> logits`` on
+    """A few hundred steps of the port's AdamW (``repro_torch.optim``, as
+    torch's AdamW defaults set it: a constant lr 1e-3, betas 0.9 / 0.999,
+    weight decay 1e-4, no clip) of ``forward(params, images) -> logits`` on
     the synthetic classes, so the forget class is learnt and the
     checkpoints have something to halt on."""
     from repro_torch.models import vision as V
-    from repro_torch.models.module import tree_leaves, tree_map
+    from repro_torch.optim import AdamWConfig, init_adamw, make_train_step
 
-    params = tree_map(lambda t: t.clone().requires_grad_(True), params)
-    opt = torch.optim.AdamW(tree_leaves(params), lr=1e-3, weight_decay=1e-4)
+    cfg = AdamWConfig(lr=1e-3, b2=0.999, weight_decay=1e-4,
+                      clip_norm=float("inf"), warmup_steps=0,
+                      total_steps=steps, min_lr_frac=1.0)
+    step = make_train_step(
+        lambda p, b: V.cls_loss(forward(p, b[0]), b[1]), cfg)
+    opt = init_adamw(cfg, params)
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     for _ in range(steps):
         idx = torch.randint(0, x.shape[0], (batch,), generator=gen, device=dev)
-        loss = V.cls_loss(forward(params, x[idx]), y[idx])
-        opt.zero_grad(set_to_none=True)
-        loss.backward()
-        opt.step()
-    return tree_map(lambda t: t.detach(), params), float(loss.detach())
+        params, opt, loss = step(params, opt, (x[idx], y[idx]))
+    return params, float(loss)
 
 
 def lm_tables(adapter, params, fisher, gen, dev):
@@ -1291,7 +1332,8 @@ def lm_phase(dev, rate, zero_counts, dampen_counts, fisher_counts):
     t_phase = time.perf_counter()
     gib = 2.0 ** 30
     torch.cuda.reset_peak_memory_stats()
-    cfg = get_arch(LM_ARCH).full
+    full = get_arch(LM_ARCH).full
+    cfg = full if LM_BLOCKS is None else full.with_(n_layers=LM_BLOCKS)
     t0 = time.perf_counter()
     params = LM.init_lm(torch.Generator(device=dev).manual_seed(SEED), cfg,
                         device="cuda")
@@ -1304,18 +1346,20 @@ def lm_phase(dev, rate, zero_counts, dampen_counts, fisher_counts):
     layer_leaves = [len(tree_leaves(adapter.get_layer(params, j)))
                     for j in range(L)]
     n_leaves = sum(layer_leaves)
-    log(f"[lm] {cfg.name} FULL ({cfg.n_layers} blocks {cfg.block_pattern}, "
+    depth = ("FULL" if LM_BLOCKS is None else
+             f"at full width and {LM_BLOCKS} of {full.n_layers} blocks")
+    log(f"[lm] {cfg.name} {depth} ({cfg.n_layers} blocks "
+        f"{cfg.block_pattern}, "
         f"d_model {cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} KV of "
         f"{cfg.dh}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, window {cfg.window}, "
         f"tied, {cfg.param_dtype}) from torch.Generator('cuda') seed {SEED} "
         f"in {time.perf_counter() - t0:.1f} s: {n_params} parameters, "
         f"{n_bytes} bytes in {len(stored)} stored leaves; {n_leaves} layer "
         f"leaves in {L} unlearn layers")
-    if (n_params, len(stored), n_leaves, L) != (999_812_736, 74, 236, 28):
+    if (n_params, len(stored), n_leaves, L) != LM_WANT:
         raise AssertionError(f"{cfg.name}: {n_params} parameters, "
                              f"{len(stored)} stored leaves, {n_leaves} layer "
-                             f"leaves, {L} layers; expected 999812736 / 74 "
-                             f"/ 236 / 28")
+                             f"leaves, {L} layers; expected {LM_WANT}")
     t0 = time.perf_counter()
     toks, doms = syn.make_lm_domains(syn.LMDataConfig(
         vocab=LM_DATA_VOCAB, n_domains=4, seq_len=LM_SEQ, n_per_domain=8,
@@ -2062,10 +2106,11 @@ def rec_model(arch, n_layers, n_seq, every, alpha, want, dev, rate,
 
 # the [recurrent] phase: (arch, depth cut or None, sequences per request,
 # checkpoint cadence, alpha, expected (parameters, stored leaves, layer
-# leaves, unlearn layers)). recurrentgemma-9b runs at full width and 5 of
-# its 38 blocks: one whole (rglru, rglru, local) period and the two-layer
-# rglru tail, 3.4 B parameters; all 38 would hold 11.6 B, 23 GB in bf16 and
-# a 46 GB f32 Fisher, more than one card (PERF.md section 4). xlstm-125m
+# leaves, unlearn layers)). recurrentgemma-9b runs at full width and 3 of
+# its 38 blocks: one whole (rglru, rglru, local) period, 2.8 B parameters
+# (5 blocks, with the two-layer rglru tail, before the [train] phase); all
+# 38 would hold 11.6 B, 23 GB in bf16 and a 46 GB f32 Fisher, more than one
+# card (PERF.md section 4). xlstm-125m
 # runs at full width and 4 of its 12 blocks, one (mlstm x3, slstm) period:
 # its requests are host-bound in the sLSTM's time loop (R8), a third of its
 # requests' time per sLSTM layer; the whole 12 took 190-254 s of the
@@ -2077,7 +2122,7 @@ def rec_model(arch, n_layers, n_seq, every, alpha, want, dev, rate,
 # settings on the whole model; PERF.md section 7)
 REC_MODELS = (
     ("xlstm-125m", 4, 8, 4, 50.0, (87_909_144, 44, 44, 6)),
-    ("recurrentgemma-9b", 5, 4, 2, 25.0, (3_395_363_392, 64, 64, 7)),
+    ("recurrentgemma-9b", 3, 4, 2, 25.0, (2_839_587_104, 38, 38, 5)),
 )
 
 
@@ -2108,11 +2153,12 @@ def recurrent_phase(dev, rate, zero_counts, dampen_counts, fisher_counts):
 # queries: every block takes the query-chunked attention). All 32 blocks
 # hold 6.06 B parameters, 12.1 GB in bf16 and a 24.2 GB f32 Fisher; at the
 # ~20 bytes of peak per parameter recurrentgemma-9b's requests take, more
-# than one 80 GB card. It ran 16 blocks before the [serve] phase, 8 since,
-# to keep the script near 800 s (PERF.md section 4)
+# than one 80 GB card. It ran 16 blocks before the [serve] phase, 8 before
+# the [train] phase and 4 since, to keep the script near 800 s (PERF.md
+# section 4)
 DENSE_ARCH = "yi-6b"
-DENSE_BLOCKS = 8
-DENSE_WANT = (1_908_477_952, 12, 75, 10)
+DENSE_BLOCKS = 4
+DENSE_WANT = (1_216_385_024, 12, 39, 6)
 DENSE_LONG_SEQ = 2048
 
 
@@ -4529,6 +4575,255 @@ def load_phase(dev):
             "load_phase_seconds": secs}
 
 
+# [train]: gemma3-1b at full width and one local/global period of its
+# blocks (463,026,816 parameters; a checkpoint holds 12 bytes a parameter,
+# params as their f32 upcast, mu and nu, about 5.6 GB), trained as the
+# reference's train.py trains: batch 8 of 128-token sequences, lr 3e-3, 5
+# warm-up steps; checkpoints every 4 steps and the mid-run forget at step 8
+# of 10 (3 checkpoint writes); a run resumed from step 4 with the same
+# schedule and forget (its pre-unlearn write the 4th), its final state
+# against the first run's; TRAIN_CODEC_STEPS steps under --compress int8
+TRAIN_BLOCKS = 6
+TRAIN_SEQ = 128
+TRAIN_WANT = (463_026_816, 56)
+TRAIN_STEPS = 10
+TRAIN_CKPT_EVERY = 4
+TRAIN_UNLEARN_AT = 8
+TRAIN_CODEC_STEPS = 2
+TRAIN_CODEC_RTOL = 1e-6
+
+
+def train_phase(dev, card, zero_counts, dampen_counts, fisher_counts):
+    """Phase 19, [train]: ``repro_torch.launch.train`` on gemma3-1b at full
+    width (module docstring), under deterministic algorithms. Returns the
+    figures the kernels line carries."""
+    import math
+    import shutil
+    import tempfile
+
+    from repro_torch import bridge
+    from repro_torch.api import ForgetRequest, UnlearnSpec, Unlearner
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.configs import get as get_arch
+    from repro_torch.core import adapters, fisher
+    from repro_torch.data import synthetic as syn
+    from repro_torch.launch import train as T
+    from repro_torch.models import lm as LM
+    from repro_torch.models.module import tree_leaves, tree_map
+    from repro_torch.optim import Int8Codec, value_and_grad
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_arch(SERVE_ARCH).full.with_(n_layers=TRAIN_BLOCKS)
+    # the reference's draw (8 domains x 24) at the data vocabulary
+    tokens, domains = syn.make_lm_domains(syn.LMDataConfig(
+        vocab=LM_DATA_VOCAB, n_domains=8, seq_len=TRAIN_SEQ,
+        n_per_domain=24, seed=0))
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="train_", dir=ROOT / "build"))
+
+    def args(name, *extra):
+        return T.parse_args(["--batch", "8", "--seq", str(TRAIN_SEQ),
+                             "--lr", "3e-3", "--ckpt-dir", str(tmp / name),
+                             "--device", "cuda", *extra])
+
+    def same(p, q):
+        a, b = bridge.paths(p), bridge.paths(q)
+        return sorted(a) == sorted(b) and all(
+            a[k].dtype == b[k].dtype and torch.equal(bits(a[k]), bits(b[k]))
+            for k in a)
+
+    def card_line(what):
+        log(f"[train] {what} ({card})")
+
+    try:
+        with deterministic_algorithms():
+            zero_counts()                      # the [train] path starts
+            run = T.train(cfg, dev, args(
+                "a", "--steps", str(TRAIN_STEPS), "--ckpt-every",
+                str(TRAIN_CKPT_EVERY), "--unlearn-at",
+                str(TRAIN_UNLEARN_AT)), data=(tokens, domains))
+            torch.cuda.synchronize()
+            counts = dampen_counts() + fisher_counts()   # the path ends
+            n_par = sum(t.numel() for t in tree_leaves(run.params))
+            n_leaves = len(bridge.paths(run.params))
+            if (n_par, n_leaves) != TRAIN_WANT:
+                raise AssertionError(f"train: {n_par} parameters in "
+                                     f"{n_leaves} leaves, want {TRAIN_WANT}")
+            losses = run.losses
+            if not all(math.isfinite(x) for x in losses) or \
+                    not losses[-1] < losses[0]:
+                raise AssertionError(f"train: losses {losses}")
+            if any(counts):
+                raise AssertionError(f"train: the plain run launched "
+                                     f"kernels {counts}")
+            journal = ckpt.journal_read(str(tmp / "a"))
+            st = run.forget_stats
+            if not journal or journal[0]["forget_domain"] != 2 or st is None:
+                raise AssertionError(f"train: journal {journal}")
+            steps_on_disk = sorted(p.name for p in (tmp / "a").iterdir()
+                                   if p.name.startswith("step_"))
+            size = {n: sum(f.stat().st_size for f in (tmp / "a" / n).rglob(
+                "*") if f.is_file()) for n in steps_on_disk}
+            synced = sorted(run.timings["step_synced"][1:])
+            step_ms = 1e3 * synced[len(synced) // 2]
+            dispatch = [round(1e3 * w, 1) for w in run.timings["step"]]
+            saves = run.timings["save"]
+            card_line(
+                f"gemma3-1b at full width, {TRAIN_BLOCKS} of 26 blocks, "
+                f"{n_par} {cfg.param_dtype} parameters in {n_leaves} "
+                f"leaves, from "
+                f"torch.Generator('cuda') seed 0; {TRAIN_STEPS} steps of "
+                f"batch 8 x {TRAIN_SEQ} tokens (make_lm_domains vocabulary "
+                f"{LM_DATA_VOCAB}, 8 domains x 24): losses "
+                f"{[round(x, 4) for x in losses]}; warm step wall (to the "
+                f"loss read, median of {len(synced)}) {step_ms:.1f} ms, the "
+                f"watchdog's dispatch walls {dispatch} ms; checkpoint "
+                f"writes {[round(w, 2) for w in saves]} s; on disk {size} "
+                f"bytes")
+            card_line(f"mid-run forget at step {TRAIN_UNLEARN_AT} (journal "
+                      f"{journal[0]}): stopped at l={st['stopped_at_l']} of "
+                      f"{LM.n_unlearn_layers(cfg)}, checkpoints "
+                      f"{st['checkpoints_hit']}, macs%="
+                      f"{st['macs_vs_ssd_pct']:.1f}, selected "
+                      f"{st['selected_per_layer']}; plain dampen, 0 kernel "
+                      f"launches")
+
+            # resume from step 4 (alone in a directory) with the same
+            # schedule and the same forget at step 8: its final state
+            # against the uninterrupted run's, bit for bit
+            first = f"step_{TRAIN_CKPT_EVERY:08d}"
+            (tmp / "b").mkdir()
+            os.symlink(tmp / "a" / first, tmp / "b" / first)
+            resumed = T.train(cfg, dev, args(
+                "b", "--steps", str(TRAIN_STEPS), "--ckpt-every", "0",
+                "--unlearn-at", str(TRAIN_UNLEARN_AT), "--resume"),
+                data=(tokens, domains))
+            restore_s = resumed.timings["restore"]
+            saves += resumed.timings["save"]
+            metas = [json.loads((tmp / d / f"step_{TRAIN_UNLEARN_AT:08d}" /
+                                 "META.json").read_text()) for d in "ab"]
+            final = [{"params": r.params, "opt": r.opt._asdict(),
+                      "ef": r.ef} for r in (run, resumed)]
+            if resumed.result["start_step"] != TRAIN_CKPT_EVERY or \
+                    not same(*final) or resumed.data_step != run.data_step \
+                    or metas[0]["data_step"] != metas[1]["data_step"] or \
+                    resumed.losses != losses[TRAIN_CKPT_EVERY:] or \
+                    resumed.forget_stats["stopped_at_l"] != \
+                    st["stopped_at_l"]:
+                raise AssertionError(
+                    f"train: the run resumed at step "
+                    f"{resumed.result['start_step']} != the uninterrupted "
+                    f"run (data_step {resumed.data_step} / {run.data_step})")
+            card_line(f"resumed from step {TRAIN_CKPT_EVERY} (restore "
+                      f"{restore_s:.2f} s), with the same forget at step "
+                      f"{TRAIN_UNLEARN_AT} (its pre-unlearn write "
+                      f"{saves[-1]:.2f} s): its losses, final params, mu, "
+                      f"nu, ef, step and data_step {run.data_step} (META "
+                      f"{metas[0]['data_step']} at step {TRAIN_UNLEARN_AT}) "
+                      f"== the uninterrupted run's, bit for bit")
+            del resumed, final
+
+            # the forget replayed from the pre-unlearn checkpoint with the
+            # dampen kernel
+            def loss_fn(p, batch):
+                return LM.lm_loss(p, cfg, batch[0], batch[1], aux_weight=0.01)
+
+            batches = [(tokens[i:i + 16, :-1], tokens[i:i + 16, 1:])
+                       for i in range(0, 64 - 15, 16)]
+            fb = syn.lm_split_forget_retain(tokens, domains, 2)["forget"][:16]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pre = ckpt.restore(str(tmp / "a"), TRAIN_UNLEARN_AT,
+                               {"params": run.params}, device="cuda"
+                               )[0]["params"]
+            torch.cuda.synchronize()
+            read_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            i_d = fisher.diag_fisher_streaming(loss_fn, pre, batches,
+                                               chunk_size=4, device="cuda")
+            unl = Unlearner(adapters.lm_adapter(cfg, TRAIN_SEQ, device="cuda"),
+                            i_d, UnlearnSpec.for_mode(
+                                "ficabu", alpha=8.0, lam=1.0, tau=0.6,
+                                checkpoint_every=2, chunk_size=4,
+                                use_kernel=True), device="cuda")
+            zero_counts()                      # the replay starts
+            new, st_k = unl.forget(ForgetRequest(fb[:, :-1], fb[:, 1:],
+                                                 tag=2), params=pre)
+            torch.cuda.synchronize()
+            launches, leaves = dampen_counts()[:2]
+            others = dampen_counts()[2:] + fisher_counts()
+            replay_s = time.perf_counter() - t0
+            if not same(new, run.forgotten) or launches < 1 or any(others) \
+                    or st_k["stopped_at_l"] != st["stopped_at_l"]:
+                raise AssertionError(
+                    f"train: the kernel replay of the forget != the plain "
+                    f"forget ({launches} launches over {leaves} leaves, "
+                    f"others {others})")
+            card_line(f"the forget replayed from the pre-unlearn checkpoint "
+                      f"(its params read in {read_s:.2f} s) with "
+                      f"use_kernel=True == the run's plain forget, bit for "
+                      f"bit: {launches} dampen launches over {leaves} leaves, "
+                      f"{replay_s:.2f} s with its Fisher")
+            del pre, new, unl, i_d, run
+
+            # the int8 codec at full width
+            coded = T.train(cfg, dev, args(
+                "c", "--steps", str(TRAIN_CODEC_STEPS), "--ckpt-every", "0",
+                "--compress", "int8"), data=(tokens, domains))
+            if not all(torch.isfinite(t).all() for t in tree_leaves(coded.ef)):
+                raise AssertionError("train: non-finite codec EF state")
+            if not all(math.isfinite(x) for x in coded.losses):
+                raise AssertionError(f"train: codec losses {coded.losses}")
+            bx = torch.as_tensor(tokens[:8, :-1], device="cuda")
+            by = torch.as_tensor(tokens[:8, 1:], device="cuda")
+            _, g = value_and_grad(loss_fn, coded.params, (bx, by))
+            sent, e_new = Int8Codec().apply(g, coded.ef)
+            # the same totals from an f32 copy of the gradient: the value
+            # that crosses the wire before its cast to the gradient's dtype
+            # (bf16), a rounding the reference's error feedback does not see
+            deq, e32 = Int8Codec().apply(tree_map(lambda t: t.float(), g),
+                                         coded.ef)
+            worst = 0.0
+            gp, ep = bridge.paths(g), bridge.paths(coded.ef)
+            sp, np_ = bridge.paths(sent), bridge.paths(e_new)
+            dp, e32p = bridge.paths(deq), bridge.paths(e32)
+            for k in gp:
+                if not torch.equal(e32p[k], np_[k]) or not torch.equal(
+                        bits(dp[k].to(sp[k].dtype)), bits(sp[k])):
+                    raise AssertionError(f"train: codec {k}: the bf16 and f32 "
+                                         f"gradients' codes differ")
+                want_k = gp[k].float() + ep[k]
+                got_k = dp[k] + np_[k]
+                rel = float((got_k - want_k).norm() /
+                            want_k.norm().clamp_min(1e-30))
+                worst = max(worst, rel)
+            if not worst <= TRAIN_CODEC_RTOL:
+                raise AssertionError(f"train: sent + residual != g + e_prev "
+                                     f"(relative {worst})")
+            card_line(f"--compress int8: {TRAIN_CODEC_STEPS} steps, losses "
+                      f"{[round(x, 4) for x in coded.losses]}, the EF state "
+                      f"finite; on one more gradient, per leaf, sent (f32) + "
+                      f"residual == g + e_prev within relative {worst:.2e} "
+                      f"(gate {TRAIN_CODEC_RTOL}), the bf16 sent == its f32 "
+                      f"value cast, the residual the same bits")
+            del coded, g, sent, e_new, deq, e32, gp, ep, sp, np_, dp, e32p
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    peak = torch.cuda.max_memory_allocated() / 2.0 ** 30
+    torch.cuda.empty_cache()
+    secs = time.perf_counter() - t_phase
+    card_line(f"phase done in {secs:.1f} s; torch.cuda.max_memory_allocated "
+              f"{peak:.2f} GiB")
+    return {"train_launches": launches, "train_leaves": leaves,
+            "train_losses": losses, "train_step_ms": step_ms,
+            "train_save_seconds": saves, "train_restore_seconds": restore_s,
+            "train_params_read_seconds": read_s,
+            "train_replay_seconds": replay_s,
+            "train_checkpoint_bytes": size, "train_codec_rel": worst,
+            "train_peak_gib": peak, "train_phase_seconds": secs}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
@@ -4667,7 +4962,7 @@ def main() -> int:
                             lambda p, im: V.resnet_forward(p, cfg, im),
                             xd, yd, steps=300, batch=128, dev=dev)
     torch.cuda.synchronize()
-    log(f"[train] 300 AdamW steps at batch 128 in "
+    log(f"[slice] 300 AdamW steps (the port's optimizer) at batch 128 in "
         f"{time.perf_counter() - t0:.1f} s, last loss {loss:.4f}")
 
     splits = syn.split_forget_retain(x, y, forget_class=FORGET_CLASS)
@@ -4838,7 +5133,7 @@ def main() -> int:
                               lambda p, im: V.vit_forward(p, vcfg, im),
                               xd, yd, steps=300, batch=128, dev=dev)
     torch.cuda.synchronize()
-    log(f"[vit] 300 AdamW steps at batch 128 in "
+    log(f"[vit] 300 AdamW steps (the port's optimizer) at batch 128 in "
         f"{time.perf_counter() - t0:.1f} s, last loss {vloss:.4f}")
     vacc = accuracy_of(lambda p, im: V.vit_forward(p, vcfg, im))
     vit = {"tag": "vit", "adapter": vadapter, "params": vparams,
@@ -5292,7 +5587,7 @@ def main() -> int:
     # int8, layerwise and scanned, and a K = 2 drain
     lm = lm_phase(dev, rate, zero_counts, dampen_counts, fisher_counts)
 
-    # 10. [recurrent]: xlstm-125m (4 blocks) and recurrentgemma-9b (5
+    # 10. [recurrent]: xlstm-125m (4 blocks) and recurrentgemma-9b (3
     # blocks) at full width, fp32 (bf16 weights) and int8, layerwise and
     # scanned
     rec, rec_err = recurrent_phase(dev, rate, zero_counts, dampen_counts,
@@ -5300,7 +5595,7 @@ def main() -> int:
     for k in gmax_err:
         gmax_err[k] = max(gmax_err[k], rec_err[k])
 
-    # 11. [dense]: yi-6b at full width and 8 of its 32 blocks, fp32 (bf16
+    # 11. [dense]: yi-6b at full width and 4 of its 32 blocks, fp32 (bf16
     # weights) and int8, layerwise and scanned, and a 2048-token request
     dense, dense_err = dense_phase(dev, rate, zero_counts, dampen_counts,
                                    fisher_counts)
@@ -5339,7 +5634,13 @@ def main() -> int:
     streamed.update(recover_phase(dev))
     streamed.update(load_phase(dev))
 
-    # 19. times at the main paths' shapes. The sweep as a request launches
+    # 19. [train]: the train launcher on gemma3-1b at full width and 6 of
+    # its 26 blocks: resume, the mid-run forget replayed with the kernel,
+    # the int8 codec
+    streamed.update(train_phase(dev, smi, zero_counts, dampen_counts,
+                                fisher_counts))
+
+    # 20. times at the main paths' shapes. The sweep as a request launches
     # it: one grouped launch per layer, back to front, on the layers' own
     # tensors against the global Fisher; beside it the same 56 leaves one
     # launch each, as the request launched them before the grouped kernel

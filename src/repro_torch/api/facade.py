@@ -18,7 +18,8 @@ raises without a card). Requests are ``ForgetRequest``s (or bare
 device), served one at a time (``forget``) or as one coalesced sweep
 (``forget_group``); configuration is an ``UnlearnSpec``. Mesh placement
 (``shard``) and the persistent compilation cache are not ported yet
-(ROADMAP Queue 1 item 5).
+(ROADMAP Queue 1, items "Distribution" and "The persistent compilation
+cache").
 """
 from __future__ import annotations
 

@@ -26,9 +26,10 @@ mapping. ``ServeSpec`` is the serving deployment's configuration and lowers
 to an ``UnlearnSpec``.
 
 Not ported yet: mesh placement (``ExecSpec.mesh_axes``) and the persistent
-compilation cache (``ExecSpec.cache_dir`` / ``ServeSpec.cache_dir``), both
-ROADMAP Queue 1 item 5. The fields exist so that the reference's JSON
-reads here; a value other than None raises.
+compilation cache (``ExecSpec.cache_dir`` / ``ServeSpec.cache_dir``), the
+ROADMAP Queue 1 items "Distribution" and "The persistent compilation
+cache". The fields exist so that the reference's JSON reads here; a value
+other than None raises.
 """
 from __future__ import annotations
 
@@ -61,9 +62,15 @@ def _finite(x, name: str, *, positive: bool = False,
         _require(x >= 0, f"{name} must be >= 0, got {x!r}")
 
 
+# ROADMAP Queue 1's items, by title (a number would go stale when the
+# queue is renumbered)
+MESH_ITEM = "Distribution"
+CACHE_ITEM = "The persistent compilation cache"
+
+
 def _not_ported(what: str, item: str) -> ValueError:
-    return ValueError(f"{what} is not ported yet (ROADMAP Queue 1 item "
-                      f"{item})")
+    return ValueError(f"{what} is not ported yet (ROADMAP Queue 1, item "
+                      f"{item!r})")
 
 
 def _from_dict(cls, d: Any, what: str):
@@ -233,16 +240,17 @@ class ExecSpec:
 
     ``guard`` (a ``repro_torch.robust.GuardSpec``) validates a drain's
     edited tree before the fleet may publish it. ``mesh_axes`` and
-    ``cache_dir`` are not ported yet (ROADMAP Queue 1 item 5): None only;
+    ``cache_dir`` are not ported yet (ROADMAP Queue 1, items
+    "Distribution" and "The persistent compilation cache"): None only;
     ``sharding`` names the reference's layout rule and is inert without a
     mesh.
     """
     chunk_size: int = 8
     use_kernel: bool = False          # CUDA dampening kernels
     donate: Optional[bool] = None     # None: no donation
-    mesh_axes: Optional[Tuple[str, ...]] = None  # not ported yet (item 5)
+    mesh_axes: Optional[Tuple[str, ...]] = None  # not ported yet
     sharding: str = "tp"              # the reference's layout rule
-    cache_dir: Optional[str] = None   # not ported yet (item 5)
+    cache_dir: Optional[str] = None   # not ported yet
     sweep_mode: str = "layerwise"     # "layerwise" | "scanned"
     precision: str = "fp32"           # "fp32" | "int8"
     quant: Optional[QuantSpec] = None  # int8 calibration (int8 only)
@@ -262,7 +270,8 @@ class ExecSpec:
                  f"ExecSpec.donate must be None (no donation) or a bool, "
                  f"got {self.donate!r}")
         if self.mesh_axes is not None:
-            raise _not_ported("ExecSpec.mesh_axes (mesh placement)", "5")
+            raise _not_ported("ExecSpec.mesh_axes (mesh placement)",
+                              MESH_ITEM)
         _require(self.sharding in _SHARDING_MODES,
                  f"ExecSpec.sharding must be one of {_SHARDING_MODES}, "
                  f"got {self.sharding!r}")
@@ -272,7 +281,7 @@ class ExecSpec:
                  f"got {self.cache_dir!r}")
         if self.cache_dir is not None:
             raise _not_ported("ExecSpec.cache_dir (the persistent "
-                              "compilation cache)", "5")
+                              "compilation cache)", CACHE_ITEM)
         _require(self.sweep_mode in SWEEP_MODES,
                  f"ExecSpec.sweep_mode must be one of {SWEEP_MODES} "
                  f'("scanned" lowers the whole sweep as one compiled '
@@ -450,7 +459,8 @@ class ServeSpec:
     ``sweep_mode``      engine drive loop ("scanned" megaprogram default).
     ``precision``       numeric path ("fp32" | "int8" program family).
     ``cache_dir``       the persistent compilation cache: not ported yet
-                        (ROADMAP Queue 1 item 5) — None only.
+                        (ROADMAP Queue 1, "The persistent compilation
+                        cache") — None only.
     ``max_forget_samples``  per-request forget-batch cap (the serving
                         harness slices each domain's forget split to this).
     ``publish``         how a drain's edits reach the served weights:
@@ -524,7 +534,7 @@ class ServeSpec:
                  f"got {self.cache_dir!r}")
         if self.cache_dir is not None:
             raise _not_ported("ServeSpec.cache_dir (the persistent "
-                              "compilation cache)", "5")
+                              "compilation cache)", CACHE_ITEM)
         _require(isinstance(self.max_forget_samples, int)
                  and not isinstance(self.max_forget_samples, bool)
                  and self.max_forget_samples >= 1,

@@ -35,7 +35,7 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.api.specs import _not_ported
+from repro_torch.api.specs import MESH_ITEM, _not_ported
 from repro_torch.bridge import (_HWIO_TO_OIHW, _OIHW_TO_HWIO,
                                 is_conv_weight)
 from repro_torch.device import resolve_device
@@ -135,7 +135,7 @@ def restore(ckpt_dir: str, step: int, like: Params, *,
     ``(tree, meta)``."""
     if sharding_fn is not None:
         raise _not_ported("restore(sharding_fn=...) (elastic placement on a "
-                          "mesh)", "5")
+                          "mesh)", MESH_ITEM)
     dev = resolve_device(device)
     step_dir = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(step_dir, "META.json")) as f:

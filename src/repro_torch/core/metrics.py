@@ -1,6 +1,7 @@
 """Evaluation metrics: forget/retain accuracy, membership-inference attack
 (MIA) accuracy, Retain Preservation Rate (RPR, Eq. 7), and MAC accounting —
-the paper's hardware-relevant computation proxy.
+the paper's hardware-relevant computation proxy — with its int8-vs-fp32
+byte-MAC and energy proxies (``mac_proxy_table``).
 """
 from __future__ import annotations
 
@@ -113,3 +114,54 @@ class MacCounter:
     @staticmethod
     def ssd_total(layer_fwd_macs, layer_params, batch) -> int:
         return batch * 3 * sum(layer_fwd_macs) + 2 * sum(layer_params)
+
+
+# ---------------------------------------------------------------------------
+# Precision proxies: byte-MACs and MAC energy (the int8-vs-fp32 table)
+# ---------------------------------------------------------------------------
+# Bytes of streamed operand traffic per MAC: two operands per MAC, 4 bytes
+# each at fp32, 1 byte each at int8. Accumulators (f32/int32) and the
+# per-channel f32 scale tables stay resident in on-chip memory and are
+# amortised over a whole reduction, so they are left out of the per-MAC
+# figure, the normalisation under which the paper's INT8 GEMM pipeline
+# claims its bandwidth economy.
+MAC_OPERAND_BYTES = {"fp32": 8.0, "int8": 2.0}
+
+# Energy per MAC in pJ at 45nm (Horowitz, ISSCC'14 "Computing's energy
+# problem"): 32b float mult 3.7 + add 0.9 ~= 4.6; 8b int mult 0.2 + 32b int
+# add 0.03 ~= 0.23. A coarse proxy (the paper's measured RTL numbers fold
+# in SRAM/DRAM traffic too), but it makes the fp32:int8 ratio reportable.
+MAC_ENERGY_PJ = {"fp32": 4.6, "int8": 0.23}
+
+
+def _check_precision(precision: str) -> None:
+    if precision not in MAC_OPERAND_BYTES:
+        raise ValueError(
+            f"precision must be one of {sorted(MAC_OPERAND_BYTES)}, got "
+            f"{precision!r}")
+
+
+def byte_macs(macs: int, precision: str) -> float:
+    """Operand-traffic-weighted MAC count: macs * bytes-per-MAC."""
+    _check_precision(precision)
+    return float(macs) * MAC_OPERAND_BYTES[precision]
+
+
+def mac_energy_j(macs: int, precision: str) -> float:
+    """Energy proxy in joules for ``macs`` MACs at ``precision``."""
+    _check_precision(precision)
+    return float(macs) * MAC_ENERGY_PJ[precision] * 1e-12
+
+
+def mac_proxy_table(macs: int) -> dict:
+    """The int8-vs-fp32 MAC and energy-proxy rows for one sweep's MAC
+    count (the byte-MAC reduction is 8/2 = 4x by construction)."""
+    return {
+        "macs": int(macs),
+        "fp32_byte_macs": byte_macs(macs, "fp32"),
+        "int8_byte_macs": byte_macs(macs, "int8"),
+        "bytemac_reduction": MAC_OPERAND_BYTES["fp32"] / MAC_OPERAND_BYTES["int8"],
+        "fp32_mac_energy_j": mac_energy_j(macs, "fp32"),
+        "int8_mac_energy_j": mac_energy_j(macs, "int8"),
+        "energy_reduction": MAC_ENERGY_PJ["fp32"] / MAC_ENERGY_PJ["int8"],
+    }

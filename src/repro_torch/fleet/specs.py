@@ -10,7 +10,8 @@ round-trip (``to_json``/``from_json``) and ``ValueError`` validation with
 actionable messages — the same discipline as ``repro_torch.api.specs`` —
 so a fleet file is a complete, auditable description of what the process
 serves. Archs are checked against ``repro_torch.configs``. The
-compilation-cache directory is not ported yet (ROADMAP Queue 1 item 5):
+compilation-cache directory is not ported yet (ROADMAP Queue 1, "The
+persistent compilation cache"):
 ``ServeSpec.cache_dir`` and ``ExecSpec.cache_dir`` accept None only, so
 the reference's per-tenant cache-dir conflict cannot arise here.
 """

@@ -52,9 +52,10 @@ build exactly what the fleet built for its family and end with the same
 weights and Fisher, bit for bit (``fleet_check_problems``).
 
 ``--device`` picks the card (``cuda``, the default; it raises without one)
-or ``cpu``.  Not ported yet: ``--cache-dir`` (ROADMAP Queue 1 item 5); it
-raises.  As in the reference, ``--smoke`` is a ``store_true`` flag that
-defaults to True, so the command line always serves the SMOKE config.
+or ``cpu``.  Not ported yet: ``--cache-dir`` (ROADMAP Queue 1, "The
+persistent compilation cache"); it raises.  As in the reference,
+``--smoke`` is a ``store_true`` flag that defaults to True, so the command
+line always serves the SMOKE config.
 """
 from __future__ import annotations
 
@@ -70,7 +71,7 @@ import torch
 
 from repro_torch import configs
 from repro_torch.api import ServeSpec, UnlearnSpec, Unlearner
-from repro_torch.api.specs import _not_ported
+from repro_torch.api.specs import CACHE_ITEM, _not_ported
 from repro_torch.data.synthetic import LMDataConfig, make_lm_domains
 from repro_torch.device import resolve_device
 from repro_torch.engine import ProgramCache
@@ -1028,7 +1029,7 @@ def _main_fleet(args) -> dict:
     fspec = FleetSpec.from_file(args.fleet)
     if args.cache_dir:
         raise _not_ported("--cache-dir (the persistent compilation cache)",
-                          "5")
+                          CACHE_ITEM)
     fleet, result = run_fleet(fspec, lambda t: _build_lm_tenant(t, args),
                               args, device=args.device)
     _t.log("serve", f"fleet done: {json.dumps(result)}")
@@ -1214,7 +1215,8 @@ def main(argv=None) -> dict:
                          "(and the scanned, precision and refresh gates)")
     ap.add_argument("--cache-dir", default=None,
                     help="persistent compilation cache directory (not "
-                         "ported yet: ROADMAP Queue 1 item 5)")
+                         "ported yet: ROADMAP Queue 1, the persistent "
+                         "compilation cache)")
     ap.add_argument("--fisher-refresh", type=int, default=0,
                     help="refresh the global Fisher I_D every N drains "
                          "(streamed EMA over retain microbatches at the "
@@ -1249,7 +1251,7 @@ def main(argv=None) -> dict:
         return _main_fleet(args)
     if args.cache_dir:
         raise _not_ported("--cache-dir (the persistent compilation cache)",
-                          "5")
+                          CACHE_ITEM)
     dev = resolve_device(args.device)
 
     spec = configs.get(args.arch)

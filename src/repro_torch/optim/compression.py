@@ -1,11 +1,14 @@
-"""Int8 weight calibration — port of the q8 half of
-``repro.optim.compression``.
+"""Quantisation and gradient compression (port of
+``repro.optim.compression``).
 
-One calibration rule, symmetric max-abs int8: ``scale = max|x| * f32(1/127)``
-clamped to ``Q8_MIN_SCALE``, codes ``round(x / scale)`` (half to even)
-clipped to ±127. The engine's ``precision="int8"`` path (DESIGN.md §12)
-quantises parameter trees with these helpers. ``INT8_SWEEP_RTOL`` is the
-declared tolerance of that path against the fp32 path, per layer.
+Two concerns share this module because they share one rounding rule.
+
+**Int8 weight calibration.** One calibration rule, symmetric max-abs
+int8: ``scale = max|x| * f32(1/127)`` clamped to ``Q8_MIN_SCALE``, codes
+``round(x / scale)`` (half to even) clipped to ±127. The engine's
+``precision="int8"`` path (DESIGN.md §12) quantises parameter trees with
+these helpers. ``INT8_SWEEP_RTOL`` is the declared tolerance of that path
+against the fp32 path, per layer.
 
 **The grouping is the reference's, not PyTorch's per-output-channel
 habit.** The reference keeps the first ``lead_axes`` axes of each leaf in
@@ -22,17 +25,34 @@ no path, and ``conv`` says what it is. Tables keep their reduced axes
 (1, 1, 3, 1) and the bridge's transpose maps one onto the other: tables
 compare by path like weights.
 
-``Int8Codec``/``TopKCodec`` (gradient compression for data-parallel
-training) come with the training slice.
+**Gradient compression with error feedback** (the train launcher's
+``--compress``): ``Int8Codec`` (per-block symmetric int8, block 256) and
+``TopKCodec`` (magnitude top-k, k a fraction). ``apply(grads, ef)`` returns
+what crosses the wire, decompressed (``sent``, in the gradient's dtype),
+and the new residual ``ef`` (f32), with ``sent + ef == g + ef_prev`` up to
+one rounding. Both walk each leaf in the REFERENCE layout (a conv weight
+as HWIO), so blocks and top-k ties fall on the reference's elements.
+
+``Int8Codec`` computes what the reference's JITTED train step computes,
+which is not what its eager ``apply`` computes: inside the jit XLA turns
+``max|x| / 127.0`` into ``max|x| * f32(1/127)`` (one ulp apart in about
+half the blocks, which moves every code of the block and flips those at
+the .5 marks) and fuses the residual ``tot - q * scale`` into one
+multiply-add, rounded once. The port multiplies by the f32 reciprocal and
+forms the residual in f64, where it is exact, then rounds it to f32 once.
+``TopKCodec`` has no such difference. Its kept set is the first k indices
+of a STABLE descending sort of ``|tot|``: at equal magnitudes the lower
+index wins, as ``lax.top_k`` documents.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Optional, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.bridge import is_conv_weight
+from repro_torch.bridge import _HWIO_TO_OIHW, _OIHW_TO_HWIO, is_conv_weight
 from repro_torch.models.module import (flatten_with_paths, map_with_paths,
                                        tree_map, tree_unflatten)
 
@@ -143,3 +163,92 @@ def q8_fakequant_tree(tree: Params, *, lead_axes: int = 1,
                                      min_scale=min_scale,
                                      conv=is_conv_weight(path, x.ndim)),
         tree)
+
+
+# ---------------------------------------------------------------------------
+# Gradient compression with error feedback (the train launcher's codec)
+# ---------------------------------------------------------------------------
+def _ef_init(params_like: Params) -> Params:
+    return tree_map(lambda x: torch.zeros(x.shape, dtype=F32,
+                                          device=x.device), params_like)
+
+
+def _apply_leafwise(one, grads: Params, ef: Params) -> Tuple[Params, Params]:
+    """``one(tot)`` on each leaf's ``g.f32 + e`` in the reference layout
+    (a conv weight as HWIO) -> (sent, residual), returned in the port's
+    layout: (sent trees in the gradients' dtypes, f32 residual tree)."""
+    efs = dict(flatten_with_paths(ef))
+    sent, res = [], []
+    for path, g in flatten_with_paths(grads):
+        tot = g.to(F32) + efs[path]
+        conv = is_conv_weight(path, tot.ndim)
+        s, r = one(tot.permute(_OIHW_TO_HWIO) if conv else tot)
+        if conv:
+            s, r = s.permute(_HWIO_TO_OIHW), r.permute(_HWIO_TO_OIHW)
+        sent.append(s.contiguous().to(g.dtype))
+        res.append(r.contiguous())
+    return tree_unflatten(grads, sent), tree_unflatten(grads, res)
+
+
+@dataclasses.dataclass(frozen=True)
+class Int8Codec:
+    block: int = 256
+
+    def init_state(self, params_like: Params) -> Params:
+        return _ef_init(params_like)
+
+    def _blocks(self, g: torch.Tensor):
+        """(blocks [nb, block] f32 zero-padded, scales [nb, 1], codes)."""
+        flat = g.to(F32).reshape(-1)
+        pad = (-flat.numel()) % self.block
+        flat = torch.nn.functional.pad(flat, (0, pad)).reshape(-1, self.block)
+        scale = (flat.abs().amax(dim=1, keepdim=True) * _RECIP_127
+                 ).clamp_min(float(np.float32(1e-12)))
+        return flat, scale, int8_codes(torch.round(flat / scale))
+
+    def _roundtrip(self, g: torch.Tensor) -> torch.Tensor:
+        """Quantise -> dequantise ``g`` (f32 out), blocks taken in ``g``'s
+        own element order."""
+        return self._split(g)[0]
+
+    def _split(self, tot: torch.Tensor):
+        """(dequantised ``tot``, residual ``tot - dequantised``)."""
+        flat, scale, q = self._blocks(tot)
+        n = tot.numel()
+        sent = (q.to(F32) * scale).reshape(-1)[:n].reshape(tot.shape)
+        # tot - q * scale rounded once, as the jitted reference's fused
+        # multiply-add: exact in f64 (q has 8 bits, scale 24)
+        res = (flat.double() - q.double() * scale.double()).to(F32)
+        return sent, res.reshape(-1)[:n].reshape(tot.shape)
+
+    def apply(self, grads: Params, ef: Params) -> Tuple[Params, Params]:
+        return _apply_leafwise(self._split, grads, ef)
+
+    def wire_bytes(self, n_elements: int) -> int:
+        n_blocks = -(-n_elements // self.block)
+        return n_elements + 4 * n_blocks     # int8 payload + f32 scales
+
+
+@dataclasses.dataclass(frozen=True)
+class TopKCodec:
+    frac: float = 0.01
+
+    def init_state(self, params_like: Params) -> Params:
+        return _ef_init(params_like)
+
+    def _split(self, tot: torch.Tensor):
+        flat = tot.reshape(-1)
+        k = max(1, int(flat.numel() * self.frac))
+        # a stable descending sort: ties to the lower index, as lax.top_k
+        idx = torch.sort(flat.abs(), descending=True, stable=True)[1][:k]
+        kept = torch.zeros_like(flat)
+        kept[idx] = flat[idx]
+        kept = kept.reshape(tot.shape)
+        return kept, tot - kept
+
+    def apply(self, grads: Params, ef: Params) -> Tuple[Params, Params]:
+        return _apply_leafwise(self._split, grads, ef)
+
+    def wire_bytes(self, n_elements: int) -> int:
+        k = max(1, int(n_elements * self.frac))
+        return k * (4 + 4)                    # f32 value + int32 index

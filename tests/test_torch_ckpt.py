@@ -13,7 +13,7 @@
     and META's manifest and extra fields (npz members carry timestamps and
     META carries ``time``, so the files are not compared as bytes);
   * ``gc_old``, the unlearn journal, the shape error and the refusal of
-    ``sharding_fn`` (item 5).
+    ``sharding_fn`` (ROADMAP Queue 1, "Distribution").
 """
 import dataclasses
 import json
@@ -177,4 +177,4 @@ def test_shape_error_and_sharding_refused(tmp_path):
     with pytest.raises(ValueError, match="not ported yet") as e:
         ckpt.restore(str(tmp_path), 1, {"w": torch.zeros(2, 3)},
                      sharding_fn=lambda p: None, device="cpu")
-    assert "item 5" in str(e.value)
+    assert "item 'Distribution'" in str(e.value)

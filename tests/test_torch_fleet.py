@@ -157,12 +157,14 @@ def test_spec_validation_equal(what, kw):
 
 
 def test_not_ported_yet_raises():
-    for fn, item in ((lambda: ServeSpec(cache_dir="/tmp/c"), "item 5"),
-                     (lambda: ExecSpec(cache_dir="/tmp/c"), "item 5"),
+    cache = "item 'The persistent compilation cache'"
+    for fn, item in ((lambda: ServeSpec(cache_dir="/tmp/c"), cache),
+                     (lambda: ExecSpec(cache_dir="/tmp/c"), cache),
                      (lambda: UnlearnSpec.for_mode("ficabu",
                                                    cache_dir="/tmp/c"),
-                      "item 5"),
-                     (lambda: ExecSpec(mesh_axes=("data",)), "item 5")):
+                      cache),
+                     (lambda: ExecSpec(mesh_axes=("data",)),
+                      "item 'Distribution'")):
         msg = _error(fn)
         assert "not ported yet" in msg and item in msg, msg
 

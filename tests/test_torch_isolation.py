@@ -2,8 +2,8 @@
 ``engine.sweep`` included) and not the chip smoke script imports ``jax``
 or the JAX package ``repro``, the port serves a forget request, and a
 scanned coalesced group under a telemetry capture, with both blocked,
-and its entry points refuse to run on an absent card instead of quietly
-falling back to the host."""
+its entry points refuse to run on an absent card instead of quietly
+falling back to the host, and nothing of it uses ``torch.optim``."""
 import ast
 import os
 import subprocess
@@ -260,6 +260,21 @@ back, _ = ckpt.restore(ckdir, 1, {"params": params}, device="cpu")
 assert all(torch.equal(a, b) for a, b in zip(tree_leaves(back["params"]),
                                              tree_leaves(eng.params)))
 out.append(eng.publications)
+# two train steps through the launcher's loop (the int8 codec on), then one
+# request through the legacy CAU oracle
+from repro_torch.core import cau
+from repro_torch.launch import train as T
+tr = T.train(cfg, "cpu", T.parse_args(
+    ["--steps", "2", "--batch", "4", "--seq", "8", "--ckpt-every", "0",
+     "--compress", "int8", "--ckpt-dir", tempfile.mkdtemp(),
+     "--device", "cpu"]), params=params, data=(stoks, sdoms))
+assert tr.result["steps_run"] == 2 and int(tr.opt.step) == 2
+assert all(torch.isfinite(t).all() for t in tree_leaves(tr.params))
+_, lst = cau.context_adaptive_unlearn_legacy(
+    adapters.lm_adapter(cfg, 8, device="cpu"), params, unl.fisher_global,
+    tok[8:16, :-1], tok[8:16, 1:],
+    cau.UnlearnConfig(tau=-1.0, chunk_size=4, checkpoint_every=2))
+out += [tr.result["steps_run"], lst["stopped_at_l"]]
 leaked = [m for m in sys.modules
           if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
 print("LEAKED", leaked, "STOP", out)
@@ -272,13 +287,15 @@ def test_lm_serves_with_jax_and_repro_blocked():
     whisper request (the encoder left as it was), whisper decodes, a
     ForgetService drains two domains and refreshes its Fisher, and a
     StreamEngine serves three sequences with one shadow drain published
-    at its deadline, whose tree a checkpoint round trip restores, with JAX
-    and the JAX package blocked."""
+    at its deadline, whose tree a checkpoint round trip restores, the train
+    launcher's loop takes two steps with the int8 codec, and the legacy CAU
+    oracle serves a request, with JAX and the JAX package blocked."""
     env = dict(os.environ, PYTHONPATH=str(SRC))
     proc = subprocess.run([sys.executable, "-c", _BLOCKED_LM_RUN], env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
-    assert "LEAKED [] STOP [9, 9, 4, 4, 2, 1]" in proc.stdout, proc.stdout
+    assert "LEAKED [] STOP [9, 9, 4, 4, 2, 1, 2, 9]" in proc.stdout, \
+        proc.stdout
 
 
 def test_lm_entry_points_raise_without_a_card():
@@ -291,3 +308,29 @@ def test_lm_entry_points_raise_without_a_card():
         LM.init_lm(torch.Generator(), cfg)
     with pytest.raises(RuntimeError, match="is_available"):
         adapters.lm_adapter(cfg, 8)
+    from repro_torch.launch import train
+    with pytest.raises(RuntimeError, match="is_available"):
+        train.main(["--steps", "1"])
+
+
+def test_nothing_uses_torch_optim():
+    """The port trains with its own AdamW (``repro_torch.optim``): no module
+    of the port and not the chip smoke script imports or reaches
+    ``torch.optim``."""
+    offenders = []
+    for path in sorted(PORT.rglob("*.py")) + [SMOKE]:
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                bad = any(a.name.startswith("torch.optim")
+                          for a in node.names)
+            elif isinstance(node, ast.ImportFrom):
+                bad = node.level == 0 and (node.module or "").startswith(
+                    "torch.optim") or (node.module == "torch" and any(
+                        a.name == "optim" for a in node.names))
+            else:
+                bad = (isinstance(node, ast.Attribute) and node.attr == "optim"
+                       and isinstance(node.value, ast.Name)
+                       and node.value.id == "torch")
+            if bad:
+                offenders.append(f"{path.relative_to(ROOT)}:{node.lineno}")
+    assert not offenders, offenders

@@ -268,7 +268,8 @@ def test_check_gates_fire():
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--cache-dir", "/tmp/c"], "item 5")], ids=["cache"])
+    (["--cache-dir", "/tmp/c"], "item 'The persistent compilation cache'")],
+    ids=["cache"])
 def test_main_not_ported_yet(flags, item):
     with pytest.raises(ValueError, match="not ported yet") as e:
         serve.main(ARGS + flags)

@@ -105,8 +105,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
      attention block, d_model 1152, 4 heads over 1 KV head of 256, d_ff
      6912, vocab 262,144, tied embeddings; 624,062,592 bf16 parameters in
      56 stored leaves, 110 layer leaves in 14 unlearn layers; all 26
-     blocks until the [train] phase, which the cut pays for; the serving
-     phases run all 26), random weights from a CUDA
+     blocks until the [train] phase, which the cut pays for; [serve] runs
+     12 too since the [shard] and [cache] phases, [stream] all 26), random
+     weights from a CUDA
      generator seeded with 0. Token data from ``make_lm_domains`` (data
      vocabulary 512, S = 1024 tokens, longer than the window); a request
      is 8 sequences of one domain at chunk 2, labelled with the model's own
@@ -129,7 +130,31 @@ Phases, in order; any failure exits non-zero and prints no result line:
      wall, device busy time, idle share and device kernels; the 14-launch
      sweeps' device time against their byte bounds (13 bytes per element
      with bf16 theta, 11 with int8 codes);
- 10. [recurrent]: the recurrent LMs at full width, bf16, from a CUDA
+ 10. [shard]: sharded requests (``repro_torch.dist``) on [lm]'s weights,
+     Fisher and request: ``Unlearner(...).shard(make_host_mesh(
+     device="cuda"))`` (the 1x1 ("data", "model") mesh on a one-rank NCCL
+     process group), ``use_kernel=True``, warm ssd requests in fp32
+     layerwise, fp32 scanned and int8 (layerwise), each beside the same
+     request through the unsharded facade: every parameter bit for bit,
+     ``stopped_at_l``, the checkpoints, the selection counts and the MACs
+     equal, the dampen launches and leaves equal (14 over 110 a request),
+     every returned leaf a DTensor with ``placements(param_pspecs(...))``;
+     the [shard] path's counters zeroed before and read after. Then the
+     sharded fp32 result saved as a checkpoint and restored with
+     ``sharding_fn`` onto the mesh, bit for bit, and the process group
+     destroyed. The warm requests' walls, sharded beside unsharded;
+ 11. [cache]: the persistent compilation cache (the kernel build
+     directory): ``python -m repro_torch.launch.serve --fleet <spec>
+     --cache-dir <fresh dir> --check --device cuda`` twice, as
+     subprocesses, on two gemma3-1b SMOKE tenants whose specs set
+     ``use_kernel=True`` (``--check`` on a fleet needs two tenants of one
+     family), 4 requests of 8 prompt tokens, 4 generated, under
+     deterministic algorithms (as [fleet]): the first start builds the dampen library into the empty
+     cache (``entries_before`` 0, ``entries_new`` >= 1), the second, a
+     cold start on the warm cache, builds nothing (``entries_new`` 0) and
+     passes ``--check``; the same gate fed the warm cache plus one more
+     finished library reports it. Each start's seconds and entry counts;
+ 12. [recurrent]: the recurrent LMs at full width, bf16, from a CUDA
      generator seeded with 0, on the [lm] phase's data (vocabulary 512,
      S = 1024, chunk 2, argmax labels, the retain Fisher of 4 sequences
      from ensure_fisher), lambda 1: xlstm-125m at full width and 4 of its
@@ -158,7 +183,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
      memory, the warm ssd requests' wall, device busy time, idle share and
      device kernels (xlstm: fp32, its device activity alone), the sweeps
      against their byte bounds, and each model's and the phase's seconds;
- 11. [dense]: the dense GQA LM yi-6b at full width (d_model 4096, 32
+ 13. [dense]: the dense GQA LM yi-6b at full width (d_model 4096, 32
      heads over 4 KV heads of 128, d_ff 11008, vocab 64,000, RoPE theta
      5e6, untied) and 4 of its 32 blocks (1,216,385,024 bf16 parameters in
      12 stored leaves, 39 layer leaves in 6 unlearn layers; all 32 do not
@@ -187,7 +212,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
      the two are bit-identical); the warm ssd requests' wall, device busy
      time, idle share and device kernels; the 18-launch sweeps against their
      byte bounds, and the phase's seconds;
- 12. [moe]: the MoE LM llama4-scout-17b-a16e at full width (d_model
+ 14. [moe]: the MoE LM llama4-scout-17b-a16e at full width (d_model
      5120, 40 heads over 8 KV heads of 128, 16 experts of d_ff 8192,
      top-1, a shared expert of 8192, capacity factor 1.25, vocab 202,048,
      RoPE theta 5e5, untied) and 1 of its 48 blocks (4,271,078,400
@@ -216,7 +241,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
      loss (finite, > 0); the peak memory; the warm ssd requests' wall,
      device busy time, idle share and device kernels; the sweeps against
      their byte bounds, and the phase's seconds;
- 13. [encdec]: the encoder-decoder whisper-tiny FULL (4 encoder and 4
+ 15. [encdec]: the encoder-decoder whisper-tiny FULL (4 encoder and 4
      decoder blocks, d_model 384, 6 heads of 64, d_ff 1536, vocab 51,865,
      untied; 61,074,432 bf16 parameters in 27 stored leaves, the decoder
      chain's 59 layer leaves in 6 unlearn layers) and stub frames
@@ -245,9 +270,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
      drops nothing), on their phases' models: the stepped logits within a
      stated relative L2 of the forward's (DECODE_RTOL, DECODE_RTOL_CONV),
      not bit for bit;
- 14. [serve]: the streamed Fisher refresh and the serving loop
+ 16. [serve]: the streamed Fisher refresh and the serving loop
      (``repro_torch.launch.serve.ForgetService`` on a one-tenant
-     ``repro_torch.fleet.Fleet``) on gemma3-1b FULL, bf16, from a CUDA
+     ``repro_torch.fleet.Fleet``) on gemma3-1b at full width and 12 of its
+     26 blocks (``SERVE_BLOCKS``; 26 until the [shard] and [cache]
+     phases), bf16, from a CUDA
      generator seeded with 0: make_lm_domains (vocabulary 512, 4 domains x
      16 sequences of 160 tokens); 3 batches of 8 prompts of 128 tokens, 32
      greedy tokens each (chunked prefill, then decode_step); forget bursts
@@ -263,7 +290,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
      the first, the staleness oracle), every parameter finite, int8 on its
      q8 grids; then a one-tenant Fleet on the same ServeSpec's lowering
      with ``use_kernel=True`` and the same submissions, the counters zeroed
-     before and read after (56 launches over 472 leaves a drain), its
+     before and read after (28 launches over 220 leaves a drain), its
      served tree and Fisher bit for bit the service's; the fp32 service
      layerwise == scanned bit for bit; a guarded drain (``GuardSpec()``)
      under a ``nan_batch`` fault in both its attempts: rejected, requeued,
@@ -274,9 +301,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
      tokens/s per batch, and NVML's busy share over one batch; the warm
      kernel drain's profile and its dampen time against the byte bound;
      the phase's peak memory and seconds;
- 15. [stream]: the continuous-batching ``StreamEngine``
-     (``repro_torch.launch.serve``) on [serve]'s gemma3-1b FULL weights
-     and data (26 blocks, 999,812,736 bf16 parameters), under
+ 17. [stream]: the continuous-batching ``StreamEngine``
+     (``repro_torch.launch.serve``) on gemma3-1b FULL weights and data
+     of its own, seeded as [serve]'s (26 blocks, 999,812,736 bf16
+     parameters: the depth its near-tie gate was set at), under
      deterministic algorithms: the traffic of ``serve --serve-mode
      stream``, 24 sequences of 128 prompt tokens, 32 generated each, 8
      decode slots, admission in chunks of 4 (prefill block 8), bursts
@@ -291,8 +319,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
      publication under ``torch.cuda.set_sync_debug_mode("error")``; the two
      runs' engine fingerprints, published trees, Fishers and every
      sequence's tokens equal bit for bit. The first 8 sequences (batch 0's
-     prompts, done before the first publication) against [serve]'s
-     generate of batch 0: where a token differs, generate's top-2 logit gap
+     prompts, done before the first publication) against ``generate`` of
+     batch 0 on the same weights: where a token differs, generate's top-2 logit gap
      at the first differing position is below 1e-2, a replica of the
      engine's grouping (prefill per admission chunk of 4, decode of the
      pool of 8 at per-row positions) gives the wave bit for bit and
@@ -303,14 +331,14 @@ Phases, in order; any failure exits non-zero and prints no result line:
      bit as it was. Steps, tokens/s, decode-step wall p50 / p99 with and
      without a drain in flight, each drain's wall on the worker, peak
      memory and the phase's seconds;
- 16. [fleet]: ``serve.run_fleet`` (the loop of ``serve --fleet``) on two
+ 18. [fleet]: ``serve.run_fleet`` (the loop of ``serve --fleet``) on two
      gemma3-1b FULL tenants, seeds 0 and 1 (one family), built by the
      card's builder (data at vocabulary 512), with the reference CLI's
      traffic (8 requests of 16 prompt tokens, 8 generated, prefill block 8,
      3 batches, bursts "1,2;3,2" after batch 1, scanned), every gate of
      ``fleet_check_problems`` (the solo replay on a fresh cache bit for bit
      and with the fleet's builds), the shared cache's builds and hits;
- 17. [recover]: the reference's kill-mid-drain scenario on the card:
+ 19. [recover]: the reference's kill-mid-drain scenario on the card:
      gemma3-1b at full width and 6 of its 26 blocks (one local/global
      period), ficabu (alpha 8, tau 0.6, checkpoints every 2 layers, chunk
      4, scanned) with a WAL; a subprocess drains once, checkpoints (params
@@ -319,12 +347,12 @@ Phases, in order; any failure exits non-zero and prints no result line:
      replay, version 2, the WAL's accounting) to params and Fisher bit for
      bit equal to an uninterrupted twin, and ``latest_step`` skips a step
      that ``ckpt_crash`` cut between its shard and META;
- 18. [load]: ``LoadHarness`` twice on freshly built [fleet]-like fleets
+ 20. [load]: ``LoadHarness`` twice on freshly built [fleet]-like fleets
      (``LoadScenario(ticks=8, forget=poisson 0.5, serve_generate=False,
      domains=3, seed=0)``): equal fingerprints, the accounting equal to the
      scheduler's, and ``report --slo`` rendering the first run's JSONL
      stream against an ``SLOSpec`` (exit 0, every objective met);
- 19. [train]: ``repro_torch.launch.train`` (the loop of ``main``) on
+ 21. [train]: ``repro_torch.launch.train`` (the loop of ``main``) on
      gemma3-1b at full width and 6 of its 26 blocks (one local/global
      period; 463,026,816 bf16 parameters in 56 leaves), from a CUDA
      generator seeded with 0, on make_lm_domains at vocabulary 512 (8
@@ -347,7 +375,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
      warm step's wall, each checkpoint write's and the restore's seconds,
      the bytes on disk, the peak memory and the phase's seconds, beside
      the card's name and power limit. At most 4 checkpoint writes;
- 20. times: each kernel and its plain version at the main paths' shapes
+ 22. times: each kernel and its plain version at the main paths' shapes
      (the dampen sweeps as a request launches them, one grouped launch per
      layer, with the 56 per-leaf launches beside them and the figures from
      before the grouped kernel; and, for fimd and the GEMMs, one PyTorch
@@ -417,8 +445,8 @@ LM_ARCH = "gemma3-1b"
 # (parameters, stored leaves, layer leaves, unlearn layers): two of the
 # 26 blocks' local/global periods since the [train] phase, which this cut
 # (114.8 -> 67.1 s), recurrentgemma-9b's 5 -> 3 and yi-6b's 8 -> 4 pay for
-# (tools/train_phase.py --cuts; PERF.md section 6). [serve], [stream] and
-# [fleet] run gemma3-1b with all 26 blocks
+# (tools/train_phase.py --cuts; PERF.md section 6). [stream] and [fleet]
+# run gemma3-1b with all 26 blocks; [serve] with SERVE_BLOCKS
 LM_BLOCKS = 12
 LM_WANT = (624_062_592, 56, 110, 14)
 LM_SEQ = 1024
@@ -1314,9 +1342,12 @@ def lm_on_q8_grid(adapter, new, pristine, stopped):
     return True
 
 
-def lm_phase(dev, rate, zero_counts, dampen_counts, fisher_counts):
+def lm_phase(dev, rate, zero_counts, dampen_counts, fisher_counts,
+             keep=None):
     """Phase 9, [lm]: the dense decoder LM at full width (module docstring).
-    Returns the figures the kernels line carries."""
+    Returns the figures the kernels line carries; ``keep`` (a dict) gets
+    the phase's config, adapter, weights, Fisher, request and ssd spec, for
+    [shard]."""
     from repro_torch import bridge
     from repro_torch.api import ForgetRequest, QuantSpec, Unlearner, UnlearnSpec
     from repro_torch.configs import get as get_arch
@@ -1664,9 +1695,221 @@ def lm_phase(dev, rate, zero_counts, dampen_counts, fisher_counts):
         "lm_prefill_cache_rel_l2": dec["prefill_cache_rel_l2"],
         "lm_decode_seconds": dec["seconds"]})
     out["peak_gib"] = peak
+    if keep is not None:
+        keep.update(cfg=cfg, adapter=adapter, params=params, fisher=fisher,
+                    req=req, spec=spec, lssd=lssd, n_leaves=n_leaves)
     del params, fisher, lssd, lssd8, ficabu, runs, stored
     torch.cuda.empty_cache()
     return out
+
+
+def shard_phase(dev, card, zero_counts, dampen_counts, fisher_counts, sh):
+    """Phase 10, [shard]: sharded requests on [lm]'s weights (module
+    docstring). ``sh`` is [lm]'s ``keep``. Returns the figures the kernels
+    line carries, per precision."""
+    import shutil
+    import tempfile
+
+    from repro_torch import bridge
+    from repro_torch.api import QuantSpec, Unlearner
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.dist import execute as dx
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch.mesh import make_host_mesh
+
+    t_phase = time.perf_counter()
+    adapter, params, fisher, req, spec, lssd = (
+        sh[k] for k in ("adapter", "params", "fisher", "req", "spec",
+                        "lssd"))
+    L, n_leaves = adapter.n_layers, sh["n_leaves"]
+    stat_keys = ("stopped_at_l", "checkpoints_hit", "selected_per_layer",
+                 "forget_acc_trace", "macs", "macs_ssd", "macs_vs_ssd_pct")
+    mesh = make_host_mesh(device="cuda")
+    out = {"fp32": {}, "int8": {}}
+    try:
+        log(f"[shard] {mesh} on a one-rank {torch.distributed.get_backend()} "
+            f"process group; [lm]'s {sh['cfg'].name} weights, Fisher and "
+            f"8 x {LM_SEQ}-token request; {card}")
+        # one warm sharded session for the three requests (with_spec), the
+        # unsharded ones on [lm]'s warm session
+        base = Unlearner(adapter, fisher, spec("ssd"),
+                         device="cuda").shard(mesh)
+        int8_kw = {"precision": "int8", "quant": QuantSpec()}
+        cases = (("fp32 layerwise", "fp32", spec("ssd")),
+                 ("fp32 scanned", "fp32", spec("ssd", sweep_mode="scanned")),
+                 ("int8", "int8", spec("ssd", **int8_kw)))
+        zero_counts()                               # the [shard] path starts
+        kept = None
+        for name, path, sp in cases:
+            res = {}
+            for tag, unl in (("unsharded", lssd.with_spec(sp)),
+                             ("sharded", base.with_spec(sp))):
+                unl.forget(req, params=params)      # a first run, untimed
+                c0 = dampen_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                new, st = unl.forget(req, params=params)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                res[tag] = (new, st, tuple(b - a for a, b in
+                                           zip(c0, dampen_counts())), wall)
+            (nu, su, cu, wu), (ns, ss, cs, ws) = (res["unsharded"],
+                                                  res["sharded"])
+            specs = shd.spec_paths(sp.exec.param_pspecs(nu, mesh))
+            a, b = bridge.paths(nu), bridge.paths(ns)
+            bad = [k for k in a if not (
+                dx.is_dtensor(b[k])
+                and tuple(b[k].placements) == shd.placements(specs[k], mesh)
+                and torch.equal(bits(a[k]), bits(b[k].full_tensor())))]
+            diff = [k for k in stat_keys if su[k] != ss[k]]
+            mine = cs[:2] if path == "fp32" else cs[2:]
+            log(f"[shard] {name:14s} ssd: sharded == unsharded bit for bit "
+                f"on {len(a) - len(bad)} of {len(a)} stored leaves, stats "
+                f"{'equal' if not diff else diff}, stopped_at_l "
+                f"{ss['stopped_at_l']}, {ss['engine']['sweep_mode']}; "
+                f"launches {mine[0]} over {mine[1]} leaves (unsharded "
+                f"{cu}); warm wall {ws * 1e3:.1f} ms sharded, "
+                f"{wu * 1e3:.1f} ms unsharded")
+            if bad or diff or cu != cs or mine != (L, n_leaves) \
+                    or ss["engine"]["sweep_mode"] != su["engine"]["sweep_mode"]:
+                raise AssertionError(f"shard {name}: leaves {bad[:4]}, stats "
+                                     f"{diff}, launches {cs} vs {cu}")
+            key = name.replace(" ", "_")
+            out[path].update({
+                f"shard_{key}_launches_leaves": list(mine),
+                f"shard_{key}_warm_wall_ms": ws * 1e3,
+                f"shard_{key}_unsharded_warm_wall_ms": wu * 1e3})
+            if name == "fp32 layerwise":
+                kept = (ns, nu)
+        counts = dampen_counts()                    # the [shard] path ends
+        out["fp32"]["shard_launches"] = counts[0]
+        out["int8"]["shard_launches"] = counts[2]
+        if fisher_counts() != (0, 0, 0, 0):
+            raise AssertionError(f"shard requests launched fimd/gemm/rowscale "
+                                 f"{fisher_counts()}")
+        # the elastic restore: the sharded result saved, restored onto the
+        # mesh by sharding_fn, bit for bit
+        ns, nu = kept
+        specs = shd.spec_paths(spec("ssd").exec.param_pspecs(nu, mesh))
+        (ROOT / "build").mkdir(exist_ok=True)
+        tmp = Path(tempfile.mkdtemp(prefix="shard_", dir=ROOT / "build"))
+        try:
+            t0 = time.perf_counter()
+            ckpt.save(str(tmp), 1, ns)
+            t_save = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            got, _ = ckpt.restore(str(tmp), 1, nu, device="cuda",
+                                  sharding_fn=lambda p: (mesh, specs[p]))
+            torch.cuda.synchronize()
+            t_restore = time.perf_counter() - t0
+            size = sum(f.stat().st_size for f in tmp.rglob("*") if f.is_file())
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        a, b = bridge.paths(nu), bridge.paths(got)
+        bad = [k for k in a if not (
+            tuple(b[k].placements) == shd.placements(specs[k], mesh)
+            and torch.equal(bits(a[k]), bits(b[k].full_tensor())))]
+        if bad:
+            raise AssertionError(f"shard restore: {bad[:4]} differ")
+        log(f"[shard] checkpoint of the sharded fp32 result ({size} bytes) "
+            f"saved in {t_save:.1f} s, restored with sharding_fn onto the "
+            f"mesh in {t_restore:.1f} s: all {len(a)} leaves DTensors with "
+            f"their placements, bit for bit")
+        out["fp32"].update({"shard_checkpoint_bytes": size,
+                            "shard_save_seconds": t_save,
+                            "shard_restore_seconds": t_restore})
+        del base, kept, ns, nu, got
+    finally:
+        mesh.close()
+    secs = time.perf_counter() - t_phase
+    out["fp32"]["shard_phase_seconds"] = secs
+    log(f"[shard] phase done in {secs:.1f} s; the process group destroyed")
+    return out
+
+
+# the [cache] phase's traffic: 4 requests of 8 prompt tokens, 4 generated,
+# one forget after batch 1 (the CPU tests' serve traffic) on a fleet of two
+# gemma3-1b SMOKE tenants (the CLI serves SMOKE) whose specs set use_kernel
+CACHE_SEEDS = (0, 1)
+CACHE_TRAFFIC = ("--requests", "4", "--prompt-len", "8", "--gen-len", "4")
+_CACHE_RUN = (
+    "import runpy, sys, torch\n"
+    "torch.use_deterministic_algorithms(True, warn_only=True)\n"
+    "sys.argv = ['serve'] + sys.argv[1:]\n"
+    "runpy.run_module('repro_torch.launch.serve', run_name='__main__')\n")
+
+
+def cache_phase(card):
+    """Phase 11, [cache]: two cold starts of ``serve --fleet --cache-dir``
+    on one cache dir (module docstring). Each start is ``python -m
+    repro_torch.launch.serve`` (``runpy.run_module`` as ``__main__``) under
+    deterministic algorithms, as [fleet] runs, so that the fleet's solo
+    replay gate can hold bit for bit. Returns the figures the kernels line
+    carries."""
+    import shutil
+    import tempfile
+
+    from repro_torch.api import UnlearnSpec
+    from repro_torch.launch import serve as S
+
+    t_phase = time.perf_counter()
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="cache_", dir=ROOT / "build"))
+    cdir = tmp / "cache"
+    tspec = UnlearnSpec.for_mode("ficabu", chunk_size=4, use_kernel=True,
+                                 sweep_mode="scanned").to_dict()
+    fleet = {"tenants": [{"name": f"k{s}", "arch": LM_ARCH, "seed": s,
+                          "spec": tspec} for s in CACHE_SEEDS],
+             "serve": {"chunk_size": 4}}
+    (tmp / "fleet.json").write_text(json.dumps(fleet))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    runs = []
+    try:
+        for i in (1, 2):
+            res = tmp / f"run{i}.json"
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-c", _CACHE_RUN, "--fleet",
+                 str(tmp / "fleet.json"), "--cache-dir", str(cdir),
+                 "--check", "--device", "cuda", "--out", str(res),
+                 *CACHE_TRAFFIC],
+                cwd=ROOT, env=env, capture_output=True, text=True,
+                timeout=600)
+            secs = time.perf_counter() - t0
+            if proc.returncode != 0:
+                raise AssertionError(
+                    f"cache run {i} exited {proc.returncode}: "
+                    f"{proc.stderr[-3000:]} {proc.stdout[-2000:]}")
+            info = json.loads(res.read_text())["compilation_cache"]
+            runs.append((secs, info))
+            log(f"[cache] start {i}: serve --fleet --cache-dir --check exit 0 "
+                f"in {secs:.1f} s; entries before {info['entries_before']}, "
+                f"new {info['entries_new']}; "
+                f"{sorted(p.name for p in cdir.glob('*.so'))}")
+        (s1, c1), (s2, c2) = runs
+        if not (c1["entries_before"] == 0 and c1["entries_new"] >= 1):
+            raise AssertionError(f"cache start 1 built nothing: {c1}")
+        if not (c2["entries_before"] >= 1 and c2["entries_new"] == 0):
+            raise AssertionError(f"cache start 2 rebuilt: {c2}")
+        # the negative control: the gate fed the warm cache plus one more
+        # finished library
+        n = S.compilation_cache_entries(str(cdir))
+        (cdir / "libficabu_extra-0000000000000000.so").write_bytes(b"\0")
+        problems = S.cache_problems(S.cache_info_since(str(cdir), n))
+        if not problems:
+            raise AssertionError("cache gate missed an added library")
+        log(f"[cache] negative control: the gate on a warm cache plus one "
+            f"finished library reports {problems}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    secs = time.perf_counter() - t_phase
+    log(f"[cache] phase done in {secs:.1f} s; {card}")
+    return {"cache_start_seconds": [s1, s2],
+            "cache_entries_before_new": [[c1["entries_before"],
+                                          c1["entries_new"]],
+                                         [c2["entries_before"],
+                                          c2["entries_new"]]],
+            "cache_phase_seconds": secs}
 
 
 def split_by_dtype(tables):
@@ -1684,7 +1927,7 @@ def split_by_dtype(tables):
 
 def rec_model(arch, n_layers, n_seq, every, alpha, want, dev, rate,
               counters):
-    """One model of the [recurrent] phase (module docstring, phase 10):
+    """One model of the [recurrent] phase (module docstring, phase 12):
     built at full width from a seeded CUDA generator, its layer tables
     through the group kernels against their plain versions, then its
     requests with the dampen counters zeroed before and read after. Returns
@@ -2127,7 +2370,7 @@ REC_MODELS = (
 
 
 def recurrent_phase(dev, rate, zero_counts, dampen_counts, fisher_counts):
-    """Phase 10, [recurrent]: the recurrent LMs (module docstring). Returns
+    """Phase 12, [recurrent]: the recurrent LMs (module docstring). Returns
     the figures the kernels line carries and the largest |err| per
     kernel."""
     t_phase = time.perf_counter()
@@ -2163,7 +2406,7 @@ DENSE_LONG_SEQ = 2048
 
 
 def dense_phase(dev, rate, zero_counts, dampen_counts, fisher_counts):
-    """Phase 11, [dense]: the dense GQA LM at full width and a cut depth
+    """Phase 13, [dense]: the dense GQA LM at full width and a cut depth
     (module docstring). Returns the figures the kernels line carries and
     the largest |err| per kernel."""
     from repro_torch import bridge
@@ -2594,7 +2837,7 @@ MOE_ALPHA = 800.0
 
 
 def moe_phase(dev, rate, zero_counts, dampen_counts, fisher_counts):
-    """Phase 12, [moe]: the MoE LM at full width and a cut depth (module
+    """Phase 14, [moe]: the MoE LM at full width and a cut depth (module
     docstring). Returns the figures the kernels line carries and the
     largest |err| per kernel."""
     from repro_torch import bridge
@@ -3077,7 +3320,7 @@ ENCDEC_ALPHA = 25.0
 
 
 def encdec_phase(dev, rate, zero_counts, dampen_counts, fisher_counts):
-    """Phase 13, [encdec]: the encoder-decoder at full width (module
+    """Phase 15, [encdec]: the encoder-decoder at full width (module
     docstring). Returns the figures the kernels line carries and the
     largest |err| per kernel."""
     from repro_torch import bridge
@@ -3452,7 +3695,9 @@ def encdec_phase(dev, rate, zero_counts, dampen_counts, fisher_counts):
     return out, gerr
 
 
-# the [serve] phase: gemma3-1b FULL served through the port's batch-mode
+# the [serve] phase: gemma3-1b at full width and SERVE_BLOCKS of its 26
+# blocks (the cut that pays for [shard] and [cache]: PERF.md section 4)
+# served through the port's batch-mode
 # serving loop (``repro_torch.launch.serve``) as ``serve.main`` builds it:
 # make_lm_domains, 4 domains x 16 sequences of 128 + 32 tokens (at the LM
 # phases' data vocabulary: serve.main's cfg.vocab would make four 65,536 x
@@ -3462,6 +3707,8 @@ def encdec_phase(dev, rate, zero_counts, dampen_counts, fisher_counts):
 # lambda 1, tau 0.6, checkpoints every 2 layers, chunk 4, and a refresh of
 # 2 retain microbatches at decay 0.5 after every drain
 SERVE_ARCH = "gemma3-1b"
+SERVE_BLOCKS = 12
+SERVE_WANT = LM_WANT[:2]        # (parameters, stored leaves) at 12 blocks
 SERVE_PROMPT = 128
 SERVE_GEN = 32
 SERVE_REQUESTS = 8
@@ -3484,20 +3731,17 @@ def deterministic_algorithms():
         torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
 
 
-def serve_phase(dev, rate, zero_counts, dampen_counts, fisher_counts,
-                keep=None):
-    """Phase 14, [serve]: the streamed Fisher refresh and the serving loop
-    at full width (module docstring), under deterministic algorithms.
-    Returns the figures the kernels line carries; ``keep`` (a dict) gets
-    the phase's config, weights, data and the tokens generate gave batch 0,
-    for [stream]."""
+def serve_phase(dev, rate, zero_counts, dampen_counts, fisher_counts):
+    """Phase 16, [serve]: the streamed Fisher refresh and the serving loop
+    at full width and SERVE_BLOCKS blocks (module docstring), under
+    deterministic algorithms. Returns the figures the kernels line
+    carries."""
     with deterministic_algorithms():
         return _serve_phase(dev, rate, zero_counts, dampen_counts,
-                            fisher_counts, keep)
+                            fisher_counts)
 
 
-def _serve_phase(dev, rate, zero_counts, dampen_counts, fisher_counts,
-                 keep=None):
+def _serve_phase(dev, rate, zero_counts, dampen_counts, fisher_counts):
     import dataclasses
     import types
 
@@ -3515,12 +3759,12 @@ def _serve_phase(dev, rate, zero_counts, dampen_counts, fisher_counts,
     t_phase = time.perf_counter()
     gib = 2.0 ** 30
     torch.cuda.reset_peak_memory_stats()
-    cfg = get_arch(SERVE_ARCH).full
+    cfg = get_arch(SERVE_ARCH).full.with_(n_layers=SERVE_BLOCKS)
     params = LM.init_lm(torch.Generator(device=dev).manual_seed(SEED), cfg,
                         device="cuda")
     stored = bridge.paths(params)
     n_params = sum(t.numel() for t in stored.values())
-    if (n_params, len(stored)) != (999_812_736, 74):
+    if (n_params, len(stored)) != SERVE_WANT:
         raise AssertionError(f"serve {cfg.name}: {n_params} parameters in "
                              f"{len(stored)} stored leaves")
     seq_len = SERVE_PROMPT + SERVE_GEN
@@ -3531,7 +3775,8 @@ def _serve_phase(dev, rate, zero_counts, dampen_counts, fisher_counts,
                for i in range(0, len(tokens) - SERVE_REQUESTS,
                               SERVE_REQUESTS)][:SERVE_BATCHES]
     before = {k: v.clone() for k, v in stored.items()}
-    log(f"[serve] {cfg.name} FULL from torch.Generator('cuda') seed {SEED}: "
+    log(f"[serve] {cfg.name} at full width and {cfg.n_layers} of 26 blocks "
+        f"from torch.Generator('cuda') seed {SEED}: "
         f"{n_params} parameters in {len(stored)} stored leaves; "
         f"make_lm_domains (vocab {LM_DATA_VOCAB}, 4 domains x 16, "
         f"{seq_len} tokens); {len(batches)} batches of {SERVE_REQUESTS} "
@@ -3859,16 +4104,16 @@ def _serve_phase(dev, rate, zero_counts, dampen_counts, fisher_counts,
         "serve_warm_drain_dampen_bound_ms": bound,
         "serve_guarded_seconds": gsecs,
         "serve_peak_gib": peak, "serve_phase_seconds": secs})
-    if keep is not None:
-        keep.update(cfg=cfg, params=params, tokens=tokens, domains=domains,
-                    seq_len=seq_len, gen0=runs["fp32"]["fig"]["outs"][0])
     del params, stored, runs
     torch.cuda.empty_cache()
     return out
 
 
-# [stream] (phase 15): the continuous-batching StreamEngine on [serve]'s
-# gemma3-1b FULL weights and data: the traffic of serve --serve-mode
+# [stream] (phase 17): the continuous-batching StreamEngine on gemma3-1b
+# FULL weights and data of its own (the 26 blocks [serve] ran before it was
+# cut to SERVE_BLOCKS: at 12 blocks the near-tie gate below, calibrated at
+# 26, met a grouping flip at a top-2 gap of 0.0163, PERF.md section 6):
+# the traffic of serve --serve-mode
 # stream (3 x 8 = 24 sequences of SERVE_PROMPT tokens, SERVE_GEN generated
 # each), 8 decode slots, admission in chunks of 4 with a prefill block of
 # 8, bursts "1,2;3,2" due at engine steps 32 and 64 (SERVE_AFTER + k times
@@ -3887,9 +4132,8 @@ STREAM_TIE_GAP = 1e-2
 
 
 def serve_weights(dev):
-    """[serve]'s config, weights, data and the tokens ``generate`` gives
-    its batch 0, built anew (the serving phases without [serve] before
-    them)."""
+    """[stream]'s config (gemma3-1b FULL), weights and data, seeded as
+    [serve]'s, and the tokens ``generate`` gives its batch 0."""
     from repro_torch.configs import get as get_arch
     from repro_torch.data import synthetic as syn
     from repro_torch.launch import serve as S
@@ -3912,14 +4156,13 @@ def serve_weights(dev):
             "domains": domains, "seq_len": seq_len, "gen0": gen0}
 
 
-def stream_phase(dev, rate, zero_counts, dampen_counts, fisher_counts,
-                 shared=None):
-    """Phase 15, [stream] (module docstring), under deterministic
-    algorithms, on ``shared`` ([serve]'s ``keep``) or on weights built
-    anew. Returns the figures the kernels line carries."""
+def stream_phase(dev, rate, zero_counts, dampen_counts, fisher_counts):
+    """Phase 17, [stream] (module docstring), under deterministic
+    algorithms, on ``serve_weights``. Returns the figures the kernels line
+    carries."""
     with deterministic_algorithms():
         return _stream_phase(dev, rate, zero_counts, dampen_counts,
-                             fisher_counts, shared or serve_weights(dev))
+                             fisher_counts, serve_weights(dev))
 
 
 def _stream_phase(dev, rate, zero_counts, dampen_counts, fisher_counts,
@@ -3953,7 +4196,8 @@ def _stream_phase(dev, rate, zero_counts, dampen_counts, fisher_counts,
                      publish="step", max_batch=STREAM_BATCH,
                      admit_chunk=STREAM_ADMIT, publish_lag=STREAM_LAG)
     log(f"[stream] {cfg.name} FULL ({cfg.n_layers} blocks, {len(stored)} "
-        f"stored leaves), [serve]'s weights and data: {n_seq} sequences of "
+        f"stored leaves), weights and data seeded as [serve]'s: {n_seq} "
+        f"sequences of "
         f"{SERVE_PROMPT} prompt tokens, {SERVE_GEN} generated each, "
         f"{STREAM_BATCH} slots, admission chunks of {STREAM_ADMIT} "
         f"(prefill block {STREAM_PREFILL}), bursts {SERVE_BURSTS} fired at "
@@ -4101,7 +4345,8 @@ def _stream_phase(dev, rate, zero_counts, dampen_counts, fisher_counts,
         f"tree ({len(stored)} leaves), the Fisher, all {n_seq} sequences' "
         f"tokens; engine fingerprints equal ({kernel['fingerprint'][:16]})")
     # the first wave (batch 0's prompts, done before the first
-    # publication) against [serve]'s generate of batch 0. The engine
+    # publication) against generate of batch 0 on the same weights. The
+    # engine
     # prefills them in admission chunks of STREAM_ADMIT rows where generate
     # prefills all 8 at once: a [4 x 8, D] product sums in another order
     # than an [8 x 8, D] one, so a bf16 rounding may land on the other side
@@ -4182,7 +4427,7 @@ def _stream_phase(dev, rate, zero_counts, dampen_counts, fisher_counts,
                                  f"beyond the grouping: {flips}, rel {rel}")
         del lg_gen, lg_rep
     log(f"[stream] the first {SERVE_REQUESTS} sequences (batch 0's prompts, "
-        f"generated before the first publication) == [serve]'s generate of "
+        f"generated before the first publication) == generate of "
         f"batch 0 in {SERVE_REQUESTS - len(rows)} of {SERVE_REQUESTS} rows"
         + (f"; the others first differ at (row, position, generate's "
            f"top-2 gap) {[f[:3] for f in flips]}, the engine's grouping "
@@ -4265,7 +4510,7 @@ def _stream_phase(dev, rate, zero_counts, dampen_counts, fisher_counts,
         "stream_peak_gib": peak, "stream_phase_seconds": secs}
 
 
-# [fleet] (phase 16), [recover] (17) and [load] (18): --fleet's loop on two
+# [fleet] (phase 18), [recover] (19) and [load] (20): --fleet's loop on two
 # gemma3-1b FULL tenants (seeds 0 and 1: one family) with the reference
 # CLI's traffic, built by the card's own builder (data at LM_DATA_VOCAB)
 FLEET_SPEC = {"tenants": [{"name": "t0", "arch": SERVE_ARCH, "seed": 0},
@@ -4304,7 +4549,7 @@ def card_lm_tenant(tspec, seq_len, n_layers=None, n_per_domain=16):
 
 
 def fleet_phase(dev, zero_counts, dampen_counts, fisher_counts):
-    """Phase 16, [fleet]: ``serve.run_fleet`` and every gate of
+    """Phase 18, [fleet]: ``serve.run_fleet`` and every gate of
     ``fleet_check_problems`` (module docstring), under deterministic
     algorithms."""
     import types
@@ -4403,7 +4648,7 @@ print("UNREACHABLE", flush=True)
 
 
 def recover_phase(dev):
-    """Phase 17, [recover]: the reference's kill-mid-drain scenario on the
+    """Phase 19, [recover]: the reference's kill-mid-drain scenario on the
     card (module docstring), under deterministic algorithms."""
     import shutil
     import tempfile
@@ -4499,7 +4744,7 @@ def recover_phase(dev):
 
 
 def load_phase(dev):
-    """Phase 18, [load]: ``LoadHarness`` twice on freshly built [fleet]-
+    """Phase 20, [load]: ``LoadHarness`` twice on freshly built [fleet]-
     like fleets and ``report --slo`` (module docstring), under
     deterministic algorithms."""
     import shutil
@@ -4594,7 +4839,7 @@ TRAIN_CODEC_RTOL = 1e-6
 
 
 def train_phase(dev, card, zero_counts, dampen_counts, fisher_counts):
-    """Phase 19, [train]: ``repro_torch.launch.train`` on gemma3-1b at full
+    """Phase 21, [train]: ``repro_torch.launch.train`` on gemma3-1b at full
     width (module docstring), under deterministic algorithms. Returns the
     figures the kernels line carries."""
     import math
@@ -5585,9 +5830,20 @@ def main() -> int:
 
     # 9. [lm]: the dense decoder LM at full width, fp32 (bf16 weights) and
     # int8, layerwise and scanned, and a K = 2 drain
-    lm = lm_phase(dev, rate, zero_counts, dampen_counts, fisher_counts)
+    lm_keep = {}
+    lm = lm_phase(dev, rate, zero_counts, dampen_counts, fisher_counts,
+                  keep=lm_keep)
 
-    # 10. [recurrent]: xlstm-125m (4 blocks) and recurrentgemma-9b (3
+    # 10. [shard]: sharded requests on [lm]'s weights on the 1x1 mesh of a
+    # one-rank NCCL group, == unsharded, and the elastic restore;
+    # 11. [cache]: two cold starts of serve --fleet on one cache dir
+    sharded = shard_phase(dev, smi, zero_counts, dampen_counts,
+                          fisher_counts, lm_keep)
+    lm_keep.clear()
+    torch.cuda.empty_cache()
+    cached = cache_phase(smi)
+
+    # 12. [recurrent]: xlstm-125m (4 blocks) and recurrentgemma-9b (3
     # blocks) at full width, fp32 (bf16 weights) and int8, layerwise and
     # scanned
     rec, rec_err = recurrent_phase(dev, rate, zero_counts, dampen_counts,
@@ -5595,52 +5851,51 @@ def main() -> int:
     for k in gmax_err:
         gmax_err[k] = max(gmax_err[k], rec_err[k])
 
-    # 11. [dense]: yi-6b at full width and 4 of its 32 blocks, fp32 (bf16
+    # 13. [dense]: yi-6b at full width and 4 of its 32 blocks, fp32 (bf16
     # weights) and int8, layerwise and scanned, and a 2048-token request
     dense, dense_err = dense_phase(dev, rate, zero_counts, dampen_counts,
                                    fisher_counts)
     for k in gmax_err:
         gmax_err[k] = max(gmax_err[k], dense_err[k])
 
-    # 12. [moe]: llama4-scout at full width and 1 of its 48 blocks, fp32
+    # 14. [moe]: llama4-scout at full width and 1 of its 48 blocks, fp32
     # (bf16 weights, the f32 router) and int8, layerwise and scanned
     moe, moe_err = moe_phase(dev, rate, zero_counts, dampen_counts,
                              fisher_counts)
     for k in gmax_err:
         gmax_err[k] = max(gmax_err[k], moe_err[k])
 
-    # 13. [encdec]: whisper-tiny FULL, fp32 (bf16 weights) and int8, the
+    # 15. [encdec]: whisper-tiny FULL, fp32 (bf16 weights) and int8, the
     # layerwise loop (scanned has no plan), a K = 2 drain, and decode
     encdec, encdec_err = encdec_phase(dev, rate, zero_counts, dampen_counts,
                                       fisher_counts)
     for k in gmax_err:
         gmax_err[k] = max(gmax_err[k], encdec_err[k])
 
-    # 14. [serve]: gemma3-1b FULL through the serving loop, the streamed
-    # Fisher refresh, the kernel fleet, layerwise and a guarded abort
-    shared = {}
-    served = serve_phase(dev, rate, zero_counts, dampen_counts, fisher_counts,
-                         keep=shared)
+    # 16. [serve]: gemma3-1b (12 blocks) through the serving loop, the
+    # streamed Fisher refresh, the kernel fleet, layerwise and a guarded
+    # abort
+    served = serve_phase(dev, rate, zero_counts, dampen_counts,
+                         fisher_counts)
 
-    # 15. [stream]: the StreamEngine on [serve]'s weights, kernel == plain;
-    # 16. [fleet]: --fleet's loop and gates; 17. [recover]: a SIGKILLed
-    # drain recovered; 18. [load]: the load harness and report --slo
+    # 17. [stream]: the StreamEngine on gemma3-1b FULL, kernel == plain;
+    # 18. [fleet]: --fleet's loop and gates; 19. [recover]: a SIGKILLed
+    # drain recovered; 20. [load]: the load harness and report --slo
     streamed = stream_phase(dev, rate, zero_counts, dampen_counts,
-                            fisher_counts, shared)
-    shared.clear()
+                            fisher_counts)
     torch.cuda.empty_cache()
     streamed.update(fleet_phase(dev, zero_counts, dampen_counts,
                                 fisher_counts))
     streamed.update(recover_phase(dev))
     streamed.update(load_phase(dev))
 
-    # 19. [train]: the train launcher on gemma3-1b at full width and 6 of
+    # 21. [train]: the train launcher on gemma3-1b at full width and 6 of
     # its 26 blocks: resume, the mid-run forget replayed with the kernel,
     # the int8 codec
     streamed.update(train_phase(dev, smi, zero_counts, dampen_counts,
                                 fisher_counts))
 
-    # 20. times at the main paths' shapes. The sweep as a request launches
+    # 22. times at the main paths' shapes. The sweep as a request launches
     # it: one grouped launch per layer, back to front, on the layers' own
     # tensors against the global Fisher; beside it the same 56 leaves one
     # launch each, as the request launched them before the grouped kernel
@@ -6089,7 +6344,7 @@ def main() -> int:
         "vit_sweep_bound_ms": vbound["fp32"],
         **scanned_keys("fp32"), **lm["fp32"], **rec["fp32"],
         **dense["fp32"], **moe["fp32"], **encdec["fp32"],
-        **served["fp32"], **streamed,
+        **served["fp32"], **streamed, **sharded["fp32"], **cached,
         "max_abs_err": max(max_err, gmax_err["dampen"]),
         "ms": t["sweep_kernel"], "plain_ms": t["sweep_plain"],
         "bound_ms": bound["sweep"], "bound_by": "bytes",
@@ -6118,7 +6373,7 @@ def main() -> int:
         "vit_sweep_bound_ms": vbound["int8"],
         **scanned_keys("int8"), **lm["int8"], **rec["int8"],
         **dense["int8"], **moe["int8"], **encdec["int8"],
-        **served["int8"],
+        **served["int8"], **sharded["int8"],
         "max_abs_err": max(max_err8, gmax_err["dampen_int8"]),
         "ms": t8["sweep_kernel"], "plain_ms": t8["sweep_plain"],
         "bound_ms": bound8["sweep"], "bound_by": "bytes",

@@ -6,6 +6,7 @@
     unl = Unlearner(adapter, fisher_global, spec, device="cuda")
     params, stats = unl.forget(ForgetRequest(fx, fy), params=params)
 """
-from .facade import ForgetRequest, Unlearner  # noqa: F401
+from .facade import (ForgetRequest, Unlearner,  # noqa: F401
+                     compilation_cache_entries, enable_compilation_cache)
 from .specs import (MODES, DampenSpec, ExecSpec, HaltSpec,  # noqa: F401
                     QuantSpec, RefreshSpec, ServeSpec, UnlearnSpec)

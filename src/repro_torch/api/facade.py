@@ -16,14 +16,20 @@ The facade is bound to one device (``device=``, default ``"cuda"``; it
 raises without a card). Requests are ``ForgetRequest``s (or bare
 ``(inputs, labels)`` pairs of numpy arrays or tensors, moved to the
 device), served one at a time (``forget``) or as one coalesced sweep
-(``forget_group``); configuration is an ``UnlearnSpec``. Mesh placement
-(``shard``) and the persistent compilation cache are not ported yet
-(ROADMAP Queue 1, items "Distribution" and "The persistent compilation
-cache").
+(``forget_group``); configuration is an ``UnlearnSpec``.
+
+``shard(mesh)`` binds a device mesh (``repro_torch.launch.mesh``): from
+then on parameters, the Fisher and forget batches are stored as DTensors
+laid out by ``ExecSpec.param_pspecs`` / ``batch_pspec``, and every request
+runs as ``repro_torch.dist.execute`` describes (layer products gathered,
+the batch split over the data axes, dampening on local shards).
+``enable_compilation_cache`` points the kernel build directory, the port's
+persistent compilation cache, at a directory.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -31,8 +37,10 @@ import torch
 from repro_torch.core.cau import ModelAdapter, UnlearnConfig
 from repro_torch.core.fisher import diag_fisher
 from repro_torch.device import resolve_device
+from repro_torch.dist import execute as _dx
 from repro_torch.engine import (FisherStream, ProgramCache, RefreshPolicy,
                                 UnlearnSession, shape_signature)
+from repro_torch.kernels import build as _kbuild
 from repro_torch.models.module import tree_leaves, tree_map
 from repro_torch.obs import telemetry as _t
 
@@ -51,6 +59,24 @@ class ForgetRequest:
     tag: Optional[Any] = None
 
 
+def enable_compilation_cache(cache_dir: str) -> int:
+    """Make ``cache_dir`` (created if missing) the kernel build directory:
+    the port compiles nothing but its nvcc libraries, so a library is the
+    cache's entry. Returns the number of entries already on disk — a cold
+    process start with a warm cache should then add ZERO new entries (the
+    serve.py ``--check`` gate asserts exactly that). Idempotent for the
+    same dir; the cache is PROCESS-global, so pointing it somewhere else
+    after it was configured raises instead of silently repointing every
+    facade's cache."""
+    _kbuild.set_cache_dir(cache_dir)
+    return compilation_cache_entries(cache_dir)
+
+
+def compilation_cache_entries(cache_dir: str) -> int:
+    """Number of finished libraries currently in ``cache_dir``."""
+    return _kbuild.cache_entries(os.fspath(cache_dir))
+
+
 def _coerce_request(req) -> ForgetRequest:
     if isinstance(req, ForgetRequest):
         return req
@@ -62,8 +88,8 @@ def _coerce_request(req) -> ForgetRequest:
 
 
 class Unlearner:
-    """The unlearning service facade: ``forget`` / ``forget_group``, both
-    configured by one ``UnlearnSpec``.
+    """The unlearning service facade: ``forget`` / ``forget_group`` /
+    ``shard``, all configured by one ``UnlearnSpec``.
 
     >>> unl = Unlearner(adapter, fisher_global,
     ...                 UnlearnSpec.for_mode("ficabu"), device="cuda")
@@ -112,6 +138,7 @@ class Unlearner:
         self.spec = spec
         self.name: str = adapter.name if name is None else str(name)
         self._programs = programs
+        self.mesh = None
         self._fisher: Optional[Params] = None
         self._session: Optional[UnlearnSession] = None
         # streamed-Fisher refresh state (enable_fisher_refresh)
@@ -140,6 +167,8 @@ class Unlearner:
             self._fisher = session.fisher_global
         if fisher_global is not None:
             self.set_fisher(fisher_global)
+        if spec.exec.cache_dir is not None:
+            enable_compilation_cache(spec.exec.cache_dir)
 
     def _owner_desc(self) -> str:
         """Who this facade's Fisher/session belong to, for error messages:
@@ -175,6 +204,8 @@ class Unlearner:
                 "tenant's/model's Fisher. Refresh Fisher VALUES with the "
                 "same structure, or build a new Unlearner for the new "
                 "model.")
+        if self.mesh is not None:
+            tree = self.place_params(tree)  # same layout rule as params
         self._fisher = tree
         if self._session is not None:
             self._session.fisher_global = tree
@@ -313,6 +344,8 @@ class Unlearner:
         sess = self._ensure_session()
         comp0, hits0 = (sess.stats["refresh_compiles"],
                         sess.stats["refresh_hits"])
+        if self.mesh is not None:
+            params = self.place_params(params)
         # the budgeted microbatches enter with EQUAL weight: a running mean
         # (per-fold decay i/(i+1); the first fold's decay 0 discards the
         # seed, a protected copy of the installed tree when the step
@@ -323,6 +356,7 @@ class Unlearner:
             batch = self._refresh_batches[
                 self._refresh_cursor % len(self._refresh_batches)]
             self._refresh_cursor += 1
+            batch = self.place_batch(batch)
             fresh_mean = self._stream.fold_into(
                 fresh_mean, params, batch, decay=folded / (folded + 1))
             folded += 1
@@ -380,11 +414,16 @@ class Unlearner:
             # fault-injection scoping: tenant-named facades key FaultSpecs
             # by tenant, not by adapter family
             self._session.fault_scope = self.name
+        # the scanned program lays its per-layer stack out by the
+        # dist.sharding rules: hand the session the mesh + layout mode
+        if self.mesh is not None:
+            self._session.mesh = self.mesh
+            self._session.mesh_sharding = self.spec.exec.sharding
         return self._session
 
     def with_spec(self, spec: UnlearnSpec) -> "Unlearner":
-        """A sibling facade over the SAME adapter, Fisher and warm session,
-        with a different request configuration — e.g. one deployment
+        """A sibling facade over the SAME adapter, Fisher, warm session and
+        mesh, with a different request configuration — e.g. one deployment
         running "ssd" (baseline) and "ficabu" requests against one step
         cache. The session's ``donate`` setting stays as first
         configured. The streamed-refresh stream is NOT shared — exactly one
@@ -392,9 +431,74 @@ class Unlearner:
         sess = self._session
         if sess is None and self._fisher is not None:
             sess = self._ensure_session()
-        return Unlearner(self.adapter, self._fisher, spec, session=sess,
-                         programs=None if sess is not None else self._programs,
-                         name=self.name, device=self.device)
+        sib = Unlearner(self.adapter, self._fisher, spec, session=sess,
+                        programs=None if sess is not None else self._programs,
+                        name=self.name, device=self.device)
+        if self.mesh is not None:
+            sib.shard(self.mesh)
+        return sib
+
+    # -- mesh execution -----------------------------------------------------
+    def shard(self, mesh) -> "Unlearner":
+        """Bind a device mesh (``repro_torch.launch.mesh.Mesh``): from here
+        on every request's parameters and forget batches are stored as
+        DTensors laid out by ``ExecSpec.param_pspecs`` / ``batch_pspec``
+        before the sweep, and the stored Fisher is placed immediately. A
+        sharded request returns its parameters as DTensors with the same
+        placements (``repro_torch.dist.execute`` says how it computes)."""
+        if mesh is None:
+            raise ValueError("shard(mesh) needs a repro_torch.launch.mesh."
+                             "Mesh; to drop mesh placement build a new "
+                             "Unlearner")
+        axes = self.spec.exec.mesh_axes
+        if axes is not None:
+            missing = [a for a in axes if a not in mesh.shape]
+            if missing:
+                raise ValueError(
+                    f"ExecSpec.mesh_axes {axes} not all present on the mesh "
+                    f"(axes {tuple(mesh.shape)}): missing {missing}")
+        if mesh.device_type != self.device.type:
+            raise ValueError(
+                f"this Unlearner runs on {self.device}, but the mesh spans "
+                f"{mesh.device_type!r} devices; build both for one device")
+        self.mesh = mesh
+        if self._session is not None:
+            self._session.mesh = mesh
+            self._session.mesh_sharding = self.spec.exec.sharding
+        if self._fisher is not None:
+            self.set_fisher(self._fisher)  # re-place on the new mesh
+        return self
+
+    def _place(self, x: torch.Tensor, spec) -> torch.Tensor:
+        from repro_torch.dist.sharding import placements
+        dm = self.mesh.device_mesh
+        pl = placements(spec, self.mesh)
+        if _dx.is_dtensor(x) and x.device_mesh == dm \
+                and tuple(x.placements) == pl:
+            return x
+        return _dx.place(torch.as_tensor(x, device=self.device), dm, pl)
+
+    def place_params(self, params: Params) -> Params:
+        """Store a parameter tree as DTensors by this facade's layout rule
+        (no-op without a mesh)."""
+        if self.mesh is None:
+            return params
+        specs = self.spec.exec.param_pspecs(params, self.mesh)
+        return tree_map(self._place, params, specs)
+
+    def place_batch(self, batch):
+        """Store a [B, ...] batch tree as DTensors with the DP layout (no-op
+        without a mesh)."""
+        if self.mesh is None:
+            return batch
+
+        def one(x):
+            x = torch.as_tensor(x, device=self.device)
+            ps = self.spec.exec.batch_pspec(self.mesh, int(x.shape[0]),
+                                            x.ndim)
+            return self._place(x, ps)
+
+        return tree_map(one, batch)
 
     # -- the API ------------------------------------------------------------
     def forget(self, request, *, params: Params,
@@ -412,6 +516,9 @@ class Unlearner:
         cfg = self.spec.to_config() if cfg is None else cfg
         inputs = torch.as_tensor(req.inputs, device=self.device)
         labels = torch.as_tensor(req.labels, device=self.device)
+        if self.mesh is not None:
+            params = self.place_params(params)
+            inputs, labels = self.place_batch((inputs, labels))
         new_params, stats = sess.forget(params, inputs, labels, cfg)
         stats["mode"] = self.spec.mode
         if req.tag is not None:
@@ -439,6 +546,11 @@ class Unlearner:
         sets = [(torch.as_tensor(r.inputs, device=self.device),
                  torch.as_tensor(r.labels, device=self.device))
                 for r in reqs]
+        if self.mesh is not None:
+            params = self.place_params(params)
+            if reference is not None:
+                reference = self.place_params(reference)
+            sets = [self.place_batch(st) for st in sets]
         new_params, stats_k, group_stats = sess.forget_many(
             params, sets, cfg, reference=reference)
         for r, st in zip(reqs, stats_k):

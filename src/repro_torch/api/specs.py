@@ -25,11 +25,11 @@ the engine-level ``core.cau.UnlearnConfig`` with the reference's mode
 mapping. ``ServeSpec`` is the serving deployment's configuration and lowers
 to an ``UnlearnSpec``.
 
-Not ported yet: mesh placement (``ExecSpec.mesh_axes``) and the persistent
-compilation cache (``ExecSpec.cache_dir`` / ``ServeSpec.cache_dir``), the
-ROADMAP Queue 1 items "Distribution" and "The persistent compilation
-cache". The fields exist so that the reference's JSON reads here; a value
-other than None raises.
+``ExecSpec.mesh_axes`` / ``sharding`` name the mesh layout policy; the
+concrete specs come from ``repro_torch.dist.sharding`` once a mesh exists
+(``Unlearner.shard``). ``cache_dir`` points the kernel build directory, the
+port's persistent compilation cache, at a directory
+(``repro_torch.api.enable_compilation_cache``).
 """
 from __future__ import annotations
 
@@ -60,17 +60,6 @@ def _finite(x, name: str, *, positive: bool = False,
         _require(x > 0, f"{name} must be > 0, got {x!r}")
     if non_negative:
         _require(x >= 0, f"{name} must be >= 0, got {x!r}")
-
-
-# ROADMAP Queue 1's items, by title (a number would go stale when the
-# queue is renumbered)
-MESH_ITEM = "Distribution"
-CACHE_ITEM = "The persistent compilation cache"
-
-
-def _not_ported(what: str, item: str) -> ValueError:
-    return ValueError(f"{what} is not ported yet (ROADMAP Queue 1, item "
-                      f"{item!r})")
 
 
 def _from_dict(cls, d: Any, what: str):
@@ -239,18 +228,20 @@ class ExecSpec:
     request is a config contradiction and raises.
 
     ``guard`` (a ``repro_torch.robust.GuardSpec``) validates a drain's
-    edited tree before the fleet may publish it. ``mesh_axes`` and
-    ``cache_dir`` are not ported yet (ROADMAP Queue 1, items
-    "Distribution" and "The persistent compilation cache"): None only;
-    ``sharding`` names the reference's layout rule and is inert without a
-    mesh.
+    edited tree before the fleet may publish it.
+
+    ``mesh_axes``/``sharding`` name the layout policy only; the concrete
+    specs come from ``repro_torch.dist.sharding`` via ``param_pspecs`` /
+    ``batch_pspec`` once a mesh exists (``Unlearner.shard``). ``cache_dir``
+    makes a directory the kernel build directory, so a cold process start
+    loads the libraries built there instead of compiling them again.
     """
     chunk_size: int = 8
     use_kernel: bool = False          # CUDA dampening kernels
     donate: Optional[bool] = None     # None: no donation
-    mesh_axes: Optional[Tuple[str, ...]] = None  # not ported yet
-    sharding: str = "tp"              # the reference's layout rule
-    cache_dir: Optional[str] = None   # not ported yet
+    mesh_axes: Optional[Tuple[str, ...]] = None  # e.g. ("data", "model")
+    sharding: str = "tp"              # dist.sharding layout rule
+    cache_dir: Optional[str] = None   # the kernel build directory
     sweep_mode: str = "layerwise"     # "layerwise" | "scanned"
     precision: str = "fp32"           # "fp32" | "int8"
     quant: Optional[QuantSpec] = None  # int8 calibration (int8 only)
@@ -270,8 +261,12 @@ class ExecSpec:
                  f"ExecSpec.donate must be None (no donation) or a bool, "
                  f"got {self.donate!r}")
         if self.mesh_axes is not None:
-            raise _not_ported("ExecSpec.mesh_axes (mesh placement)",
-                              MESH_ITEM)
+            axes = self.mesh_axes
+            _require(isinstance(axes, (tuple, list)) and len(axes) >= 1
+                     and all(isinstance(a, str) and a for a in axes),
+                     f"ExecSpec.mesh_axes must be a non-empty tuple of axis "
+                     f"names, got {axes!r}")
+            object.__setattr__(self, "mesh_axes", tuple(axes))
         _require(self.sharding in _SHARDING_MODES,
                  f"ExecSpec.sharding must be one of {_SHARDING_MODES}, "
                  f"got {self.sharding!r}")
@@ -279,9 +274,6 @@ class ExecSpec:
                  (isinstance(self.cache_dir, str) and self.cache_dir),
                  f"ExecSpec.cache_dir must be None or a non-empty path, "
                  f"got {self.cache_dir!r}")
-        if self.cache_dir is not None:
-            raise _not_ported("ExecSpec.cache_dir (the persistent "
-                              "compilation cache)", CACHE_ITEM)
         _require(self.sweep_mode in SWEEP_MODES,
                  f"ExecSpec.sweep_mode must be one of {SWEEP_MODES} "
                  f'("scanned" lowers the whole sweep as one compiled '
@@ -308,6 +300,18 @@ class ExecSpec:
                  f"ExecSpec.guard must be None or a "
                  f"repro_torch.robust.GuardSpec (or a mapping of its fields), "
                  f"got {type(self.guard).__name__}")
+
+    # -- layout policy -> concrete specs (repro_torch.dist.sharding) --------
+    def param_pspecs(self, tree, mesh):
+        """Spec tree for a parameter/Fisher tree on ``mesh``, by this
+        spec's layout rule (divisibility-fitted)."""
+        from repro_torch.dist import sharding as shd
+        return shd.param_pspecs(tree, mesh, mode=self.sharding)
+
+    def batch_pspec(self, mesh, global_batch: int, ndim: int):
+        """Spec for a [B, ...] forget-batch tensor on ``mesh``."""
+        from repro_torch.dist import sharding as shd
+        return shd.batch_pspec(mesh, global_batch, ndim, mode=self.sharding)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -354,6 +358,8 @@ class UnlearnSpec:
                  c_m: Optional[float] = None, max_layers: Optional[int] = None,
                  chunk_size: int = 8, use_kernel: bool = False,
                  donate: Optional[bool] = None,
+                 mesh_axes: Optional[Tuple[str, ...]] = None,
+                 sharding: str = "tp",
                  cache_dir: Optional[str] = None,
                  sweep_mode: str = "layerwise",
                  precision: str = "fp32",
@@ -367,7 +373,8 @@ class UnlearnSpec:
             halt=HaltSpec(tau=tau, checkpoint_every=checkpoint_every,
                           max_layers=max_layers),
             exec=ExecSpec(chunk_size=chunk_size, use_kernel=use_kernel,
-                          donate=donate, cache_dir=cache_dir,
+                          donate=donate, mesh_axes=mesh_axes,
+                          sharding=sharding, cache_dir=cache_dir,
                           sweep_mode=sweep_mode, precision=precision,
                           quant=quant, guard=guard),
             refresh=refresh)
@@ -402,7 +409,11 @@ class UnlearnSpec:
 
     # -- JSON round trip ----------------------------------------------------
     def to_dict(self) -> Dict[str, Any]:
-        return dataclasses.asdict(self)
+        d = dataclasses.asdict(self)
+        ex = d["exec"]
+        if ex["mesh_axes"] is not None:
+            ex["mesh_axes"] = list(ex["mesh_axes"])
+        return d
 
     @classmethod
     def from_dict(cls, d: Any) -> "UnlearnSpec":
@@ -421,6 +432,9 @@ class UnlearnSpec:
                               ("exec", ExecSpec)):
             if name in d:
                 sub = d[name]
+                if name == "exec" and isinstance(sub, dict) \
+                        and sub.get("mesh_axes") is not None:
+                    sub = dict(sub, mesh_axes=tuple(sub["mesh_axes"]))
                 kw[name] = (sub if isinstance(sub, sub_cls)
                             else _from_dict(sub_cls, sub, name))
         if "refresh" in d:
@@ -458,9 +472,9 @@ class ServeSpec:
                         drains (0 = keep the one-shot I_D).
     ``sweep_mode``      engine drive loop ("scanned" megaprogram default).
     ``precision``       numeric path ("fp32" | "int8" program family).
-    ``cache_dir``       the persistent compilation cache: not ported yet
-                        (ROADMAP Queue 1, "The persistent compilation
-                        cache") — None only.
+    ``cache_dir``       the persistent compilation cache, the kernel
+                        build directory (process-global — a fleet shares
+                        ONE dir, see ``FleetSpec``).
     ``max_forget_samples``  per-request forget-batch cap (the serving
                         harness slices each domain's forget split to this).
     ``publish``         how a drain's edits reach the served weights:
@@ -532,9 +546,6 @@ class ServeSpec:
                  or (isinstance(self.cache_dir, str) and self.cache_dir),
                  f"ServeSpec.cache_dir must be None or a non-empty path, "
                  f"got {self.cache_dir!r}")
-        if self.cache_dir is not None:
-            raise _not_ported("ServeSpec.cache_dir (the persistent "
-                              "compilation cache)", CACHE_ITEM)
         _require(isinstance(self.max_forget_samples, int)
                  and not isinstance(self.max_forget_samples, bool)
                  and self.max_forget_samples >= 1,

@@ -15,9 +15,10 @@ either package writes restores in the other:
     ignored, so a crash mid-write is never resumed from; the
     ``ckpt_crash`` fault dies between the shard and META;
   * ``latest_step`` scans for the newest COMPLETE step;
-  * ``restore`` places the leaves on ``device`` in the dtypes of ``like``.
-    Elastic placement on a mesh (``sharding_fn``) needs the distribution
-    layer and raises "not ported yet".
+  * ``restore`` places the leaves on ``device`` in the dtypes of ``like``;
+    with ``sharding_fn`` each leaf becomes a DTensor on the CURRENT mesh
+    (elastic resharding: save on one mesh, restore on another). ``save``
+    writes a DTensor leaf whole (gathered).
 
 The train loop's unlearn journal (``journal_append`` / ``journal_read``)
 is here too. Serving durability lives in ``repro_torch.robust.wal``
@@ -35,10 +36,11 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.api.specs import MESH_ITEM, _not_ported
 from repro_torch.bridge import (_HWIO_TO_OIHW, _OIHW_TO_HWIO,
                                 is_conv_weight)
 from repro_torch.device import resolve_device
+from repro_torch.dist import execute as _dx
+from repro_torch.dist.sharding import placements
 from repro_torch.models.module import flatten_with_paths, tree_unflatten
 
 Params = Any
@@ -58,7 +60,7 @@ _NUMPY_DTYPES = (torch.float16, torch.float32, torch.float64, torch.int8,
 def _to_host(path: str, leaf):
     """(array as stored, the leaf's dtype name) in the reference's layout."""
     if isinstance(leaf, torch.Tensor):
-        t = leaf.detach()
+        t = _dx.gather(leaf).detach()
         arr = (t if t.dtype in _NUMPY_DTYPES else t.float()).cpu().numpy()
         if is_conv_weight(path, arr.ndim):
             arr = np.ascontiguousarray(arr.transpose(_OIHW_TO_HWIO))
@@ -132,10 +134,13 @@ def restore(ckpt_dir: str, step: int, like: Params, *,
             host_id: int = 0, device="cuda"):
     """Restore into the structure and dtypes of ``like`` as tensors on
     ``device`` (raises without a card unless device="cpu"). Returns
-    ``(tree, meta)``."""
-    if sharding_fn is not None:
-        raise _not_ported("restore(sharding_fn=...) (elastic placement on a "
-                          "mesh)", MESH_ITEM)
+    ``(tree, meta)``.
+
+    ``sharding_fn(path)`` maps a leaf path to its placement on the CURRENT
+    mesh: a ``(mesh, spec)`` pair, the spec a ``dist.sharding.P`` or a
+    sequence of DTensor placements, ``mesh`` a ``launch.mesh.Mesh`` on
+    ``device``. The leaf comes back as a DTensor holding this rank's part.
+    """
     dev = resolve_device(device)
     step_dir = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(step_dir, "META.json")) as f:
@@ -152,8 +157,21 @@ def restore(ckpt_dir: str, step: int, like: Params, *,
                     f"but the model expects {tuple(leaf.shape)} — the "
                     "checkpoint was written for a different "
                     "architecture/shape")
-            t = torch.from_numpy(arr).contiguous()
-            out.append(t.to(_torch_dtype(leaf)).to(dev))
+            t = torch.from_numpy(arr).contiguous().to(_torch_dtype(leaf))
+            if sharding_fn is None:
+                out.append(t.to(dev))
+                continue
+            mesh, spec = sharding_fn(path)
+            if mesh.device_type != dev.type:
+                raise ValueError(
+                    f"sharding_fn placed leaf {path!r} on a "
+                    f"{mesh.device_type!r} mesh, but restore runs on {dev}")
+            pl = (placements(spec, mesh) if all(
+                e is None or isinstance(e, (str, tuple)) for e in spec)
+                else tuple(spec))
+            dm = mesh.device_mesh
+            out.append(_dx.wrap(
+                _dx.local_slice(t, dm, pl).contiguous().to(dev), dm, pl, t))
     # flatten_with_paths and tree_unflatten share the sorted-key order
     return tree_unflatten(like, out), meta
 

@@ -25,6 +25,7 @@ from typing import Any, Callable, Iterable
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.dist import execute as _dx
 from repro_torch.models.module import tree_leaves, tree_map, tree_unflatten
 
 F32 = torch.float32
@@ -87,6 +88,13 @@ def fisher_tree(loss_fn: Callable[[Params, Any], torch.Tensor],
             "Fisher estimation needs at least one sample in the batch "
             "(leading dimension is 0 — check the retain split)")
     head = (n // chunk_size) * chunk_size
+    run = _dx.current()
+    if run is not None and run.dp > 1 and head != n:
+        raise ValueError(
+            f"a batch split over {run.dp} ranks gives each {n} rows, not a "
+            f"multiple of chunk_size {chunk_size}: a partial tail chunk "
+            f"cannot be weighted across ranks — pad the batch to a multiple "
+            f"of {run.dp * chunk_size}")
 
     def mean_sq_over(chunks_batch, cs):
         chunks = chunked(chunks_batch, cs)
@@ -100,6 +108,8 @@ def fisher_tree(loss_fn: Callable[[Params, Any], torch.Tensor],
             else:
                 tree_map(lambda t, x: t.addcmul_(x.to(F32), x.to(F32)),
                          total, g)
+        # a sharded request sums the ranks' partial sums first
+        nc = _dx.reduce_fisher_(tree_leaves(total), nc)
         return tree_map(lambda x: x / nc, total)
 
     if head == n:

@@ -18,6 +18,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch.dist import execute as _dx
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.dampen import dampen_int8_ref, dampen_ref
 from repro_torch.models.module import tree_leaves, tree_unflatten
@@ -32,6 +33,8 @@ def dampen_array(theta: torch.Tensor, i_f: torch.Tensor, i_g: torch.Tensor,
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Eqs. (3)+(4) on one tensor in plain PyTorch, on any device.
     Returns (new_theta, selected_mask)."""
+    if _dx.is_dtensor(theta):
+        return _dx.local_call(dampen_array, theta, i_f, i_g, alpha, lam)
     return dampen_ref(theta, i_f, i_g, kops.f32(alpha), kops.f32(lam))
 
 
@@ -53,6 +56,8 @@ def dampen_q8_array(theta_q: torch.Tensor, i_f: torch.Tensor,
     PyTorch (dequant-free: beta <= 1, so theta_q' = round(beta * theta_q)
     stays on the same grid and the scale table remains valid). Returns
     (new_q, selected_mask)."""
+    if _dx.is_dtensor(theta_q):
+        return _dx.local_call(dampen_q8_array, theta_q, i_f, i_g, alpha, lam)
     return dampen_int8_ref(theta_q, i_f, i_g, kops.f32(alpha), kops.f32(lam))
 
 
@@ -75,7 +80,8 @@ _EDITS = {"fp32": ("dampen_tree", kops.dampen_group, dampen_array),
 
 def dampen_tree_counted(precision: str, params: Params, fisher_f: Params,
                         fisher_g: Params, alpha: float, lam: float,
-                        use_kernel: bool = False, *, in_place: bool = False
+                        use_kernel: bool = False, *, in_place: bool = False,
+                        specs: Optional[List] = None
                         ) -> Tuple[Params, Params, Optional[torch.Tensor]]:
     """``dampen_tree`` (precision "fp32") or ``dampen_q8_tree`` ("int8"),
     plus the number of selected elements: (params', masks, n_selected).
@@ -84,7 +90,18 @@ def dampen_tree_counted(precision: str, params: Params, fisher_f: Params,
     f32 leaf, the RG-LRU's ``log_lambda``, goes in a call of its own), and
     ``n_selected`` is the sum of their int64 counts from the same passes;
     the plain path dampens leaf by leaf and returns ``n_selected`` None (sum
-    the masks). Either way the leaves come back in the tree's order."""
+    the masks). Either way the leaves come back in the tree's order.
+
+    Inside a sharded request (``repro_torch.dist.execute``) each rank
+    dampens its shards of the leaves — laid out by ``specs`` (one spec per
+    leaf, tree order) or by the parameter rule on this subtree — and the
+    whole edited leaves, the masks as DTensors and the count over the mesh
+    come back."""
+    run = _dx.current()
+    if run is not None:
+        return run.dampen_tree(dampen_tree_counted, precision, params,
+                               fisher_f, fisher_g, alpha, lam, use_kernel,
+                               in_place=in_place, specs=specs)
     name, group_fn, plain_fn = _EDITS[precision]
     flat_p = tree_leaves(params)
     flat_f = tree_leaves(fisher_f)

@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.fisher import fisher_tree
+from repro_torch.dist import execute as _dx
 from repro_torch.models.module import tree_leaves, tree_map
 
 from .fused import _note_trace, shape_signature
@@ -131,14 +132,30 @@ def build_refresh_step(loss_fn: Callable[[Params, Any], torch.Tensor],
     ``decay`` is a call operand (policy changes never rebuild the step),
     rounded to f32 once; ``1 - decay`` is formed in f32, as the reference's
     traced f32 arithmetic does. ``donate`` (None means no) writes the new
-    EMA into ``total``'s tensors."""
+    EMA into ``total``'s tensors.
+
+    Layout follows the data: DTensor ``params`` run the Fisher as a sharded
+    request does (``repro_torch.dist.execute``: whole weights, this rank's
+    batch rows, the partial sums reduced over the batch ranks), and the
+    Fisher takes ``total``'s placements, so a sharded EMA comes out."""
     _note_trace(tag)
+
+    def fisher(params, batch):
+        run = _dx.ShardedRun.for_request(params, batch)
+        if run is None:
+            return fisher_tree(loss_fn, params, batch, chunk_size)
+        with run.active():
+            return fisher_tree(loss_fn, _dx.gather_tree(params),
+                               run.local_rows(batch), chunk_size)
 
     def step(total, params, batch, decay):
         d = np.float32(decay)
         a, b = float(d), float(np.float32(1.0) - d)
         with torch.no_grad():
-            fish = fisher_tree(loss_fn, params, batch, chunk_size)
+            fish = tree_map(
+                lambda f, t: (_dx.place(f, t.device_mesh, t.placements)
+                              if _dx.is_dtensor(t) else f),
+                fisher(params, batch), total)
             if donate:
                 return tree_map(lambda t, f: t.mul_(a).add_(f * b),
                                 total, fish)

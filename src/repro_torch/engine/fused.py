@@ -31,6 +31,7 @@ import torch
 
 from repro_torch.core.cau import _restore_excluded
 from repro_torch.core.ssd import dampen_tree_counted
+from repro_torch.dist.execute import reduce_fisher_
 from repro_torch.models.module import tree_leaves, tree_map, tree_unflatten
 
 F32 = torch.float32
@@ -73,7 +74,9 @@ def grad_fisher_chunks(apply_fn: Callable[[Params, torch.Tensor],
     the sum over chunks of squared gradients, accumulated in chunk order,
     divided by nc (with nc == 1 the square itself, as the reference's
     straight-line path); ``act_cotangents`` is [nc, cs, ...], or None when
-    ``with_act_grad`` is False.
+    ``with_act_grad`` is False. In a sharded request whose batch is split
+    over ranks, the chunks are this rank's: the sums are all-reduced over
+    the batch ranks and divided by the global chunk count.
     """
     nc = acts_c.shape[0]
     fish = None
@@ -94,6 +97,7 @@ def grad_fisher_chunks(apply_fn: Callable[[Params, torch.Tensor],
             else:
                 for f, g in zip(fish, grads):
                     f.addcmul_(g.to(F32), g.to(F32))
+    nc = reduce_fisher_(fish, nc)
     if nc > 1:
         fish = [f.div_(nc) for f in fish]
     return tree_unflatten(layer_p, fish), g_acts

@@ -23,6 +23,12 @@ cache, so a serving process builds each step ONCE:
   * the streamed-Fisher refresh steps (``repro_torch.engine.fisher_stream``)
     live in the same cache ("refresh" family, its own counters).
 
+A request whose parameters are DTensors (the facade's ``shard``) runs as
+``repro_torch.dist.execute`` describes: the trees gathered, this rank's
+batch rows, the Fisher and the halting accuracy reduced over the batch
+ranks, dampening on local shards, the result stored with the caller's
+placements.
+
 ``forget_many`` is the fault-injection shell of the fleet's failure model
 (``repro_torch.robust.faults``: the ``nan_batch`` and ``fisher_corrupt``
 sites, keyed by ``fault_scope``).
@@ -44,6 +50,7 @@ from repro_torch.core.cau import (ModelAdapter, UnlearnConfig, _chunk,
                                   _layer_param_counts, _logit_cotangents)
 from repro_torch.core.metrics import MacCounter
 from repro_torch.core.schedule import checkpoint_set, sigmoid_profile
+from repro_torch.dist import execute as _dx
 from repro_torch.kernels.ops import f32
 from repro_torch.models.module import tree_map
 from repro_torch.obs import telemetry as _t
@@ -85,6 +92,12 @@ class UnlearnSession:
         self.adapter = adapter
         self.fisher_global = fisher_global
         self.donate = donate
+        # the mesh and layout rule of sharded requests (set by the facade's
+        # shard(); None = single device)
+        self.mesh = None
+        self.mesh_sharding: str = "tp"
+        # the gathered copy of a sharded Fisher: (the DTensor tree, whole)
+        self._fisher_whole: Optional[Tuple[Params, Params]] = None
         self.programs = programs if programs is not None else ProgramCache()
         self.programs.sessions += 1
         self._ns: Hashable = (adapter.name, adapter.n_layers, donate)
@@ -250,7 +263,7 @@ class UnlearnSession:
                     for jj in range(j, L):
                         x = adapter.apply_layer(prm, jj,
                                                 adapter.get_layer(prm, jj), x)
-                    return adapter.acc(x, lbl)
+                    return _dx.global_acc(adapter.acc(x, lbl), lbl)
 
             return run
 
@@ -339,10 +352,12 @@ class UnlearnSession:
             fisher=self.fisher_global, sets=forget_sets, cps=cps,
             limit=limit, chunk_size=cfg.chunk_size,
             use_kernel=cfg.use_kernel, precision=cfg.precision,
-            quant_min_scale=cfg.quant_min_scale)
+            quant_min_scale=cfg.quant_min_scale
+        ) + (self.mesh, self.mesh_sharding)
         prog = self.sweep_program(key, lambda: build_sweep_program(
             adapter, plan, n_sets=K, cps=cps, limit=limit,
             chunk_size=cfg.chunk_size, use_kernel=cfg.use_kernel,
+            mesh=self.mesh, mesh_sharding=self.mesh_sharding,
             precision=cfg.precision, quant_min_scale=cfg.quant_min_scale,
             tag=f"sweep{'8' if int8 else ''}:K{K}"), family=family)
 
@@ -374,7 +389,7 @@ class UnlearnSession:
             sl = int(stop[k])
             hit = [c for c in cps if c <= sl]
             macs = MacCounter(adapter.layer_fwd_macs, prm_counts,
-                              batch=int(labels_k[k].shape[0]))
+                              batch=_dx.global_rows(labels_k[k]))
             macs.add_forward_all()
             for l in range(1, sl + 1):
                 j = L - l
@@ -398,9 +413,51 @@ class UnlearnSession:
             stats_k.append(st)
         return new_params, stats_k
 
+    # -- sharded requests (repro_torch.dist.execute) -------------------------
+    def _whole_fisher(self) -> Params:
+        """The installed Fisher as whole tensors: gathered once per
+        installed tree."""
+        tree = self.fisher_global
+        if _dx.first_dtensor(tree) is None:
+            return tree
+        if self._fisher_whole is None or self._fisher_whole[0] is not tree:
+            self._fisher_whole = (tree, _dx.gather_tree(tree))
+        return self._fisher_whole[1]
+
+    def _sharded(self, run: "_dx.ShardedRun", params: Params,
+                 forget_sets: List[Tuple[Any, torch.Tensor]],
+                 reference: Optional[Params], cfg: UnlearnConfig, body):
+        """``body(whole_params, local_sets, whole_reference)`` inside the
+        sharded run, on the gathered trees and this rank's rows; returns
+        its result with the parameter tree stored like ``params``."""
+        whole = _dx.gather_tree(params)
+        sets = [run.local_rows(s) for s in forget_sets]
+        for _, lbl in sets:
+            run.check_chunks(int(lbl.shape[0]), cfg.chunk_size)
+        ref = None if reference is None else _dx.gather_tree(reference)
+        installed = self.fisher_global
+        self.fisher_global = self._whole_fisher()
+        try:
+            with run.active():
+                out = body(whole, sets, ref)
+        finally:
+            self.fisher_global = installed
+        return (run.shard_like(out[0], params, whole),) + tuple(out[1:])
+
     # -- the drive loop -----------------------------------------------------
     def forget(self, params: Params, inputs: Any, labels: torch.Tensor,
                cfg: UnlearnConfig) -> Tuple[Params, Dict]:
+        """One forget request (sharded when ``params`` holds DTensors)."""
+        run = _dx.ShardedRun.for_request(params, (inputs, labels),
+                                         mode=self.mesh_sharding)
+        if run is None:
+            return self._forget(params, inputs, labels, cfg)
+        return self._sharded(
+            run, params, [(inputs, labels)], None, cfg,
+            lambda p, sets, _: self._forget(p, sets[0][0], sets[0][1], cfg))
+
+    def _forget(self, params: Params, inputs: Any, labels: torch.Tensor,
+                cfg: UnlearnConfig) -> Tuple[Params, Dict]:
         """One forget request: Algorithm 1 (+ optional Balanced Dampening).
         Returns (params', stats).
 
@@ -453,7 +510,7 @@ class UnlearnSession:
 
         prm_counts = _layer_param_counts(adapter, params)
         macs = MacCounter(adapter.layer_fwd_macs, prm_counts,
-                          batch=int(labels.shape[0]))
+                          batch=_dx.global_rows(labels))
 
         with torch.no_grad():
             logits, acts = adapter.forward_collect(params, inputs)
@@ -553,6 +610,21 @@ class UnlearnSession:
                              (edit-magnitude guard). Restored in a finally:
                              the session's Fisher survives the injection.
         """
+        run = _dx.ShardedRun.for_request(params, forget_sets,
+                                         mode=self.mesh_sharding)
+        if run is not None:
+            return self._sharded(
+                run, params, forget_sets, reference, cfg,
+                lambda p, sets, ref: self._forget_many_shell(
+                    p, sets, cfg, reference=ref))
+        return self._forget_many_shell(params, forget_sets, cfg,
+                                       reference=reference)
+
+    def _forget_many_shell(self, params: Params,
+                           forget_sets: List[Tuple[Any, torch.Tensor]],
+                           cfg: UnlearnConfig, *,
+                           reference: Optional[Params] = None
+                           ) -> Tuple[Params, List[Dict], Dict]:
         scope = self.fault_scope or self.adapter.name
         if _faults.fire("nan_batch", scope):
             # alpha=0 widens selection to every weight with forget signal:
@@ -661,7 +733,7 @@ class UnlearnSession:
             with torch.no_grad():
                 logits, acts = adapter.forward_collect(ref_run, inputs)
             macs = MacCounter(adapter.layer_fwd_macs, prm_counts,
-                              batch=int(labels.shape[0]))
+                              batch=_dx.global_rows(labels))
             macs.add_forward_all()
             cot_k.append(_logit_cotangents(adapter.loss, _chunk(logits, cs),
                                            _chunk(labels, cs)))

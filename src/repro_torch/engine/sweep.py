@@ -21,6 +21,10 @@ between its start and the single read of its outputs:
     up to the sweep's limit, as the reference's scan does. ``stop_l``, the
     per-layer selection counts and the forget-accuracy trace stay device
     tensors, read once by the caller;
+  * on a mesh (a sharded request, ``repro_torch.dist.execute``) the
+    middle blocks' dampening is laid out as the reference lays out its
+    ``[L, ...]`` stacks, by ``stacked_param_pspecs`` (``_constrain_stack``);
+    the halting accuracy is reduced over the batch ranks;
   * K coalesced forget sets ride the same program, one after another
     (where the reference ``vmap``s them): each set's vjp/Fisher runs
     against the drain-point snapshot, and its dampening composes onto the
@@ -46,6 +50,7 @@ import torch
 from repro_torch.core.cau import (ModelAdapter, _chunk, _logit_cotangents,
                                   _restore_excluded)
 from repro_torch.core.ssd import dampen_tree_counted
+from repro_torch.dist.execute import global_acc
 from repro_torch.models.module import tree_leaves, tree_map
 from repro_torch.optim.compression import (q8_dequantize_tree,
                                            q8_fakequant_tree,
@@ -139,6 +144,8 @@ def build_sweep_program(adapter: ModelAdapter, plan: SweepPlan, *,
                         limit: int,
                         chunk_size: int,
                         use_kernel: bool,
+                        mesh=None,
+                        mesh_sharding: str = "tp",
                         precision: str = "fp32",
                         quant_min_scale: float = 1e-12,
                         tag: str = "sweep") -> Callable:
@@ -171,6 +178,10 @@ def build_sweep_program(adapter: ModelAdapter, plan: SweepPlan, *,
     edits the codes, and checkpoints run on the dequantised codes. The
     returned tree is the dequantised deployment state (every layer
     fake-quantised, edited or not).
+
+    ``mesh`` / ``mesh_sharding`` (the session's, part of its cache key)
+    lay the middle blocks' dampening out by ``stacked_param_pspecs`` in a
+    sharded request; without a run on this thread they change nothing.
     """
     if precision not in ("fp32", "int8"):
         raise ValueError(
@@ -202,7 +213,25 @@ def build_sweep_program(adapter: ModelAdapter, plan: SweepPlan, *,
         else:
             segs.append((t, [l]))
 
-    def _dampen_compose(cur, fish_k, fish_g, sc, active):
+    stack_specs: dict = {}
+
+    def _constrain_stack(layer):
+        """The layout of a middle block in a sharded request: its spec
+        leaves in the ``[L-2, ...]`` stack (``stacked_param_pspecs``, the
+        stack dim replicated), the stack dim dropped. None off a mesh."""
+        if mesh is None:
+            return None
+        sig = shape_signature(layer)
+        if sig not in stack_specs:
+            from repro_torch.dist import sharding as shd
+            stack = tree_map(lambda t: torch.empty(
+                (L - 2,) + tuple(t.shape), dtype=t.dtype, device="meta"),
+                layer)
+            stack_specs[sig] = [shd.P(*sp[1:]) for sp in shd.spec_leaves(
+                shd.stacked_param_pspecs(stack, mesh, mode=mesh_sharding))]
+        return stack_specs[sig]
+
+    def _dampen_compose(cur, fish_k, fish_g, sc, active, specs=None):
         """Split-edit composition: each set's dampening (selection from ITS
         snapshot Fisher) applies to the shared carried layer, in set order,
         masked by that set's halting flag; each count is taken before the
@@ -210,7 +239,8 @@ def build_sweep_program(adapter: ModelAdapter, plan: SweepPlan, *,
         n_sel_k = []
         for k in range(K):
             new_layer, masks, n_sel = dampen_tree_counted(
-                precision, cur, fish_k[k], fish_g, sc[0], sc[1], use_kernel)
+                precision, cur, fish_k[k], fish_g, sc[0], sc[1], use_kernel,
+                specs=specs)
             if n_sel is None:
                 n_sel = sum(m.sum() for m in tree_leaves(masks))
             n_sel_k.append(n_sel)
@@ -249,7 +279,7 @@ def build_sweep_program(adapter: ModelAdapter, plan: SweepPlan, *,
                 active = active & ~halted
                 acc_rows.append(a_f)
 
-            def layer_edit(j, fn, sc, with_act_grad):
+            def layer_edit(j, fn, sc, with_act_grad, stacked=False):
                 """vjp + Fisher per set on the snapshot layer, then the
                 masked composition onto the carried layer; returns the
                 per-set input cotangents."""
@@ -268,7 +298,8 @@ def build_sweep_program(adapter: ModelAdapter, plan: SweepPlan, *,
                     fish_k.append(f)
                     g_k.append(g)
                 cur, n_sel = _dampen_compose(
-                    cur, fish_k, adapter.get_layer(fisher, j), sc, active)
+                    cur, fish_k, adapter.get_layer(fisher, j), sc, active,
+                    _constrain_stack(cur) if stacked else None)
                 deploy[j] = (q8_dequantize_tree(cur, scales, like=pristine)
                              if int8 else cur)
                 n_sel_rows.append(n_sel)
@@ -297,7 +328,8 @@ def build_sweep_program(adapter: ModelAdapter, plan: SweepPlan, *,
                 sc_row(1), True)
             if 1 in cps_set:
                 halt_check(1, torch.stack([
-                    adapter.acc(head(acts_k[k][L - 1]), labels_k[k])
+                    global_acc(adapter.acc(head(acts_k[k][L - 1]),
+                                           labels_k[k]), labels_k[k])
                     for k in range(K)]))
             else:
                 acc_rows.append(nan_row)
@@ -307,7 +339,8 @@ def build_sweep_program(adapter: ModelAdapter, plan: SweepPlan, *,
                 for l in seg_ls:
                     j = L - l
                     act = active
-                    g_k = layer_edit(j, branches[t], sc_row(l), True)
+                    g_k = layer_edit(j, branches[t], sc_row(l), True,
+                                     stacked=True)
                     cot = [torch.where(act[k], g_k[k], cot[k])
                            for k in range(K)]
                     if l in cps_set:
@@ -318,7 +351,9 @@ def build_sweep_program(adapter: ModelAdapter, plan: SweepPlan, *,
                             for jj in range(_j, L - 1):
                                 x = branches[plan.type_ids[jj - 1]](
                                     deploy[jj], x)
-                            return adapter.acc(head(x), labels_k[k])
+                            return global_acc(adapter.acc(head(x),
+                                                          labels_k[k]),
+                                              labels_k[k])
                         halt_check(l, torch.stack(
                             [suffix_acc(k) for k in range(K)]))
                     else:
@@ -352,7 +387,8 @@ def build_sweep_program(adapter: ModelAdapter, plan: SweepPlan, *,
                             x = adapter.apply_layer(
                                 new_tree, jj,
                                 adapter.get_layer(new_tree, jj), x)
-                        return adapter.acc(x, labels_k[k])
+                        return global_acc(adapter.acc(x, labels_k[k]),
+                                          labels_k[k])
                     halt_check(L, torch.stack([full_acc(k)
                                                for k in range(K)]))
                 else:

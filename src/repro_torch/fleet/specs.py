@@ -9,11 +9,15 @@ the drain-scheduling policy).  Both are frozen dataclasses with JSON
 round-trip (``to_json``/``from_json``) and ``ValueError`` validation with
 actionable messages — the same discipline as ``repro_torch.api.specs`` —
 so a fleet file is a complete, auditable description of what the process
-serves. Archs are checked against ``repro_torch.configs``. The
-compilation-cache directory is not ported yet (ROADMAP Queue 1, "The
-persistent compilation cache"):
-``ServeSpec.cache_dir`` and ``ExecSpec.cache_dir`` accept None only, so
-the reference's per-tenant cache-dir conflict cannot arise here.
+serves. Archs are checked against ``repro_torch.configs``.
+
+What a tenant does NOT declare: the compilation cache directory (the
+kernel build directory). That cache is process-global
+(``repro_torch.api.enable_compilation_cache`` refuses to repoint it), so it
+lives on the fleet's ``ServeSpec.cache_dir``; a tenant whose
+``UnlearnSpec.exec.cache_dir`` disagrees is a config contradiction and
+fails fleet validation up front rather than at the second tenant's first
+kernel build.
 """
 from __future__ import annotations
 
@@ -206,6 +210,19 @@ class FleetSpec:
                  or (isinstance(self.wal_dir, str) and self.wal_dir),
                  f"FleetSpec.wal_dir must be None or a non-empty path, "
                  f"got {self.wal_dir!r}")
+        # the compilation cache is PROCESS-global: per-tenant dirs cannot
+        # coexist in one fleet (enable_compilation_cache would raise at the
+        # second tenant's first build — fail here, actionably)
+        for t in self.tenants:
+            if t.spec is not None and t.spec.exec.cache_dir is not None \
+                    and t.spec.exec.cache_dir != self.serve.cache_dir:
+                raise ValueError(
+                    f"tenant {t.name!r} sets exec.cache_dir="
+                    f"{t.spec.exec.cache_dir!r} but the compilation cache "
+                    f"is process-global (fleet cache_dir: "
+                    f"{self.serve.cache_dir!r}) — set it once on "
+                    f"FleetSpec.serve.cache_dir and drop it from the "
+                    f"tenant spec")
 
     def tenant(self, name: str) -> TenantSpec:
         for t in self.tenants:

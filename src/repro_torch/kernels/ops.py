@@ -5,6 +5,14 @@ signatures, returned shapes and dtypes, and ValueError checks.
 A tensor on the CPU goes to the kernel's plain PyTorch version; a tensor on
 the card goes to the kernel, or the wrapper raises — there is no fallback.
 No TPU (8, 1024) padding: every CUDA kernel masks its own ragged edges.
+
+The dampen wrappers also take DTensors (``repro_torch.dist``): a DTensor
+theta goes through the same kernel on its local shard, each Fisher operand
+cut to the same shard (a DTensor with theta's placements, or a whole
+tensor), and the results come back as DTensors with theta's placements.
+The rule is elementwise, so a shard's result is the matching slice of the
+whole one; ``dampen_int8_rowscale``'s per-row scale table is cut with the
+rows. A group's count is over the whole leaves, each element once.
 """
 from __future__ import annotations
 
@@ -12,6 +20,8 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.dist import execute as _dx
 
 from . import dampen as _dampen
 from . import fimd as _fimd
@@ -44,6 +54,9 @@ def dampen(theta: torch.Tensor, i_f: torch.Tensor, i_g: torch.Tensor,
     """SSD Eq. (3)+(4) via the fused dampening kernel. Any shape; theta f32
     or bf16. Returns (theta', selected_mask) matching core.ssd.dampen_array.
     ``out`` receives theta' (pass ``theta`` itself for an in-place edit)."""
+    if _dx.is_dtensor(theta):
+        return _dx.local_call(dampen, theta, i_f, i_g, alpha, lam,
+                              out=_local_out(out, theta))
     _check_elementwise("dampen", theta, i_f, i_g)
     alpha, lam = f32(alpha), f32(lam)
     if _path("dampen", theta) == "cpu":
@@ -65,6 +78,9 @@ def dampen_int8(theta_q: torch.Tensor, i_f: torch.Tensor, i_g: torch.Tensor,
     pass, where the reference's wrapper returns codes only and
     ``dampen_q8_tree`` recomputes the mask. ``out`` receives the codes
     (pass ``theta_q`` itself for an in-place edit)."""
+    if _dx.is_dtensor(theta_q):
+        return _dx.local_call(dampen_int8, theta_q, i_f, i_g, alpha, lam,
+                              out=_local_out(out, theta_q))
     _dampen.check_int8_codes(theta_q)
     _check_elementwise("dampen_int8", theta_q, i_f, i_g)
     alpha, lam = f32(alpha), f32(lam)
@@ -107,12 +123,43 @@ def dampen_int8_group(thetas_q: Sequence[torch.Tensor],
                   alpha, lam, outs)
 
 
+def _local_out(out, theta):
+    return None if out is None else _dx.local_of(out, theta)
+
+
+def _group_dtensor(name, plain_fn, cuda_fn, thetas, i_fs, i_gs, alpha, lam,
+                   outs):
+    """``_group`` on DTensor thetas: one table of the local shards, the
+    results rewrapped, the count summed over the mesh."""
+    if not all(_dx.is_dtensor(t) for t in thetas):
+        raise ValueError(f"{name}_group takes a table of DTensors or of "
+                         f"tensors, not both")
+    dm = thetas[0].device_mesh
+    if any(t.device_mesh != dm for t in thetas):
+        raise ValueError(f"{name}_group takes one mesh per table")
+    loc = [t.to_local() for t in thetas]
+    new, masks, count = _group(
+        name, plain_fn, cuda_fn, loc,
+        [_dx.local_of(f, t) for f, t in zip(i_fs, thetas)],
+        [_dx.local_of(g, t) for g, t in zip(i_gs, thetas)], alpha, lam,
+        None if outs is None else [_dx.local_of(o, t)
+                                   for o, t in zip(outs, thetas)])
+    pls = [tuple(t.placements) for t in thetas]
+    count = _dx.selection_count(masks, pls, dm, local_count=count)
+    return ([_dx.wrap(n, dm, pl, t) for n, pl, t in zip(new, pls, thetas)],
+            [_dx.wrap(m, dm, pl, t) for m, pl, t in zip(masks, pls, thetas)],
+            count)
+
+
 def _group(name, plain_fn, cuda_fn, thetas, i_fs, i_gs, alpha, lam, outs):
     """The path by the first theta's device. On the card the kernel's
     wrapper checks each leaf, once (the host's time per leaf is the
     sweep's bound); on the CPU the same checks run here, and every operand
     must lie on the CPU too, so that no card tensor takes the plain
     version."""
+    if len(thetas) and _dx.is_dtensor(thetas[0]):
+        return _group_dtensor(name, plain_fn, cuda_fn, thetas, i_fs, i_gs,
+                              alpha, lam, outs)
     alpha, lam = f32(alpha), f32(lam)
     if len(thetas) and _path(name, thetas[0]) == "cuda":
         return cuda_fn(thetas, i_fs, i_gs, alpha, lam, outs=outs)
@@ -153,6 +200,17 @@ def dampen_int8_rowscale(theta_q: torch.Tensor, i_fq: torch.Tensor,
     in-register inside the kernel (``i_f = f32(i_fq) * f_scale[r]``, one
     correctly rounded product). theta_q: [R, C] int8 -> [R, C] int8, the
     codes only, as the reference returns them."""
+    if _dx.is_dtensor(theta_q):
+        from torch.distributed.tensor import Replicate, Shard
+        # the scale table follows the rows: cut it where theta's dim 0 is
+        rows = tuple(Shard(0) if p == Shard(0) else Replicate()
+                     for p in theta_q.placements)
+        dm = theta_q.device_mesh
+        out = dampen_int8_rowscale(
+            theta_q.to_local(), _dx.local_of(i_fq, theta_q),
+            _dx.local_slice(_dx.gather(f_scale), dm, rows),
+            _dx.local_of(i_g, theta_q), alpha, lam)
+        return _dx.wrap(out, dm, theta_q.placements, theta_q)
     if theta_q.ndim != 2:
         raise ValueError(
             f"dampen_int8_rowscale takes a [R, C] per-channel weight (rows "

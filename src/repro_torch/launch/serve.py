@@ -52,8 +52,12 @@ build exactly what the fleet built for its family and end with the same
 weights and Fisher, bit for bit (``fleet_check_problems``).
 
 ``--device`` picks the card (``cuda``, the default; it raises without one)
-or ``cpu``.  Not ported yet: ``--cache-dir`` (ROADMAP Queue 1, "The
-persistent compilation cache"); it raises.  As in the reference,
+or ``cpu``. ``--cache-dir`` makes a directory the kernel build directory,
+the port's persistent compilation cache (``api.enable_compilation_cache``):
+the result JSON's ``compilation_cache`` block counts its finished
+libraries before the start and the ones the run added, and ``--check``
+fails a start against a warm cache that still built one
+(``cache_problems``). As in the reference,
 ``--smoke`` is a ``store_true`` flag that defaults to True, so the command
 line always serves the SMOKE config.
 """
@@ -70,8 +74,9 @@ import numpy as np
 import torch
 
 from repro_torch import configs
-from repro_torch.api import ServeSpec, UnlearnSpec, Unlearner
-from repro_torch.api.specs import CACHE_ITEM, _not_ported
+from repro_torch.api import (ServeSpec, UnlearnSpec, Unlearner,
+                             compilation_cache_entries,
+                             enable_compilation_cache)
 from repro_torch.data.synthetic import LMDataConfig, make_lm_domains
 from repro_torch.device import resolve_device
 from repro_torch.engine import ProgramCache
@@ -653,11 +658,36 @@ def _parse_bursts(args) -> List[List[int]]:
     return [[args.forget_domain]]
 
 
+def cache_info_since(cache_dir: Optional[str],
+                     entries_before: int) -> Optional[Dict]:
+    """The result JSON's ``compilation_cache`` block: the cache directory,
+    its finished libraries at the start and the ones added since (None
+    without a cache)."""
+    if not cache_dir:
+        return None
+    return {"dir": cache_dir, "entries_before": entries_before,
+            "entries_new": (compilation_cache_entries(cache_dir)
+                            - entries_before)}
+
+
+def cache_problems(cache_info: Optional[Dict]) -> List[str]:
+    """The cold-start gate: a process start against a WARM cache must load
+    every library it uses from disk — any new entry is a rebuild the
+    persistence layer missed."""
+    if cache_info and cache_info["entries_before"] > 0 \
+            and cache_info["entries_new"] > 0:
+        return [f"cold start with a warm compilation cache "
+                f"({cache_info['entries_before']} entries) still compiled "
+                f"{cache_info['entries_new']} new program(s)"]
+    return []
+
+
 def check_problems(svc: "ForgetService",
-                   refresh_info: Optional[Dict]) -> List[str]:
-    """The ``--check`` gates over a finished service (``refresh_info`` as
-    ``main`` builds it, None without refresh): one message per failed gate,
-    an empty list when every gate holds."""
+                   refresh_info: Optional[Dict],
+                   cache_info: Optional[Dict] = None) -> List[str]:
+    """The ``--check`` gates over a finished service (``refresh_info`` and
+    ``cache_info`` as ``main`` builds them, None without refresh or cache):
+    one message per failed gate, an empty list when every gate holds."""
     problems: List[str] = []
     # coalescing gate: ONE engine sweep per drain point, however many
     # requests were due there — a regression to per-request sweeps shows
@@ -737,7 +767,7 @@ def check_problems(svc: "ForgetService",
                 f"{stale['stale_rel_err']:.4f}, refreshed "
                 f"{stale['refreshed_rel_err']:.4f}) — the streamed "
                 "refresh failed its staleness oracle")
-    return problems
+    return problems + cache_problems(cache_info)
 
 
 def _build_lm_tenant(tspec: TenantSpec, args) -> Dict:
@@ -1027,11 +1057,11 @@ def fleet_check_problems(fleet: Fleet, fspec: FleetSpec,
 
 def _main_fleet(args) -> dict:
     fspec = FleetSpec.from_file(args.fleet)
-    if args.cache_dir:
-        raise _not_ported("--cache-dir (the persistent compilation cache)",
-                          CACHE_ITEM)
+    cache_dir = fspec.serve.cache_dir or args.cache_dir
+    cache_entries0 = enable_compilation_cache(cache_dir) if cache_dir else 0
     fleet, result = run_fleet(fspec, lambda t: _build_lm_tenant(t, args),
                               args, device=args.device)
+    result["compilation_cache"] = cache_info_since(cache_dir, cache_entries0)
     _t.log("serve", f"fleet done: {json.dumps(result)}")
     if args.out:
         with open(args.out, "w") as f:
@@ -1039,6 +1069,8 @@ def _main_fleet(args) -> dict:
     if args.check:
         problems = fleet_check_problems(
             fleet, fspec, lambda t: _build_lm_tenant(t, args))
+        # cold-start gate (process-global cache, same as single-tenant)
+        problems += cache_problems(result["compilation_cache"])
         if problems:
             _t.log("serve", "FLEET CHECK FAILED: " + "; ".join(problems))
             raise SystemExit(1)
@@ -1101,7 +1133,8 @@ def _main_stream(args, cfg, params, tokens, domains, seq_len: int,
                  dev) -> dict:
     """--serve-mode stream: the continuous-batching engine with shadow
     drains and step-deadline publication (DESIGN.md §15)."""
-    serve = ServeSpec(refresh_every=args.fisher_refresh,
+    serve = ServeSpec(cache_dir=args.cache_dir,
+                      refresh_every=args.fisher_refresh,
                       sweep_mode=args.sweep_mode,
                       precision=args.precision,
                       publish="step",
@@ -1214,9 +1247,9 @@ def main(argv=None) -> dict:
                          "and no drain of a seen signature built a step "
                          "(and the scanned, precision and refresh gates)")
     ap.add_argument("--cache-dir", default=None,
-                    help="persistent compilation cache directory (not "
-                         "ported yet: ROADMAP Queue 1, the persistent "
-                         "compilation cache)")
+                    help="persistent compilation cache directory: the "
+                         "kernel build directory (a cold start against a "
+                         "warm one must build nothing; --check gates it)")
     ap.add_argument("--fisher-refresh", type=int, default=0,
                     help="refresh the global Fisher I_D every N drains "
                          "(streamed EMA over retain microbatches at the "
@@ -1249,9 +1282,10 @@ def main(argv=None) -> dict:
 
     if args.fleet:
         return _main_fleet(args)
-    if args.cache_dir:
-        raise _not_ported("--cache-dir (the persistent compilation cache)",
-                          CACHE_ITEM)
+    # the cache must be live BEFORE the first kernel loads for a cold start
+    # to be replayable from disk
+    cache_entries0 = (enable_compilation_cache(args.cache_dir)
+                      if args.cache_dir else 0)
     dev = resolve_device(args.device)
 
     spec = configs.get(args.arch)
@@ -1278,6 +1312,7 @@ def main(argv=None) -> dict:
 
     svc = ForgetService(cfg, tokens, domains, dcfg.seq_len,
                         serve=ServeSpec(
+                            cache_dir=args.cache_dir,
                             refresh_every=args.fisher_refresh,
                             sweep_mode=args.sweep_mode,
                             precision=args.precision), device=dev)
@@ -1307,7 +1342,7 @@ def main(argv=None) -> dict:
 
     done = [r for r in svc.log if "engine" in r]
     last = done[-1] if done else {}
-    cache_info = None
+    cache_info = cache_info_since(args.cache_dir, cache_entries0)
     refresh_info = None
     if args.fisher_refresh > 0:
         refresh_info = {"every_drains": args.fisher_refresh,
@@ -1330,7 +1365,7 @@ def main(argv=None) -> dict:
         with open(args.out, "w") as f:
             json.dump(result, f, indent=1)
     if args.check:
-        problems = check_problems(svc, refresh_info)
+        problems = check_problems(svc, refresh_info, cache_info)
         if problems:
             _t.log("serve", "CHECK FAILED: " + "; ".join(problems))
             raise SystemExit(1)

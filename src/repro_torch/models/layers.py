@@ -37,9 +37,10 @@ frames of several memory rows (ROADMAP Queue 3). The serving forms keep
 the reference's caches: ``attention_decode`` (one token against a KV cache,
 at one position for every row or at a position per row, a sliding window
 as a ring buffer), ``attention_prefill`` (a chunk of tokens against the
-cache, no ring wrap) and ``init_kv_cache``. (Context-parallel attention and
-the MoE's expert-parallel sharding constraints need the distribution layer
-and raise "not ported yet".)
+cache, no ring wrap) and ``init_kv_cache``. Context-parallel attention
+(``AttnConfig.cp``, ``_sdpa_cp``) computes the reference's full-sequence
+scores; its placements, like the MoE's expert-parallel sharding
+constraints, are layouts and change no value.
 """
 from __future__ import annotations
 
@@ -128,13 +129,7 @@ class AttnConfig:
     window: int = 0          # 0: full attention; > 0: sliding window
     cross: bool = False      # cross attention (k/v from an encoder's memory)
     d_kv_in: int = 0         # input width of the k/v projections when cross
-    cp: int = 0              # context-parallel segments: not ported
-
-
-def _cp_not_ported(cp: int) -> ValueError:
-    return ValueError(f"context-parallel attention (cp={cp}) is not ported "
-                      f"yet: it shards the queries over a mesh; see "
-                      f"ROADMAP.md Queue 1")
+    cp: int = 0              # context-parallel segments (_sdpa_cp)
 
 
 def init_attention(gen: torch.Generator, cfg: AttnConfig, *, device,
@@ -223,15 +218,26 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         for i, q_i in enumerate(q.split(Q_CHUNK, dim=1))], dim=1)
 
 
+def _sdpa_cp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             dtype, causal: bool = False, window: int = 0) -> torch.Tensor:
+    """Context-parallel attention (the reference's ``_sdpa_cp``): there the
+    QUERY sequence axis is sharded over "model" and k/v are replicated,
+    beside a sequence-parallel residual stream (``lm._seq_shard``). The
+    placements are layouts and change no value; the arithmetic is the
+    reference's: ONE einsum over the whole sequence per KV group with the
+    -1e30 mask, never ``_sdpa``'s query-chunked walk."""
+    return _sdpa_block(q, k, v, dtype, causal, window)
+
+
 def attention(p: Dict, cfg: AttnConfig, x: torch.Tensor,
               positions: Optional[torch.Tensor] = None,
               kv_src: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Full-sequence attention (train / prefill), x [B, S, D]; ``positions``
     [B, S] default to 0..S-1 in every row. With ``cross`` the keys and
-    values come from ``kv_src``, with no RoPE and no causal mask."""
+    values come from ``kv_src``, with no RoPE and no causal mask. With
+    ``cp > 1`` dividing S (self-attention, S > 1) the scores are
+    ``_sdpa_cp``'s."""
     B, S = x.shape[0], x.shape[1]
-    if cfg.cp > 1 and S % cfg.cp == 0 and kv_src is None and S > 1:
-        raise _cp_not_ported(cfg.cp)
     if positions is None:
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
     q, k, v = _qkv(p, cfg, x, kv_src)
@@ -239,7 +245,10 @@ def attention(p: Dict, cfg: AttnConfig, x: torch.Tensor,
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     causal = cfg.causal and not cfg.cross
-    out = _sdpa(q, k, v, x.dtype, causal, cfg.window if causal else 0)
+    if cfg.cp > 1 and S % cfg.cp == 0 and kv_src is None and S > 1:
+        out = _sdpa_cp(q, k, v, x.dtype, causal, cfg.window if causal else 0)
+    else:
+        out = _sdpa(q, k, v, x.dtype, causal, cfg.window if causal else 0)
     return _proj(out.reshape(B, S, -1), p["wo"])
 
 
@@ -380,13 +389,9 @@ class MoEConfig:
     capacity_factor: float = 1.25
     shared_ff: int = 0        # hidden dim of the always-on shared expert (0: none)
     dispatch_blocks: int = 1  # data-parallel blocks for local-capacity dispatch
-    shard_constraints: bool = False  # expert-parallel shardings: not ported
-
-
-def _moe_not_ported() -> ValueError:
-    return ValueError("the MoE's expert-parallel sharding constraints "
-                      "(shard_constraints=True) are not ported yet: they "
-                      "need the distribution layer; see ROADMAP.md Queue 1")
+    # the reference's expert-parallel layout of the dispatch buffers:
+    # layouts only, the identity on values (moe_ffn)
+    shard_constraints: bool = False
 
 
 def init_moe(gen: torch.Generator, cfg: MoEConfig, *, device,
@@ -455,9 +460,12 @@ def moe_ffn(p: Dict, cfg: MoEConfig, x: torch.Tensor
     f32 on ``[nb, E, C, D]`` buffers in x's dtype, and each token gathers
     its kept slots weighted by its gate. Returns (output [B, S, D], aux):
     the load-balancing loss, E times the block mean of dot(mean router
-    probabilities, top-1 fractions)."""
-    if cfg.shard_constraints:
-        raise _moe_not_ported()
+    probabilities, top-1 fractions).
+
+    ``shard_constraints`` is the reference's expert-parallel layout (the
+    buffers' block axis on "data", experts on "model"; the gathered
+    tokens' blocks on "data"): constraints on where values live, so the
+    values here are the same with it on or off."""
     B, S, D = x.shape
     E, K = cfg.num_experts, cfg.top_k
     nb = cfg.dispatch_blocks

@@ -31,10 +31,11 @@ Execution modes
   no cache can wrap (``attention_prefill``), every other block steps
   through the chunk token by token with ``block_decode``.
 
-Context-parallel attention and the MoE's expert-parallel sharding
-constraints are not ported yet: a config that asks for one raises a
-``ValueError`` that says so. ``LMConfig`` keeps every field of the
-reference, so that configs copy over unchanged.
+Context-parallel attention (``cp_attention``: ``layers._sdpa_cp``'s
+arithmetic, ``_seq_shard``'s layout) and the MoE's expert-parallel sharding
+constraints (``moe_shard_constraints``) are accepted; their placements
+change no value. ``LMConfig`` keeps every field of the reference, so that
+configs copy over unchanged.
 
 Parameters keep the reference's layout and keys: ``period_stack`` holds the
 blocks of the ``n_periods`` whole pattern periods, each leaf stacked
@@ -137,15 +138,13 @@ class LMConfig:
         return self.n_layers % len(self.block_pattern)
 
     def attn_cfg(self, btype: str) -> L.AttnConfig:
-        if self.cp_attention > 1:
-            raise _not_ported(f"{self.name}: context-parallel attention "
-                              f"(cp_attention={self.cp_attention})")
         return L.AttnConfig(
             d_model=self.d_model, n_heads=self.n_heads,
             n_kv_heads=self.n_kv_heads, head_dim=self.dh,
             qkv_bias=self.qkv_bias, rope_theta=self.rope_theta,
             use_rope=True, causal=True,
-            window=self.window if btype == "local" else 0)
+            window=self.window if btype == "local" else 0,
+            cp=self.cp_attention)
 
     def mlstm_cfg(self) -> R.MLSTMConfig:
         return R.MLSTMConfig(self.d_model, self.n_heads, self.dh,
@@ -181,8 +180,6 @@ def _check_block(cfg: LMConfig, btype: str) -> None:
         raise _not_ported(f"{cfg.name}: block type {btype!r}")
     if btype in ("attn", "local"):
         cfg.attn_cfg(btype)
-    if cfg.moe is not None and cfg.moe_shard_constraints:
-        raise L._moe_not_ported()
 
 
 # ---------------------------------------------------------------------------
@@ -208,11 +205,19 @@ def init_block(gen: torch.Generator, cfg: LMConfig, btype: str, *,
     return p
 
 
+def _seq_shard(cfg: LMConfig, x: torch.Tensor) -> torch.Tensor:
+    """The reference's sequence-parallel residual stream: with
+    ``cp_attention > 1`` dividing S it keeps [B, S, D] sharded on "model"
+    along S. A layout, so the identity on values."""
+    return x
+
+
 def block_forward(p: Params, cfg: LMConfig, btype: str, x: torch.Tensor,
                   positions: torch.Tensor
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (x_out, moe_aux_loss); the aux loss is 0 without MoE."""
     _check_block(cfg, btype)
+    x = _seq_shard(cfg, x)
     h = L.rmsnorm(p["ln1"], x)
     if btype in ("attn", "local"):
         m = L.attention(p["mixer"], cfg.attn_cfg(btype), h, positions)

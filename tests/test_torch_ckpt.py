@@ -12,8 +12,9 @@
     one tree hold the same contents: npz entry names, dtypes and values,
     and META's manifest and extra fields (npz members carry timestamps and
     META carries ``time``, so the files are not compared as bytes);
-  * ``gc_old``, the unlearn journal, the shape error and the refusal of
-    ``sharding_fn`` (ROADMAP Queue 1, "Distribution").
+  * ``gc_old``, the unlearn journal, the shape error, and ``sharding_fn``
+    placing a restored leaf as a DTensor on a one-rank mesh (the elastic
+    restore itself: ``tests/test_torch_shard.py``).
 """
 import dataclasses
 import json
@@ -174,7 +175,19 @@ def test_shape_error_and_sharding_refused(tmp_path):
     with pytest.raises(ValueError) as je:
         jckpt.restore(str(tmp_path), 1, {"w": np.zeros((3, 2), np.float32)})
     assert str(e.value) == str(je.value)
-    with pytest.raises(ValueError, match="not ported yet") as e:
-        ckpt.restore(str(tmp_path), 1, {"w": torch.zeros(2, 3)},
-                     sharding_fn=lambda p: None, device="cpu")
-    assert "item 'Distribution'" in str(e.value)
+    from repro_torch.dist.sharding import P
+    from repro_torch.launch.mesh import make_host_mesh
+    mesh = make_host_mesh(device="cpu")
+    try:
+        got, _ = ckpt.restore(str(tmp_path), 1, {"w": torch.zeros(2, 3)},
+                              sharding_fn=lambda p: (mesh, P("data", None)),
+                              device="cpu")
+        from torch.distributed.tensor import Replicate, Shard
+        assert tuple(got["w"].placements) == (Shard(0), Replicate())
+        assert torch.equal(got["w"].full_tensor(), torch.zeros(2, 3))
+        with pytest.raises(ValueError, match="mesh"):
+            ckpt.restore(str(tmp_path), 1, {"w": torch.zeros(2, 3)},
+                         sharding_fn=lambda p: (mesh, P("pod")),
+                         device="cpu")
+    finally:
+        mesh.close()

@@ -210,11 +210,21 @@ def test_cross_attention_matches_jax(rows):
 
 
 def test_cp_attention_raises_not_ported():
+    """Context-parallel attention, once refused here, is ported: it equals
+    the reference's ``_sdpa_cp`` path (the full-sequence scores), and a
+    cross attention never takes it, as in the reference."""
     tac = TL.AttnConfig(32, 4, 4, 8, causal=True, use_rope=True, cp=2)
+    jac = JL.AttnConfig(32, 4, 4, 8, cp=2)
     p = TL.init_attention(torch.Generator().manual_seed(0), tac,
                           device="cpu")
-    with pytest.raises(ValueError, match="not ported yet"):
-        TL.attention(p, tac, torch.zeros(1, 4, 32))
+    x = np.linspace(-1, 1, 4 * 32, dtype=np.float32).reshape(1, 4, 32)
+    auto = (jax.sharding.AxisType.Auto,) * 2
+    with jax.set_mesh(jax.make_mesh((1, 1), ("data", "model"),
+                                    axis_types=auto)):
+        want = JL.attention(jax.tree_util.tree_map(
+            lambda t: jnp.asarray(t.numpy()), p), jac, _j(x))
+    got = TL.attention(p, tac, _t(x))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
 # -- the model ------------------------------------------------------------------

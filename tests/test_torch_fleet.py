@@ -4,9 +4,9 @@ package's (``repro.fleet``), on the reference's tiny fleet LM ("fleet-t":
 ``bridge``:
 
   * specs: ``TenantSpec`` / ``FleetSpec`` / ``ServeSpec`` JSON crosses the
-    packages both ways, the same validation messages; what is not ported
-    yet (``cache_dir``, ``mesh_axes``) raises "not ported yet" with its
-    ROADMAP item;
+    packages both ways, the same validation messages; ``cache_dir`` and
+    ``mesh_axes`` (ported since the distribution slice) are accepted and
+    cross the packages;
   * ``DrainScheduler``: identical ``due_groups``, ``snapshot``, queue views
     and telemetry events over one scripted run (fair and deadline, the
     group budget, defer and reject admission, requeue, dead-letter);
@@ -157,16 +157,18 @@ def test_spec_validation_equal(what, kw):
 
 
 def test_not_ported_yet_raises():
-    cache = "item 'The persistent compilation cache'"
-    for fn, item in ((lambda: ServeSpec(cache_dir="/tmp/c"), cache),
-                     (lambda: ExecSpec(cache_dir="/tmp/c"), cache),
-                     (lambda: UnlearnSpec.for_mode("ficabu",
-                                                   cache_dir="/tmp/c"),
-                      cache),
-                     (lambda: ExecSpec(mesh_axes=("data",)),
-                      "item 'Distribution'")):
-        msg = _error(fn)
-        assert "not ported yet" in msg and item in msg, msg
+    """What this test once saw refused is ported: the cache dir and the
+    mesh axes are accepted, and the JSON crosses the packages."""
+    s = ServeSpec(cache_dir="/tmp/c")
+    assert JServeSpec.from_json(s.to_json()).to_json() == s.to_json()
+    assert ExecSpec(cache_dir="/tmp/c").cache_dir == "/tmp/c"
+    u = UnlearnSpec.for_mode("ficabu", cache_dir="/tmp/c",
+                             mesh_axes=["data"])
+    assert u.exec.mesh_axes == ("data",)
+    assert JSpec.from_json(u.to_json()).to_json() == u.to_json()
+    assert UnlearnSpec.from_json(u.to_json()) == u
+    msg = _error(lambda: ExecSpec(mesh_axes=("data", "")))
+    assert "non-empty tuple of axis names" in msg, msg
 
 
 # ---------------------------------------------------------------------------

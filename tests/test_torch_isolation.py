@@ -1,7 +1,8 @@
-"""The port stands alone: no module of ``repro_torch`` (``obs`` and
-``engine.sweep`` included) and not the chip smoke script imports ``jax``
-or the JAX package ``repro``, the port serves a forget request, and a
-scanned coalesced group under a telemetry capture, with both blocked,
+"""The port stands alone: no module of ``repro_torch`` (``obs``,
+``engine.sweep``, ``dist`` and ``launch.mesh`` included) and not the chip
+smoke script imports ``jax`` or the JAX package ``repro``, the port serves
+a forget request, a scanned coalesced group under a telemetry capture and
+a sharded request on a one-rank gloo mesh, with both blocked,
 its entry points refuse to run on an absent card instead of quietly
 falling back to the host, and nothing of it uses ``torch.optim``."""
 import ast
@@ -37,8 +38,9 @@ def test_no_module_imports_jax_or_repro():
     files = sorted(PORT.rglob("*.py"))
     assert len(files) >= 20
     # the serving slice's packages among them
-    for pkg in ("robust", "fleet", "launch", "ckpt", "load"):
+    for pkg in ("robust", "fleet", "launch", "ckpt", "load", "dist"):
         assert any(p.parent.name == pkg for p in files), pkg
+    assert PORT / "launch" / "mesh.py" in files
     for path in files + [SMOKE]:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
             if isinstance(node, ast.Import):
@@ -122,6 +124,18 @@ with telemetry.capture() as tel:
                                 params=vparams)
 assert g["engine"]["sweep_mode"] == "scanned", g
 assert tel.counts["engine.sweep"] == 1 and tel.counts["program.compile"] == 1
+# a sharded request (the ResNet: conv leaves under the rules) on a one-rank
+# gloo mesh equals the unsharded one
+from repro_torch.launch.mesh import make_host_mesh
+mesh = make_host_mesh(device="cpu")
+shard = unl.with_spec(unl.spec).shard(mesh)
+snew, sst = shard.forget(ForgetRequest(x[y == 1][:8], y[y == 1][:8]),
+                         params=params)
+assert sst["stopped_at_l"] == st["stopped_at_l"]
+from repro_torch.models.module import flatten_with_paths
+a, b = dict(flatten_with_paths(new)), dict(flatten_with_paths(snew))
+assert all(torch.equal(a[k], b[k].full_tensor()) for k in a)
+mesh.close()
 leaked = [m for m in sys.modules
           if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
 print("MODULES", len(mods), "LEAKED", leaked, "STOP", st["stopped_at_l"])

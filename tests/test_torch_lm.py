@@ -399,23 +399,30 @@ def test_full_width_structure_matches_reference():
 
 
 def test_unported_parts_raise():
-    """An unknown block type, context-parallel attention and the MoE's
-    expert-parallel sharding constraints are not ported: they raise a
-    ValueError that says so (the recurrent blocks are ported:
-    tests/test_torch_recurrent.py; MoE and the modality prefix:
-    tests/test_torch_moe.py, tests/test_torch_prefix.py)."""
-    moe = TLM.MoESpec(num_experts=4, top_k=2)
-    for kw in ({"block_pattern": ("moe_block", "attn")},
-               {"cp_attention": 2},
-               {"moe": moe, "moe_shard_constraints": True}):
-        _, tc = _cfgs(**kw)
-        with pytest.raises(ValueError, match="not ported yet"):
-            TLM.init_lm(torch.Generator().manual_seed(0), tc, device="cpu")
-        with pytest.raises(ValueError, match="not ported yet"):
-            tadapters.lm_adapter(tc, S, device="cpu")
-    _, tc = _cfgs(moe=moe, moe_shard_constraints=True)
+    """An unknown block type is not ported: it raises a ValueError that
+    says so (the recurrent blocks are ported: tests/test_torch_recurrent.py;
+    MoE and the modality prefix: tests/test_torch_moe.py,
+    tests/test_torch_prefix.py). Context-parallel attention and the MoE's
+    expert-parallel sharding constraints are ported: the model and its
+    adapter build, and at this length (the query-chunked walk starts past
+    1024 queries) their forward equals the plain config's bit for bit
+    (against the reference: tests/test_torch_shard.py)."""
+    _, tc = _cfgs(block_pattern=("moe_block", "attn"))
     with pytest.raises(ValueError, match="not ported yet"):
-        TL.moe_ffn({}, tc.moe_cfg(), torch.zeros(1, 8, tc.d_model))
+        TLM.init_lm(torch.Generator().manual_seed(0), tc, device="cpu")
+    with pytest.raises(ValueError, match="not ported yet"):
+        tadapters.lm_adapter(tc, S, device="cpu")
+    moe = TLM.MoESpec(num_experts=4, top_k=2)
+    tok = torch.arange(2 * S).reshape(2, S) % TINY["vocab"]
+    for kw, off in (({"cp_attention": 2}, {"cp_attention": 0}),
+                    ({"moe": moe, "moe_shard_constraints": True},
+                     {"moe_shard_constraints": False})):
+        _, tc = _cfgs(**kw)
+        p = TLM.init_lm(torch.Generator().manual_seed(0), tc, device="cpu")
+        tadapters.lm_adapter(tc, S, device="cpu")
+        got = TLM.forward(p, tc, tok)[0]
+        want = TLM.forward(p, tc.with_(**off), tok)[0]
+        assert torch.equal(got, want), kw
 
 
 @pytest.mark.parametrize("seed", [0, 3])

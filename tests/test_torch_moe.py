@@ -241,8 +241,8 @@ def test_top1_gate_is_exactly_one_and_aux_carries_the_router():
 
 def test_errors_and_unported_constraints():
     """The dispatch ValueError's text equals the reference's; the sharding
-    constraints raise "not ported yet"; moe_cfg on a dense config raises
-    the reference's ValueError."""
+    constraints (ported: layouts only) leave the output as it is; moe_cfg
+    on a dense config raises the reference's ValueError."""
     jcfg, tcfg = _cfgs(4, 1, 32, 0, 1.25, 3)
     jp = JL.init_moe(jax.random.PRNGKey(0), jcfg)
     tp = bridge.params_to_torch(jax.tree_util.tree_map(np.asarray, jp),
@@ -254,10 +254,13 @@ def test_errors_and_unported_constraints():
         TL.moe_ffn(tp, tcfg, torch.from_numpy(x))
     assert str(te.value) == str(je.value)
     import dataclasses
-    with pytest.raises(ValueError, match="not ported yet"):
-        TL.moe_ffn(tp, dataclasses.replace(tcfg, shard_constraints=True,
-                                           dispatch_blocks=1),
-                   torch.from_numpy(x))
+    x1 = torch.from_numpy(np.linspace(-1, 1, 2 * 4 * D, dtype=np.float32)
+                          .reshape(2, 4, D))
+    plain = dataclasses.replace(tcfg, dispatch_blocks=1)
+    got = TL.moe_ffn(tp, dataclasses.replace(plain, shard_constraints=True),
+                     x1)
+    want = TL.moe_ffn(tp, plain, x1)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
     dense = tconfigs.get("yi-6b").smoke
     with pytest.raises(ValueError) as te:
         dense.moe_cfg()

@@ -105,8 +105,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
      attention block, d_model 1152, 4 heads over 1 KV head of 256, d_ff
      6912, vocab 262,144, tied embeddings; 624,062,592 bf16 parameters in
      56 stored leaves, 110 layer leaves in 14 unlearn layers; all 26
-     blocks until the [train] phase, which the cut pays for; [serve] runs
-     12 too since the [shard] and [cache] phases, [stream] all 26), random
+     blocks until the [train] phase, which the cut pays for; two periods
+     so that [shard] walks a stacked pair of periods; [serve] runs 6,
+     [stream] all 26), random
      weights from a CUDA
      generator seeded with 0. Token data from ``make_lm_domains`` (data
      vocabulary 512, S = 1024 tokens, longer than the window); a request
@@ -212,6 +213,38 @@ Phases, in order; any failure exits non-zero and prints no result line:
      the two are bit-identical); the warm ssd requests' wall, device busy
      time, idle share and device kernels; the 18-launch sweeps against their
      byte bounds, and the phase's seconds;
+ 13b. [qwen]: qwen1.5-32b at full width (d_model 5120, 40 heads over 40
+     KV heads of 128 with q/k/v biases under RoPE theta 1e6, d_ff 27,392,
+     vocab 152,064, untied) and 2 of its 64 blocks (2,608,389,120 bf16
+     parameters in 15 stored leaves, 27 layer leaves in 4 unlearn layers),
+     from a CUDA generator seeded with 0, on the [lm] phase's data (8
+     sequences of S = 1024 at chunk 2, argmax labels, the retain Fisher of
+     4 sequences), alpha 25, lambda 1, checkpoints every 2 layers. First
+     its three distinct layer tables through the group kernels against
+     their plain versions; then, with the counters zeroed before and read
+     after: ssd cold and warm (4 launches over 27 leaves), kernel == plain,
+     ficabu with tau = -1, a ficabu that halts partway with the kernel and
+     the plain one (halting, MACs and every leaf equal), int8 ssd cold and
+     warm (on its q8 grids, per-layer error against fp32 within
+     INT8_SWEEP_RTOL) and kernel == plain in int8. Every parameter finite,
+     the caller's tree unchanged; the peak memory; the warm ssd requests'
+     wall, device busy time, idle share and device kernels; the sweeps
+     against their byte bounds, and the phase's seconds;
+ 13c. [dryrun]: the dry-run launchers (``repro_torch.launch.dryrun``,
+     ``unlearn_cell``, ``hillclimb``) against the card: (a) run_cell's
+     record of qwen1.5-32b x decode_32k at 2 blocks on the 16 x 16 mesh,
+     its terms at the card's peaks (``launch.roofline.PEAKS``), and that
+     cell's function run for one data rank (8 of 128 rows, one token
+     against a 32,768-token cache, 10.7 GB of bf16) on [qwen]'s weights:
+     its device time beside step_time_bound_s and each term; (b)
+     unlearn_cell's streamed and fused programs at one rank's share (4 of
+     the 64 forget rows x 4096 tokens, one yi-6b attention block at full
+     width), streamed == fused bit for bit, each timed beside its predicted
+     terms, then the fused step replayed with ``use_kernel=True`` (the
+     counters zeroed before and read after: 1 launch over the block's 9
+     leaves), bit for bit against the plain step; (c) qwen1.5-32b x
+     train_4k and hill-climb's qwen_fsdp counted on the host, their record
+     lines;
  14. [moe]: the MoE LM llama4-scout-17b-a16e at full width (d_model
      5120, 40 heads over 8 KV heads of 128, 16 experts of d_ff 8192,
      top-1, a shared expert of 8192, capacity factor 1.25, vocab 202,048,
@@ -272,9 +305,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
      not bit for bit;
  16. [serve]: the streamed Fisher refresh and the serving loop
      (``repro_torch.launch.serve.ForgetService`` on a one-tenant
-     ``repro_torch.fleet.Fleet``) on gemma3-1b at full width and 12 of its
+     ``repro_torch.fleet.Fleet``) on gemma3-1b at full width and 6 of its
      26 blocks (``SERVE_BLOCKS``; 26 until the [shard] and [cache]
-     phases), bf16, from a CUDA
+     phases, 12 until the [qwen] and [dryrun] phases), bf16, from a CUDA
      generator seeded with 0: make_lm_domains (vocabulary 512, 4 domains x
      16 sequences of 160 tokens); 3 batches of 8 prompts of 128 tokens, 32
      greedy tokens each (chunked prefill, then decode_step); forget bursts
@@ -290,7 +323,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
      the first, the staleness oracle), every parameter finite, int8 on its
      q8 grids; then a one-tenant Fleet on the same ServeSpec's lowering
      with ``use_kernel=True`` and the same submissions, the counters zeroed
-     before and read after (28 launches over 220 leaves a drain), its
+     before and read after (16 launches over 112 leaves a drain), its
      served tree and Fisher bit for bit the service's; the fp32 service
      layerwise == scanned bit for bit; a guarded drain (``GuardSpec()``)
      under a ``nan_batch`` fault in both its attempts: rejected, requeued,
@@ -332,7 +365,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
      without a drain in flight, each drain's wall on the worker, peak
      memory and the phase's seconds;
  18. [fleet]: ``serve.run_fleet`` (the loop of ``serve --fleet``) on two
-     gemma3-1b FULL tenants, seeds 0 and 1 (one family), built by the
+     gemma3-1b tenants at full width and 12 of its 26 blocks
+     (``FLEET_BLOCKS``; all 26 until the [qwen] and [dryrun] phases), seeds
+     0 and 1 (one family), built by the
      card's builder (data at vocabulary 512), with the reference CLI's
      traffic (8 requests of 16 prompt tokens, 8 generated, prefill block 8,
      3 batches, bursts "1,2;3,2" after batch 1, scanned), every gate of
@@ -392,7 +427,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
      beside two single requests. The dampen entries of the
      ``kernels`` line carry the [scanned] phase's launches and leaves,
      the [lm] phase's (``lm_*`` keys), the [recurrent] phase's
-     (``rec_*``), the [dense] phase's (``dense_*``), the [moe] phase's
+     (``rec_*``), the [dense] phase's (``dense_*``), the [qwen] and
+     [dryrun] phases' (``qwen_*``, ``dryrun_*``), the [moe] phase's
      (``moe_*``), the [encdec] phase's (``encdec_*``), the [serve]
      phase's (``serve_*``) and the [stream], [fleet], [recover] and [load]
      phases' (``stream_*``, ``fleet_*``, ``recover_*``, ``load_*``) and
@@ -424,15 +460,6 @@ OTHER_CLASS = 5
 # rows of one gemm_fisher_int8 call in the [fisher kernels] phase: its int8
 # operands carry one scale per column of each such block of N
 Q8_GEMM_ROWS = 1024
-# Peak rates of the card (NVIDIA data sheets, dense): device memory in
-# bytes/s, f32 on the SIMT cores in FLOP/s, int8 on the tensor cores in
-# OP/s, TF32 on the tensor cores in FLOP/s. A kernel's bound is the larger
-# of its bytes over the first and its operations over the rate of their
-# type.
-PEAKS = {"H100 PCIe": (2.0e12, 51e12, 1513e12, 378e12),
-         "H100 NVL": (3.9e12, 60e12, 1671e12, 418e12),
-         "H200": (4.8e12, 67e12, 1979e12, 495e12),
-         "H100": (3.35e12, 67e12, 1979e12, 495e12)}
 # the card's L2: timed operand sets rotate through more than this
 L2_BYTES = 50e6
 # the [lm] phase: the arch served at full width, its sequence length (more
@@ -445,8 +472,10 @@ LM_ARCH = "gemma3-1b"
 # (parameters, stored leaves, layer leaves, unlearn layers): two of the
 # 26 blocks' local/global periods since the [train] phase, which this cut
 # (114.8 -> 67.1 s), recurrentgemma-9b's 5 -> 3 and yi-6b's 8 -> 4 pay for
-# (tools/train_phase.py --cuts; PERF.md section 6). [stream] and [fleet]
-# run gemma3-1b with all 26 blocks; [serve] with SERVE_BLOCKS
+# (tools/train_phase.py --cuts; PERF.md section 6). Not cut to one period:
+# [shard] runs on these weights, and is the card's only sharded run of a
+# stack of more than one period. [stream] runs gemma3-1b with all 26
+# blocks; [serve] with SERVE_BLOCKS
 LM_BLOCKS = 12
 LM_WANT = (624_062_592, 56, 110, 14)
 LM_SEQ = 1024
@@ -471,11 +500,14 @@ def log(msg: str) -> None:
 
 def peaks(name: str):
     """(memory bytes/s, f32 FLOP/s, int8 OP/s, TF32 FLOP/s) of the card
-    ``name``."""
-    for key, rates in PEAKS.items():
-        if key in name:
-            return rates
-    raise RuntimeError(f"no peak rates on record for card {name!r}")
+    ``name``, from the port's one table of peaks,
+    ``repro_torch.launch.roofline.PEAKS`` (NVIDIA's data sheets, dense),
+    which the dry run's roofline reads too. A kernel's bound is the larger
+    of its bytes over the first and its operations over the rate of their
+    type."""
+    from repro_torch.launch.roofline import peaks as card_peaks
+    r = card_peaks(name)
+    return r["hbm"], r["f32"], r["int8"], r["tf32"]
 
 
 def cuda_time_ms(fn, iters: int, *, queue_ahead: bool = False) -> float:
@@ -2785,6 +2817,530 @@ def dense_phase(dev, rate, zero_counts, dampen_counts, fisher_counts):
     return out, gerr
 
 
+# the [qwen] phase: qwen1.5-32b at full width (d_model 5120, 40 heads over
+# 40 KV heads of 128 with q/k/v biases under RoPE, d_ff 27,392, vocabulary
+# 152,064, untied) and 2 of its 64 blocks: two 778.6 M embedding and head
+# matrices and 525.6 M a block, 5.2 GB in bf16 and a 10.4 GB f32 Fisher.
+# Its expected (parameters, stored leaves, layer leaves, unlearn layers),
+# its alpha (as yi-6b's and gemma3-1b's) and checkpoints every 2 layers
+# (l = 1, 2, 4: the halting request's tau is read at l = 2). [dryrun]
+# serves its decode cell on these weights
+QWEN_ARCH = "qwen1.5-32b"
+QWEN_BLOCKS = 2
+QWEN_WANT = (2_608_389_120, 15, 27, 4)
+QWEN_ALPHA = 25.0
+
+
+def qwen_phase(dev, rate, zero_counts, dampen_counts, fisher_counts, keep):
+    """[qwen]: qwen1.5-32b at full width and QWEN_BLOCKS blocks through
+    ``Unlearner.forget``: ssd in fp32 and int8 (8 x 1024 tokens at chunk
+    2), a halting ficabu with the kernel against the plain one, kernel ==
+    plain, the group kernels on its tables. Leaves its weights in
+    ``keep`` for [dryrun]. Returns the kernels line's figures and the
+    largest |err| per kernel."""
+    from repro_torch import bridge
+    from repro_torch.api import (ForgetRequest, QuantSpec, Unlearner,
+                                 UnlearnSpec)
+    from repro_torch.configs import get as get_arch
+    from repro_torch.core import adapters
+    from repro_torch.core.schedule import checkpoint_set
+    from repro_torch.data import synthetic as syn
+    from repro_torch.kernels import dampen as kd
+    from repro_torch.models import lm as LM
+    from repro_torch.models.module import tree_leaves
+    from repro_torch.optim.compression import INT8_SWEEP_RTOL, q8_quantize
+
+    t_phase = time.perf_counter()
+    gib = 2.0 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    full = get_arch(QWEN_ARCH).full
+    cfg = full.with_(n_layers=QWEN_BLOCKS)
+    t0 = time.perf_counter()
+    params = LM.init_lm(torch.Generator(device=dev).manual_seed(SEED), cfg,
+                        device="cuda")
+    adapter = adapters.lm_adapter(cfg, LM_SEQ, device="cuda")
+    torch.cuda.synchronize()
+    L = adapter.n_layers
+    stored = bridge.paths(params)
+    n_params = sum(t.numel() for t in stored.values())
+    layers = [tree_leaves(adapter.get_layer(params, j)) for j in range(L)]
+    layer_leaves = [len(ls) for ls in layers]
+    n_leaves = sum(layer_leaves)
+    log(f"[qwen] {cfg.name} at full width and {cfg.n_layers} of its "
+        f"{full.n_layers} blocks (d_model {cfg.d_model}, {cfg.n_heads} heads"
+        f" / {cfg.n_kv_heads} KV of {cfg.dh}, q/k/v biases {cfg.qkv_bias} "
+        f"under RoPE theta {cfg.rope_theta}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab}, untied, {cfg.param_dtype}) from torch.Generator("
+        f"'cuda') seed {SEED} in {time.perf_counter() - t0:.1f} s: "
+        f"{n_params} parameters in {len(stored)} stored leaves; {n_leaves} "
+        f"layer leaves in {L} unlearn layers")
+    got = (n_params, len(stored), n_leaves, L)
+    if got != QWEN_WANT:
+        raise AssertionError(f"{cfg.name}: {got} (parameters, stored leaves,"
+                             f" layer leaves, layers), expected {QWEN_WANT}")
+
+    # the group kernels on its distinct layer tables (the embedding, a
+    # block with its q/k/v biases, the head), before the path's counters
+    # are zeroed
+    shapes = list(dict.fromkeys(tuple(tuple(t.shape) for t in ls)
+                                for ls in layers))
+    t0 = time.perf_counter()
+    gcases, gerr = check_group_kernels_against_plain(
+        [list(s) for s in shapes], dev, edges=False, whole=False)
+    log(f"[qwen] grouped dampen and dampen_int8 over its {len(shapes)} "
+        f"distinct layer tables x f32/bf16/int8 x 3 pairs: bit-identical to "
+        f"their plain versions, selection count, launch and leaf counters "
+        f"included, in {gcases} tables, max |err| {gerr} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    toks, doms = syn.make_lm_domains(syn.LMDataConfig(
+        vocab=LM_DATA_VOCAB, n_domains=4, seq_len=LM_SEQ, n_per_domain=8,
+        seed=SEED))
+    split = syn.lm_split_forget_retain(toks, doms, LM_FORGET)
+
+    def request(seqs, tag):
+        inputs = torch.as_tensor(seqs[:, :-1], device=dev).long().contiguous()
+        with torch.no_grad():
+            labels = LM.forward(params, cfg, inputs)[0].argmax(-1)
+        return ForgetRequest(inputs, labels, tag=tag)
+
+    req = request(split["forget"][:8], LM_FORGET)
+    retain = request(split["retain"][:4], "retain")
+    log(f"[qwen] 8 forget and 4 retain sequences of S = {LM_SEQ} tokens "
+        f"(make_lm_domains, vocab {LM_DATA_VOCAB}) with their argmax labels "
+        f"in {time.perf_counter() - t0:.1f} s")
+
+    def spec(mode, **kw):
+        return UnlearnSpec.for_mode(mode, **{
+            "alpha": QWEN_ALPHA, "lam": 1.0, "tau": -1.0,
+            "checkpoint_every": 2, "chunk_size": 2, "use_kernel": True,
+            **kw})
+
+    lssd = Unlearner(adapter, spec=spec("ssd"), device="cuda")
+    t0 = time.perf_counter()
+    lssd.ensure_fisher(lambda p, b: LM.lm_loss(p, cfg, b[0], b[1]), params,
+                       (retain.inputs, retain.labels), chunk_size=2)
+    torch.cuda.synchronize()
+    fisher = lssd.fisher_global
+    log(f"[qwen] ensure_fisher on 4 retain sequences (chunk 2) in "
+        f"{time.perf_counter() - t0:.1f} s; peak "
+        f"{torch.cuda.max_memory_allocated() / gib:.2f} GiB")
+    before = {k: v.clone() for k, v in stored.items()}
+    runs = {}
+    stat_keys = ("stopped_at_l", "checkpoints_hit", "selected_per_layer",
+                 "forget_acc_trace", "macs", "macs_ssd", "macs_vs_ssd_pct")
+
+    def serve(name, unl, path, *, keep_new=False, kernel=True):
+        """One request, checked: with the kernel one launch of its
+        precision's dampen kernel per layer swept, over that layer's
+        leaves, none of the other's (none at all for the plain one);
+        every parameter finite."""
+        c0 = dampen_counts()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        new, st = unl.forget(req, params=params)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t1
+        dc = tuple(b - a for a, b in zip(c0, dampen_counts()))
+        mine, other = (dc[:2], dc[2:]) if path == "fp32" else (dc[2:], dc[:2])
+        stop = st["stopped_at_l"]
+        want_l = ((stop, sum(layer_leaves[L - l] for l in range(1, stop + 1)))
+                  if kernel else (0, 0))
+        log(f"[qwen] {path} {name:22s}: stopped_at_l={stop} checkpoints="
+            f"{st['checkpoints_hit']} macs_vs_ssd_pct="
+            f"{round(st['macs_vs_ssd_pct'], 4)}, launches {mine[0]} over "
+            f"{mine[1]} leaves, builds={st['engine']['compiles']} hits="
+            f"{st['engine']['cache_hits']} wall={secs * 1e3:.1f} ms, peak "
+            f"{torch.cuda.max_memory_allocated() / gib:.2f} GiB")
+        if (mine != want_l or other != (0, 0)
+                or st["engine"]["precision"] != path):
+            raise AssertionError(f"qwen {path} {name}: {st['engine']}, "
+                                 f"launches {dc}, expected {want_l}")
+        if not all(torch.isfinite(t).all() for t in tree_leaves(new)):
+            raise AssertionError(f"qwen {path} {name}: non-finite "
+                                 f"parameters")
+        runs[(path, name)] = (new if keep_new else None, st, mine, secs)
+        return new, st
+
+    def same_as(new, st, path, name):
+        want_new, want_st = runs[(path, name)][:2]
+        a, b = bridge.paths(new), bridge.paths(want_new)
+        diff = [k for k in stat_keys if st[k] != want_st[k]] + [
+            k for k in a if not torch.equal(bits(a[k]), bits(b[k]))]
+        if diff:
+            raise AssertionError(f"qwen {path}: != {name} at {diff}")
+
+    def drop(path, name):
+        runs[(path, name)] = (None,) + runs[(path, name)][1:]
+        torch.cuda.empty_cache()
+
+    zero_counts()                                   # the [qwen] path starts
+    serve("ssd cold", lssd, "fp32")
+    _, st_ssd = serve("ssd warm", lssd, "fp32", keep_new=True)
+    if st_ssd["stopped_at_l"] != L or st_ssd["engine"]["compiles"] != 0:
+        raise AssertionError(f"qwen ssd warm: stopped at "
+                             f"{st_ssd['stopped_at_l']}, built "
+                             f"{st_ssd['engine']['compiles']} steps")
+    new, st = serve("ssd plain", lssd.with_spec(spec("ssd",
+                                                     use_kernel=False)),
+                    "fp32", kernel=False)
+    same_as(new, st, "fp32", "ssd warm")
+    del new
+    log(f"[qwen] fp32 ssd: the forget with the kernel == the plain forget, "
+        f"bit for bit, all {len(stored)} stored leaves and the stats")
+    _, st_nh = serve("ficabu tau=-1", lssd.with_spec(spec("ficabu")), "fp32")
+    cps = checkpoint_set(L, 2)
+    if st_nh["stopped_at_l"] != L or st_nh["checkpoints_hit"] != cps:
+        raise AssertionError(f"qwen ficabu tau=-1 stopped at "
+                             f"{st_nh['stopped_at_l']} through "
+                             f"{st_nh['checkpoints_hit']}")
+    trace = st_nh["forget_acc_trace"]
+    tau = trace[len(trace) // 2][1]
+    serve("ficabu halting", lssd.with_spec(spec("ficabu", tau=tau)), "fp32",
+          keep_new=True)
+    new, st_hp = serve("ficabu halting plain", lssd.with_spec(
+        spec("ficabu", tau=tau, use_kernel=False)), "fp32", kernel=False)
+    same_as(new, st_hp, "fp32", "ficabu halting")
+    del new
+    st_h = runs[("fp32", "ficabu halting")][1]
+    log(f"[qwen] ficabu tau=-1 forget-accuracy trace {trace}; tau {tau}: "
+        f"the kernel request and the plain one both stopped at l = "
+        f"{st_h['stopped_at_l']} of {L} with macs {st_h['macs']} (ssd "
+        f"{st_h['macs_ssd']}), bit for bit")
+    if not st_h["stopped_at_l"] < L:
+        raise AssertionError("qwen ficabu did not halt partway")
+    drop("fp32", "ficabu halting")
+    # int8 ssd, cold and warm: every leaf on its q8 grid, per layer within
+    # INT8_SWEEP_RTOL of the fp32 request; then kernel == plain
+    int8_kw = {"precision": "int8", "quant": QuantSpec()}
+    lssd8 = lssd.with_spec(spec("ssd", **int8_kw))
+    serve("ssd cold", lssd8, "int8")
+    new8, st8 = serve("ssd warm", lssd8, "int8", keep_new=True)
+    if st8["engine"]["compiles"] != 0:
+        raise AssertionError("qwen int8 ssd warm request built steps")
+    if not lm_on_q8_grid(adapter, new8, params, st8["stopped_at_l"]):
+        raise AssertionError("qwen int8 ssd: a leaf left its q8 grid")
+    rel = layer_rel_l2(adapter, new8, runs[("fp32", "ssd warm")][0])
+    log(f"[qwen] int8 ssd vs fp32 ssd: every leaf on its q8 grid; per-layer "
+        f"relative L2 (j = 0..{L - 1}) {[round(r, 6) for r in rel]}")
+    if not all(0.0 < r <= INT8_SWEEP_RTOL for r in rel):
+        raise AssertionError(f"qwen int8 ssd: per-layer error {rel} outside "
+                             f"(0, {INT8_SWEEP_RTOL}]")
+    del new8
+    drop("fp32", "ssd warm")
+    new, st = serve("ssd plain", lssd.with_spec(spec(
+        "ssd", use_kernel=False, **int8_kw)), "int8", kernel=False)
+    same_as(new, st, "int8", "ssd warm")
+    del new
+    drop("int8", "ssd warm")
+    log(f"[qwen] int8 ssd: the forget with the kernel == the plain forget, "
+        f"bit for bit, all {len(stored)} stored leaves and the stats")
+    path_counts = dampen_counts()                   # the [qwen] path ends
+    if fisher_counts() != (0, 0, 0, 0):
+        raise AssertionError(f"qwen requests launched fimd/gemm/rowscale "
+                             f"{fisher_counts()}")
+    for k, t in stored.items():
+        if not torch.equal(bits(t), bits(before[k])):
+            raise AssertionError(f"qwen: a request edited the caller's {k}")
+    del before
+    request_peak = torch.cuda.max_memory_allocated() / gib
+    log(f"[qwen] the caller's tree unchanged after every request; dampen "
+        f"counters over the path {path_counts}; torch.cuda."
+        f"max_memory_allocated {request_peak:.2f} GiB "
+        f"({time.perf_counter() - t_phase:.1f} s into the phase)")
+
+    # where a warm ssd request spends its time: its wall from the warm
+    # request above, the device's from one more under the profiler
+    prof = {}
+    for path, unl in (("fp32", lssd), ("int8", lssd8)):
+        wall = runs[(path, "ssd warm")][3] * 1e3
+        t0 = time.perf_counter()
+        busy, n_kernels, ranked = profile_request(
+            lambda: unl.forget(req, params=params), cpu=False)
+        damp = [(ms, count) for name, ms, count in ranked
+                if "dampen_group_kernel" in name]
+        prof[path] = (wall, busy, n_kernels)
+        log(f"[profile] warm qwen1.5-32b {path} ssd request: wall "
+            f"{wall:.2f} ms, device busy {busy:.3f} ms, idle share "
+            f"{1 - busy / wall:.3f}, {n_kernels} device kernels, of them "
+            f"{sum(c for _, c in damp)} dampen_group_kernel "
+            f"({sum(ms for ms, _ in damp):.4f} ms); profiled in "
+            f"{time.perf_counter() - t0:.1f} s")
+        for name, ms, count in ranked[:6]:
+            log(f"[profile]   {ms:9.3f} ms  x{count:<6d} {name[:70]}")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    tables = lm_tables(adapter, params, fisher, gen, dev)
+    n_el = sum(t.numel() for ths, _, _ in tables for t in ths)
+
+    def sweep(fn, tabs):
+        for ths, i_fs, i_gs in tabs:
+            fn(ths, i_fs, i_gs, QWEN_ALPHA, 1.0)
+
+    tl = {"fp32": cuda_time_ms(lambda: sweep(kd.dampen_group_cuda, tables),
+                               5, queue_ahead=True),
+          "fp32_plain": cuda_time_ms(
+              lambda: sweep(kd.dampen_group_ref, tables), 1,
+              queue_ahead=True)}
+    tables = [([q8_quantize(th)[0] for th in ths], i_fs, i_gs)
+              for ths, i_fs, i_gs in tables]
+    tl["int8"] = cuda_time_ms(lambda: sweep(kd.dampen_int8_group_cuda,
+                                            tables), 5, queue_ahead=True)
+    tl["int8_plain"] = cuda_time_ms(
+        lambda: sweep(kd.dampen_int8_group_ref, tables), 1, queue_ahead=True)
+    del tables
+    # bf16 theta: 2 + 4 + 4 read, 2 + 1 written; int8 codes: 1 + 4 + 4
+    # read, 1 + 1 written; and each layer's 8-byte count
+    lbound = {"fp32": (n_el * 13 + 8 * L) / rate * 1e3,
+              "int8": (n_el * 11 + 8 * L) / rate * 1e3}
+    for kernel, path in (("dampen", "fp32"), ("dampen_int8", "int8")):
+        share = lbound[path] / tl[path] * 100
+        log(f"[time] {kernel} qwen1.5-32b sweep device ({L} grouped "
+            f"launches, {n_el} elements, "
+            f"{'bf16 theta' if path == 'fp32' else 'int8'}): kernel "
+            f"{tl[path]:.5f} ms, plain {tl[path + '_plain']:.5f} ms, bound "
+            f"{lbound[path]:.5f} ms ({share:.1f}% of the memory bound)")
+    secs = time.perf_counter() - t_phase
+    log(f"[qwen] phase done in {secs:.1f} s; torch.cuda.max_memory_allocated"
+        f" {torch.cuda.max_memory_allocated() / gib:.2f} GiB")
+    out = {}
+    for path in ("fp32", "int8"):
+        out[path] = {
+            "qwen_launches": path_counts[0 if path == "fp32" else 2],
+            "qwen_leaves": path_counts[1 if path == "fp32" else 3],
+            "qwen_launches_per_ssd_request": runs[(path, "ssd warm")][2][0],
+            "qwen_leaves_per_ssd_request": runs[(path, "ssd warm")][2][1],
+            "qwen_sweep_ms": tl[path],
+            "qwen_sweep_plain_ms": tl[path + "_plain"],
+            "qwen_sweep_bound_ms": lbound[path],
+            "qwen_warm_ssd_wall_ms": prof[path][0],
+            "qwen_warm_ssd_device_busy_ms": prof[path][1],
+            "qwen_warm_ssd_device_kernels": prof[path][2],
+        }
+    out["fp32"].update({
+        "qwen_halting_ficabu_launches_leaves": list(
+            runs[("fp32", "ficabu halting")][2]),
+        "qwen_request_peak_gib": request_peak, "qwen_phase_seconds": secs})
+    del fisher, lssd, lssd8, runs, stored, layers
+    keep.update(params=params, cfg=cfg)
+    del params
+    torch.cuda.empty_cache()
+    return out, gerr
+
+
+def dryrun_phase(dev, card, zero_counts, dampen_counts, fisher_counts, keep):
+    """[dryrun]: the launchers' cost model against the card. (a) the
+    qwen1.5-32b decode_32k cell at 2 blocks: run_cell's terms at the
+    card's peaks for one rank of the 16 x 16 mesh, and that rank's program
+    (8 of 128 rows, one token against a 32,768-token cache) run on
+    [qwen]'s weights, its device time beside the bound; (b) unlearn_cell's
+    streamed and fused programs at one rank's share (4 of 64 rows x 4096
+    tokens, one yi-6b attention block at full width), each timed beside
+    its terms, streamed == fused, and the fused step replayed with the
+    kernel bit for bit; (c) qwen1.5-32b x train_4k and hill-climb's
+    qwen_fsdp counted on the host. Returns the kernels line's figures."""
+    import dataclasses
+
+    from repro_torch.configs import SHAPES
+    from repro_torch.configs import get as get_arch
+    from repro_torch.core.ssd import dampen_tree
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch import hillclimb as HC
+    from repro_torch.launch import specs as SP
+    from repro_torch.launch import unlearn_cell as UC
+    from repro_torch.launch.mesh import abstract_production_mesh
+    from repro_torch.models import lm as LM
+    from repro_torch.models.module import tree_leaves, tree_map
+
+    t_phase = time.perf_counter()
+    gib = 2.0 ** 30
+    out = {}
+    # (a) the decode cell
+    params, cfg = keep["params"], keep["cfg"]
+    over = {"n_layers": QWEN_BLOCKS}
+    rec = DR.run_cell(QWEN_ARCH, "decode_32k", False, over, card=card)
+    terms, cnt = rec["roofline"], rec["count"]
+    spec = get_arch(QWEN_ARCH)
+    spec = dataclasses.replace(spec, full=spec.full.with_(**over))
+    if spec.full != cfg:
+        raise AssertionError(f"[dryrun] the cell's config {spec.full} is not "
+                             f"[qwen]'s {cfg}")
+    cell = SP.build_cell(spec, "decode_32k", abstract_production_mesh())
+    rows, S = cnt["rows_per_rank"], SHAPES["decode_32k"].seq_len
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    torch.cuda.reset_peak_memory_stats()
+    cache = LM.init_cache(cfg, rows, S, device="cuda")
+    cache = tree_map(lambda t: torch.randn(t.shape, generator=gen,
+                                           device=dev).to(t.dtype), cache)
+    token = torch.randint(0, cfg.vocab, (rows, 1), generator=gen, device=dev)
+    cache_gb = sum(t.numel() * t.element_size()
+                   for t in tree_leaves(cache)) / 1e9
+    with torch.no_grad():
+        logits, new_cache = cell.fn(params, cache, token, S - 1)
+        torch.cuda.synchronize()
+        ok = (tuple(logits.shape) == (rows, 1, cfg.vocab)
+              and bool(torch.isfinite(logits).all())
+              and all(bool(torch.isfinite(t).all())
+                      for t in tree_leaves(new_cache)))
+        del new_cache
+        ms = cuda_time_ms(lambda: cell.fn(params, cache, token, S - 1), 3)
+    if not ok:
+        raise AssertionError("[dryrun] the decode cell's logits or cache are "
+                             "not finite or not [rows, 1, vocab]")
+    peak = torch.cuda.max_memory_allocated() / gib
+    bound = terms["step_time_bound_s"] * 1e3
+    device_bound = max(terms["compute_s"], terms["memory_s"]) * 1e3
+    floor = terms["data_floor_s"] * 1e3
+    log(f"[dryrun] {rec['arch']} x decode_32k at {QWEN_BLOCKS} blocks on the "
+        f"{rec['mesh']} mesh, one rank ({rows} of 128 rows, one token against "
+        f"a {S}-token cache of {cache_gb:.2f} GB, bf16): counted on the host "
+        f"in {rec['compile_full_s']} s ({cnt['method']}, {cnt['ops']} ops): "
+        f"{rec['cost']['flops']:.6e} FLOPs, {rec['cost']['bytes accessed']:.6e}"
+        f" bytes, {rec['collectives']['bytes_per_device']} collective bytes; "
+        f"at {card}'s peaks compute {terms['compute_s'] * 1e3:.4f} ms, memory "
+        f"{terms['memory_s'] * 1e3:.4f} ms, collective "
+        f"{terms['collective_s'] * 1e3:.4f} ms, dominant {terms['dominant']},"
+        f" step_time_bound {bound:.4f} ms; data floor (the weights and the "
+        f"cache read once, {rec['memory']['argument_size_in_bytes']} bytes) "
+        f"{floor:.4f} ms")
+    log(f"[dryrun] measured on the card: that rank's program on [qwen]'s "
+        f"weights {ms:.4f} ms of device time (CUDA events, mean of 3) = "
+        f"{ms / bound:.3f} x step_time_bound_s, {ms / device_bound:.3f} x "
+        f"the larger of compute and memory (no collective runs on one "
+        f"card), {ms / floor:.3f} x the data floor; logits [{rows}, 1, "
+        f"{cfg.vocab}] finite; peak {peak:.2f} GiB")
+    out["dryrun_decode_ms"] = ms
+    out["dryrun_decode_bound_ms"] = bound
+    out["dryrun_decode_data_floor_ms"] = floor
+    out["dryrun_decode_terms_ms"] = {
+        k: terms[k + "_s"] * 1e3 for k in ("compute", "memory",
+                                           "collective")}
+    del cache, token, logits
+    keep.clear()
+    del params
+    torch.cuda.empty_cache()
+
+    # (b) unlearn_cell at one rank's share
+    t0 = time.perf_counter()
+    pred = UC.run(card=card)
+    ycfg = get_arch(UC.ARCH).full
+    rows = pred["rows_per_rank"]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    blk = LM.init_block(gen, ycfg, "attn", device=dev)
+    act = torch.randn(rows, UC.SEQ, ycfg.d_model, generator=gen,
+                      device=dev).to(torch.bfloat16)
+    cot = (torch.randn(rows, UC.SEQ, ycfg.d_model, generator=gen,
+                       device=dev) * 1e-3).to(torch.bfloat16)
+    layer = UC.layer_fn(ycfg)
+    grads, damp = UC.grads_program(layer), UC.dampen_program
+    g_blk, g_act = grads(blk, act, cot)
+    fish = UC.fimd_program(g_blk)
+    # a global Fisher under the forget one: about half the entries pass
+    # alpha = 10
+    fish_g = tree_map(lambda f: f * torch.rand(f.shape, generator=gen,
+                                               device=dev) * 0.2, fish)
+    with torch.no_grad():
+        new_s, masks = dampen_tree(blk, fish, fish_g, UC.SPEC.dampen.alpha,
+                                   UC.SPEC.dampen.lam)
+    n_s = int(sum(m.sum() for m in tree_leaves(masks)))
+    step = UC.fused_program(layer)
+    acts_c, cot_c = act[None], cot[None]
+    new_f, g_act_f, n_f = step(None, blk, fish_g, acts_c, cot_c, UC.scalars())
+    same = (all(torch.equal(bits(a), bits(b)) for a, b in
+                zip(tree_leaves(new_s), tree_leaves(new_f)))
+            and torch.equal(bits(g_act), bits(g_act_f[0]))
+            and int(n_f) == n_s)
+    log(f"[dryrun] unlearn_cell (yi-6b attention block, {rows} of "
+        f"{UC.N_FORGET} rows x {UC.SEQ} tokens, alpha "
+        f"{UC.SPEC.dampen.alpha}): streamed (vjp, squares, dampen_tree) == "
+        f"fused (engine.build_fused_step) bit for bit on all "
+        f"{len(tree_leaves(new_s))} leaves, the input cotangent and the "
+        f"selection count ({n_s}): {same}")
+    if not same:
+        raise AssertionError("[dryrun] unlearn_cell: the streamed step and "
+                             "the fused step differ")
+    zero_counts()                                 # the [dryrun] path starts
+    step_k = UC.fused_program(layer, use_kernel=True)
+    new_k, g_act_k, n_k = step_k(None, blk, fish_g, acts_c, cot_c,
+                                 UC.scalars())
+    torch.cuda.synchronize()
+    path_counts = dampen_counts()                 # the [dryrun] path ends
+    n_blk = len(tree_leaves(blk))
+    if path_counts != (1, n_blk, 0, 0) or fisher_counts() != (0, 0, 0, 0):
+        raise AssertionError(f"[dryrun] the kernel replay launched "
+                             f"{path_counts}, {fisher_counts()}")
+    if not (all(torch.equal(bits(a), bits(b)) for a, b in
+                zip(tree_leaves(new_k), tree_leaves(new_f)))
+            and torch.equal(bits(g_act_k), bits(g_act_f))
+            and int(n_k) == int(n_f)):
+        raise AssertionError("[dryrun] the fused step with the kernel != "
+                             "the plain fused step")
+    log(f"[dryrun] the fused step replayed with use_kernel=True: dampen "
+        f"{path_counts[0]} launch over {path_counts[1]} leaves, == the plain "
+        f"step bit for bit (block, cotangent, count)")
+    del new_s, masks, new_f, new_k, g_act_f, g_act_k
+    t_ms = {
+        "grads": cuda_time_ms(lambda: grads(blk, act, cot), 3),
+        "fimd": cuda_time_ms(lambda: UC.fimd_program(g_blk), 3),
+        "dampen": cuda_time_ms(lambda: damp(blk, fish, fish_g), 3),
+        "fused": cuda_time_ms(lambda: step(None, blk, fish_g, acts_c, cot_c,
+                                           UC.scalars()), 3),
+        "fused_kernel": cuda_time_ms(lambda: step_k(
+            None, blk, fish_g, acts_c, cot_c, UC.scalars()), 3)}
+    t_ms["streamed"] = t_ms["grads"] + t_ms["fimd"] + t_ms["dampen"]
+    parts = {"streamed": f"grads {t_ms['grads']:.4f} + fimd "
+                         f"{t_ms['fimd']:.4f} + dampen {t_ms['dampen']:.4f}",
+             "fused": f"with the kernel {t_ms['fused_kernel']:.4f}"}
+    for name in ("streamed", "fused"):
+        p = pred[name]
+        b = max(p["compute_s"], p["memory_s"]) * 1e3
+        log(f"[dryrun] unlearn_cell {name}: measured {t_ms[name]:.4f} ms of "
+            f"device time (mean of 3; {parts[name]} ms); predicted at "
+            f"{card}'s peaks: compute {p['compute_s'] * 1e3:.4f} ms, memory "
+            f"{p['memory_s'] * 1e3:.4f} ms, collective "
+            f"{p['collective_s'] * 1e3:.4f} ms ({p['flops']:.6e} FLOPs, "
+            f"{p['bytes']:.6e} bytes); measured / max(compute, memory) "
+            f"{t_ms[name] / b:.3f}")
+    log(f"[dryrun] unlearn_cell speedup_memory_term (streamed / fused) "
+        f"{pred['speedup_memory_term']:.4f} predicted, measured streamed / "
+        f"fused {t_ms['streamed'] / t_ms['fused']:.4f} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    out["dryrun_unlearn_cell_ms"] = t_ms
+    out["dryrun_unlearn_cell_predicted"] = {
+        name: {k: pred[name][k] for k in ("compute_s", "memory_s",
+                                          "collective_s")}
+        for name in ("streamed", "fused")}
+    out["dryrun_fused_kernel_launches_leaves"] = list(path_counts[:2])
+    del blk, act, cot, g_blk, g_act, fish, fish_g
+    torch.cuda.empty_cache()
+
+    # (c) one full-configuration cell on the host, hill-climb's beside it
+    t0 = time.perf_counter()
+    exp = HC.EXPERIMENTS["qwen_fsdp"]
+    for name, over in (("baseline", None), ("qwen_fsdp", exp["overrides"])):
+        r = DR.run_cell(exp["arch"], exp["shape"], False, over, card=card)
+        t = r["roofline"]
+        line = {"experiment": name, "overrides": over,
+                "compile_full_s": r["compile_full_s"],
+                "count": r["count"], "memory": r["memory"],
+                "cost": r["cost"], "collectives": r["collectives"],
+                **{k: t[k] for k in ("compute_s", "memory_s", "collective_s",
+                                     "dominant", "useful_flops_ratio",
+                                     "roofline_fraction",
+                                     "step_time_bound_s")}}
+        log(f"[dryrun] {exp['arch']} x {exp['shape']} {name}: "
+            f"{json.dumps(line)}")
+        out[f"dryrun_qwen_train_{name}_bound_s"] = t["step_time_bound_s"]
+    host_s = time.perf_counter() - t0
+    if host_s > 90:
+        raise AssertionError(f"[dryrun] the host cells took {host_s:.1f} s")
+    secs = time.perf_counter() - t_phase
+    log(f"[dryrun] host cells in {host_s:.1f} s; phase done in {secs:.1f} s")
+    out["dryrun_phase_seconds"] = secs
+    return out
+
+
 def moe_dispatches(adapter, cfg, params, inputs, chunk):
     """Each MoE block's dispatch of a request's tokens as the request makes
     it: over all its sequences (the collection) and over each vjp chunk of
@@ -3696,7 +4252,8 @@ def encdec_phase(dev, rate, zero_counts, dampen_counts, fisher_counts):
 
 
 # the [serve] phase: gemma3-1b at full width and SERVE_BLOCKS of its 26
-# blocks (the cut that pays for [shard] and [cache]: PERF.md section 4)
+# blocks (26 -> 12 paid for [shard] and [cache], 12 -> 6 for [qwen] and
+# [dryrun]: PERF.md section 4)
 # served through the port's batch-mode
 # serving loop (``repro_torch.launch.serve``) as ``serve.main`` builds it:
 # make_lm_domains, 4 domains x 16 sequences of 128 + 32 tokens (at the LM
@@ -3707,8 +4264,8 @@ def encdec_phase(dev, rate, zero_counts, dampen_counts, fisher_counts):
 # lambda 1, tau 0.6, checkpoints every 2 layers, chunk 4, and a refresh of
 # 2 retain microbatches at decay 0.5 after every drain
 SERVE_ARCH = "gemma3-1b"
-SERVE_BLOCKS = 12
-SERVE_WANT = LM_WANT[:2]        # (parameters, stored leaves) at 12 blocks
+SERVE_BLOCKS = 6
+SERVE_WANT = (463_026_816, 56)  # (parameters, stored leaves) at 6 blocks
 SERVE_PROMPT = 128
 SERVE_GEN = 32
 SERVE_REQUESTS = 8
@@ -4511,7 +5068,7 @@ def _stream_phase(dev, rate, zero_counts, dampen_counts, fisher_counts,
 
 
 # [fleet] (phase 18), [recover] (19) and [load] (20): --fleet's loop on two
-# gemma3-1b FULL tenants (seeds 0 and 1: one family) with the reference
+# gemma3-1b tenants (seeds 0 and 1: one family) with the reference
 # CLI's traffic, built by the card's own builder (data at LM_DATA_VOCAB)
 FLEET_SPEC = {"tenants": [{"name": "t0", "arch": SERVE_ARCH, "seed": 0},
                           {"name": "t1", "arch": SERVE_ARCH, "seed": 1}],
@@ -4522,6 +5079,10 @@ FLEET_TRAFFIC = {"requests": 8, "prompt_len": 16, "gen_len": 8,
                  "forget_domain": 1}
 # [recover]: gemma3-1b at full width and one local/global period of its
 # blocks, sequences of RECOVER_SEQ tokens
+# the depth of [fleet]'s and [load]'s gemma3-1b tenants (None: all 26; 12
+# since the [qwen] and [dryrun] phases, 31.6 -> 13.6 s and 44.6 -> 17.6 s
+# on an NVIDIA H100 80GB HBM3 at 700 W)
+FLEET_BLOCKS = 12
 RECOVER_BLOCKS = 6
 RECOVER_SEQ = 128
 # [load]: the harness's virtual ticks
@@ -4564,7 +5125,8 @@ def fleet_phase(dev, zero_counts, dampen_counts, fisher_counts):
     fspec = FleetSpec.from_dict(FLEET_SPEC)
 
     def build(t):
-        return card_lm_tenant(t, args.prompt_len + args.gen_len)
+        return card_lm_tenant(t, args.prompt_len + args.gen_len,
+                              n_layers=FLEET_BLOCKS)
 
     with deterministic_algorithms():
         zero_counts()                          # the [fleet] path starts
@@ -4590,7 +5152,8 @@ def fleet_phase(dev, zero_counts, dampen_counts, fisher_counts):
             f" (batch, tokens, latency s)")
     secs = time.perf_counter() - t_phase
     peak = torch.cuda.max_memory_allocated() / 2.0 ** 30
-    log(f"[fleet] fleet check ok: {len(fleet.tenants)} gemma3-1b FULL "
+    depth = "FULL" if FLEET_BLOCKS is None else f"{FLEET_BLOCKS}-block"
+    log(f"[fleet] fleet check ok: {len(fleet.tenants)} gemma3-1b {depth} "
         f"tenants, {sum(rt.groups for rt in fleet.tenants.values())} drain "
         f"groups; the shared cache built {st['compiles']} programs and hit "
         f"{st['hits']} times across {st['sessions']} sessions; tenant "
@@ -4768,7 +5331,9 @@ def load_phase(dev):
             with deterministic_algorithms():
                 fleet = Fleet.from_spec(
                     FleetSpec.from_dict(FLEET_SPEC),
-                    lambda t: card_lm_tenant(t, seq_len), device="cuda")
+                    lambda t: card_lm_tenant(t, seq_len,
+                                             n_layers=FLEET_BLOCKS),
+                    device="cuda")
                 tel = telemetry.Telemetry(path=str(tmp / f"events{i}.jsonl"),
                                           clock=telemetry.VirtualClock())
                 t0 = time.perf_counter()
@@ -5858,6 +6423,18 @@ def main() -> int:
     for k in gmax_err:
         gmax_err[k] = max(gmax_err[k], dense_err[k])
 
+    # 13b. [qwen]: qwen1.5-32b at full width and 2 of its 64 blocks, fp32
+    # (bf16 weights) and int8, a halting ficabu kernel against plain;
+    # 13c. [dryrun]: the launchers' terms against the card, its decode cell
+    # on [qwen]'s weights
+    qkeep = {}
+    qwen, qwen_err = qwen_phase(dev, rate, zero_counts, dampen_counts,
+                                fisher_counts, qkeep)
+    for k in gmax_err:
+        gmax_err[k] = max(gmax_err[k], qwen_err[k])
+    dry = dryrun_phase(dev, kind, zero_counts, dampen_counts, fisher_counts,
+                       qkeep)
+
     # 14. [moe]: llama4-scout at full width and 1 of its 48 blocks, fp32
     # (bf16 weights, the f32 router) and int8, layerwise and scanned
     moe, moe_err = moe_phase(dev, rate, zero_counts, dampen_counts,
@@ -5872,7 +6449,7 @@ def main() -> int:
     for k in gmax_err:
         gmax_err[k] = max(gmax_err[k], encdec_err[k])
 
-    # 16. [serve]: gemma3-1b (12 blocks) through the serving loop, the
+    # 16. [serve]: gemma3-1b (6 blocks) through the serving loop, the
     # streamed Fisher refresh, the kernel fleet, layerwise and a guarded
     # abort
     served = serve_phase(dev, rate, zero_counts, dampen_counts,
@@ -6343,8 +6920,9 @@ def main() -> int:
         "vit_sweep_ms": tv["fp32"], "vit_sweep_plain_ms": tv["fp32_plain"],
         "vit_sweep_bound_ms": vbound["fp32"],
         **scanned_keys("fp32"), **lm["fp32"], **rec["fp32"],
-        **dense["fp32"], **moe["fp32"], **encdec["fp32"],
-        **served["fp32"], **streamed, **sharded["fp32"], **cached,
+        **dense["fp32"], **qwen["fp32"], **dry, **moe["fp32"],
+        **encdec["fp32"], **served["fp32"], **streamed, **sharded["fp32"],
+        **cached,
         "max_abs_err": max(max_err, gmax_err["dampen"]),
         "ms": t["sweep_kernel"], "plain_ms": t["sweep_plain"],
         "bound_ms": bound["sweep"], "bound_by": "bytes",
@@ -6372,7 +6950,7 @@ def main() -> int:
         "vit_sweep_ms": tv["int8"], "vit_sweep_plain_ms": tv["int8_plain"],
         "vit_sweep_bound_ms": vbound["int8"],
         **scanned_keys("int8"), **lm["int8"], **rec["int8"],
-        **dense["int8"], **moe["int8"], **encdec["int8"],
+        **dense["int8"], **qwen["int8"], **moe["int8"], **encdec["int8"],
         **served["int8"], **sharded["int8"],
         "max_abs_err": max(max_err8, gmax_err["dampen_int8"]),
         "ms": t8["sweep_kernel"], "plain_ms": t8["sweep_plain"],

@@ -105,10 +105,45 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str], *,
     return Mesh(DeviceMesh(dev.type, ranks, mesh_dim_names=axes))
 
 
+def production_mesh_shape(multi_pod: bool = False
+                          ) -> Tuple[Tuple[int, ...], Tuple[str, ...]]:
+    """(extents, axis names) of the production mesh."""
+    if multi_pod:
+        return (2, 16, 16), ("pod", "data", "model")
+    return (16, 16), HOST_AXES
+
+
+class AbstractMesh:
+    """A mesh by its shape alone, for the dry run: ``shape`` (axis name ->
+    extent, in order), ``axis_names`` and ``size``, which is all the
+    sharding rules read. It starts no process group and names no device."""
+
+    def __init__(self, shape: Sequence[int], axes: Sequence[str]):
+        if len(shape) != len(axes):
+            raise ValueError(f"AbstractMesh got {len(shape)} extents "
+                             f"{tuple(shape)} for {len(axes)} axis names "
+                             f"{tuple(axes)}")
+        self.axis_names = tuple(axes)
+        self.shape = dict(zip(self.axis_names, (int(n) for n in shape)))
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape.values())
+
+    def __repr__(self) -> str:
+        dims = ", ".join(f"{a}={n}" for a, n in self.shape.items())
+        return f"AbstractMesh({dims})"
+
+
+def abstract_production_mesh(multi_pod: bool = False) -> AbstractMesh:
+    """The production mesh's shape (16 x 16, or 2 x 16 x 16 with
+    ``multi_pod``) as an ``AbstractMesh``: no 256 processes."""
+    return AbstractMesh(*production_mesh_shape(multi_pod))
+
+
 def make_production_mesh(*, multi_pod: bool = False,
                          device="cuda") -> Mesh:
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else HOST_AXES
+    shape, axes = production_mesh_shape(multi_pod)
     n = math.prod(shape)
     have = dist.get_world_size() if dist.is_initialized() else 1
     if have < n:

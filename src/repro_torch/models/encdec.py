@@ -26,7 +26,7 @@ from repro_torch.device import resolve_device
 
 from . import layers as L
 from .lm import _positions, _stack, softmax_xent
-from .module import Params, dense_init, embed_init, index_tree
+from .module import Params, dense_init, embed_init, index_tree, unbind_tree
 
 F32 = torch.float32
 
@@ -125,8 +125,8 @@ def encode(params: Params, cfg: EncDecConfig,
     """frames [B, n_frames, d_model] stub embeddings -> the memory."""
     x = frames.to(cfg.dtype)
     pos = _positions(x)
-    for i in range(cfg.n_enc_layers):
-        x = enc_block(index_tree(params["encoder"], i), cfg, x, pos)
+    for p in unbind_tree(params["encoder"], cfg.n_enc_layers):
+        x = enc_block(p, cfg, x, pos)
     return L.rmsnorm(params["enc_norm"], x)
 
 
@@ -144,8 +144,8 @@ def forward(params: Params, cfg: EncDecConfig, tokens: torch.Tensor,
     memory = encode(params, cfg, frames)
     x = params["embed"]["w"].to(cfg.dtype)[tokens]
     pos = _positions(x)
-    for i in range(cfg.n_dec_layers):
-        x = dec_block(index_tree(params["decoder"], i), cfg, x, memory, pos)
+    for p in unbind_tree(params["decoder"], cfg.n_dec_layers):
+        x = dec_block(p, cfg, x, memory, pos)
     return _logits(params, cfg, x)
 
 

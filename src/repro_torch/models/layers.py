@@ -52,13 +52,28 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from .module import dense_init, ones, zeros
+from .module import dense_init, ones, randn, zeros
 
 F32 = torch.float32
 # queries per block of the query-chunked attention (``_sdpa``): at most
 # [B, H, Q_CHUNK, Sk] scores exist at a time; sequences longer than
 # 2 * Q_CHUNK (and a multiple of it) take that path, as in the reference
 Q_CHUNK = 512
+
+# The reference's dry-run flag: there it unrolls the query-chunk loop
+# (``lax.map`` otherwise) so that XLA's cost analysis counts every block.
+# The port's loop over the blocks is Python either way, so the flag is
+# kept for the launchers and changes nothing.
+_UNROLL_INNER = False
+
+
+def set_unroll_inner(flag: bool) -> None:
+    global _UNROLL_INNER
+    _UNROLL_INNER = bool(flag)
+
+
+def unroll_inner() -> bool:
+    return _UNROLL_INNER
 
 
 # ---------------------------------------------------------------------------
@@ -401,8 +416,7 @@ def init_moe(gen: torch.Generator, cfg: MoEConfig, *, device,
     E, d, f = cfg.num_experts, cfg.d_model, cfg.d_ff
 
     def normal(shape, scale):
-        w = torch.randn(shape, generator=gen, dtype=F32, device=gen.device)
-        return (w * scale).to(device=device, dtype=dtype)
+        return (randn(gen, *shape) * scale).to(device=device, dtype=dtype)
 
     p = {
         "router": dense_init(gen, d, E, device=device, dtype=F32),

@@ -60,13 +60,14 @@ import dataclasses
 from typing import Any, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 
 from . import layers as L
 from . import recurrent as R
 from .module import (Params, dense_init, embed_init, index_tree, tree_leaves,
-                     tree_map, tree_unflatten)
+                     tree_map, tree_unflatten, unbind_tree)
 from .vision import _logsumexp
 
 F32 = torch.float32
@@ -348,28 +349,50 @@ def _positions(x: torch.Tensor) -> torch.Tensor:
     return torch.arange(S, device=x.device)[None].expand(B, S)
 
 
+def _period_forward(period_p: Params, cfg: LMConfig, x: torch.Tensor,
+                    aux_total: torch.Tensor, positions: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One pattern period's blocks, the aux loss added block by block to
+    ``aux_total`` (the reference's scan carry)."""
+    for i, bt in enumerate(cfg.block_pattern):
+        x, aux = block_forward(period_p[str(i)], cfg, bt, x, positions)
+        aux_total = aux_total + aux
+    return x, aux_total
+
+
 def forward(params: Params, cfg: LMConfig, tokens: torch.Tensor,
-            prefix: Optional[torch.Tensor] = None
+            prefix: Optional[torch.Tensor] = None, last_only: bool = False
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens [B, S] -> (logits [B, S', V] f32, moe_aux scalar); S' = S
-    plus the prefix's positions when ``prefix_len > 0``."""
+    plus the prefix's positions when ``prefix_len > 0``. ``last_only``
+    applies the head to the final position only (S' = 1): a prefill never
+    needs S x V logits. With ``remat`` each period (and each tail block)
+    runs under a non-reentrant checkpoint: the backward recomputes its
+    activations instead of keeping them, as the reference's
+    ``jax.checkpoint`` of the layer scan; the values are the same."""
     x = _embed(params, cfg, tokens, prefix)
     positions = _positions(x)
     aux_total = torch.zeros((), dtype=F32, device=x.device)
     pat = cfg.block_pattern
+
+    def run(fn, *args):
+        if cfg.remat:
+            return checkpoint(fn, *args, use_reentrant=False,
+                              preserve_rng_state=False)
+        return fn(*args)
+
     if "period_stack" in params:
-        for pi in range(cfg.n_periods):
-            period_p = index_tree(params["period_stack"], pi)
-            for i, bt in enumerate(pat):
-                x, aux = block_forward(period_p[str(i)], cfg, bt, x,
-                                       positions)
-                aux_total = aux_total + aux
+        for period_p in unbind_tree(params["period_stack"], cfg.n_periods):
+            x, aux_total = run(_period_forward, period_p, cfg, x, aux_total,
+                               positions)
     if "tail" in params:
         base = cfg.n_periods * len(pat)
         for i in range(cfg.n_tail):
-            x, aux = block_forward(params["tail"][str(i)], cfg,
-                                   cfg.layer_types[base + i], x, positions)
+            x, aux = run(block_forward, params["tail"][str(i)], cfg,
+                         cfg.layer_types[base + i], x, positions)
             aux_total = aux_total + aux
+    if last_only:
+        x = x[:, -1:]
     return _head(params, cfg, x), aux_total
 
 

@@ -8,12 +8,16 @@ order a dict was built in; tuples and lists (batches) keep their order.
 Initialisers draw from an explicit ``torch.Generator`` on the generator's
 own device and then move to ``device``: a CPU generator gives the same
 weights on every device for one seed, a CUDA generator makes a large model
-on the card without a trip through the host.
+on the card without a trip through the host. ``gen=None`` draws nothing:
+each tensor is made on the meta device, shape and dtype only, and moved to
+``device`` after; that move works only under ``FakeTensorMode``, which the
+abstract build (``launch.specs.eval_shape``) runs it in, so a shape-only
+tree never allocates.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Dict, Iterator, List, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import torch
 
@@ -23,21 +27,40 @@ Params = Dict[str, Any]
 # ---------------------------------------------------------------------------
 # Initialisers
 # ---------------------------------------------------------------------------
-def dense_init(gen: torch.Generator, d_in: int, d_out: int, *,
+def randn(gen: Optional[torch.Generator], *shape: int) -> torch.Tensor:
+    """Standard-normal f32 draws on ``gen``'s device; shape only (meta)
+    with ``gen=None``."""
+    if gen is None:
+        return torch.empty(shape, dtype=torch.float32, device="meta")
+    return torch.randn(shape, generator=gen, dtype=torch.float32,
+                       device=gen.device)
+
+
+def rand(gen: Optional[torch.Generator], *shape: int) -> torch.Tensor:
+    """Uniform [0, 1) f32 draws on ``gen``'s device; shape only (meta)
+    with ``gen=None``."""
+    if gen is None:
+        return torch.empty(shape, dtype=torch.float32, device="meta")
+    return torch.rand(shape, generator=gen, dtype=torch.float32,
+                      device=gen.device)
+
+
+def dense_init(gen: Optional[torch.Generator], d_in: int, d_out: int, *,
                device, dtype=torch.float32) -> torch.Tensor:
     """Truncated-normal fan-in init, [d_in, d_out] (the JAX layout)."""
     std = 1.0 / math.sqrt(d_in)
-    w = torch.empty(d_in, d_out, dtype=torch.float32, device=gen.device)
-    torch.nn.init.trunc_normal_(w, a=-2.0, b=2.0, generator=gen)
+    if gen is None:
+        w = torch.empty(d_in, d_out, dtype=torch.float32, device="meta")
+    else:
+        w = torch.empty(d_in, d_out, dtype=torch.float32, device=gen.device)
+        torch.nn.init.trunc_normal_(w, a=-2.0, b=2.0, generator=gen)
     return (w * std).to(device=device, dtype=dtype)
 
 
-def embed_init(gen: torch.Generator, vocab: int, d: int, *,
+def embed_init(gen: Optional[torch.Generator], vocab: int, d: int, *,
                device, dtype=torch.float32) -> torch.Tensor:
     """Normal(0, 0.02) token embedding, [vocab, d]."""
-    w = torch.randn(vocab, d, generator=gen, dtype=torch.float32,
-                    device=gen.device) * 0.02
-    return w.to(device=device, dtype=dtype)
+    return (randn(gen, vocab, d) * 0.02).to(device=device, dtype=dtype)
 
 
 def zeros(shape, *, device, dtype=torch.float32) -> torch.Tensor:
@@ -74,8 +97,11 @@ def tree_map(fn: Callable, tree, *rests):
         return {k: tree_map(fn, v, *(r[k] for r in rests))
                 for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v, *(r[i] for r in rests))
-                          for i, v in enumerate(tree))
+        items = (tree_map(fn, v, *(r[i] for r in rests))
+                 for i, v in enumerate(tree))
+        if hasattr(tree, "_fields"):            # a NamedTuple (AdamState)
+            return type(tree)(*items)
+        return type(tree)(items)
     return fn(tree, *rests)
 
 
@@ -111,6 +137,18 @@ def index_tree(tree: Params, i: int) -> Params:
     """Index the leading (stacked layer) axis of every leaf: views into the
     stacked tensors, not copies."""
     return tree_map(lambda x: x[i], tree)
+
+
+def unbind_tree(tree: Params, n: int) -> List[Params]:
+    """The ``n`` entries of the leading (stacked layer) axis, each a tree
+    of views, from one ``unbind`` a leaf: its backward stacks the entries'
+    gradients once, where one ``index_tree`` per entry would make a full
+    [n, ...] gradient per entry (n^2 bytes in all)."""
+    leaves = [t.unbind(0) for t in tree_leaves(tree)]
+    if any(len(u) != n for u in leaves):
+        raise ValueError(f"unbind_tree: a stacked leaf does not hold {n} "
+                         f"entries")
+    return [tree_unflatten(tree, [u[i] for u in leaves]) for i in range(n)]
 
 
 def map_with_paths(fn: Callable[[str, Any], Any], tree, prefix: str = ""):

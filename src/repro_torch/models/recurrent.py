@@ -44,7 +44,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from .module import dense_init, ones, zeros
+from .module import dense_init, ones, rand, randn, zeros
 
 F32 = torch.float32
 
@@ -193,9 +193,7 @@ def init_slstm(gen: torch.Generator, cfg: SLSTMConfig, *, device,
     kw = dict(device=device, dtype=dtype)
 
     def rinit():  # block-diagonal recurrent weights, per head [H, dh, dh]
-        r = torch.randn(cfg.n_heads, dh, dh, generator=gen, dtype=F32,
-                        device=gen.device) / math.sqrt(dh)
-        return r.to(**kw)
+        return (randn(gen, cfg.n_heads, dh, dh) / math.sqrt(dh)).to(**kw)
 
     return {
         "wz": dense_init(gen, d, d, **kw), "rz": rinit(),
@@ -293,10 +291,8 @@ def init_rglru(gen: torch.Generator, cfg: RGLRUConfig, *, device,
     kw = dict(device=device, dtype=dtype)
     # lambda so that a = exp(-c * softplus(L) * r) starts near 0.9..0.999;
     # log_lambda = softplus^-1(lam) stays f32 whatever the model's dtype
-    lam = torch.rand(dr, generator=gen, dtype=F32, device=gen.device) \
-        * 0.5 + 0.3
-    conv = torch.randn(cfg.conv_width, dr, generator=gen, dtype=F32,
-                       device=gen.device) * 0.1
+    lam = rand(gen, dr) * 0.5 + 0.3
+    conv = randn(gen, cfg.conv_width, dr) * 0.1
     return {
         "w_x": dense_init(gen, d, dr, **kw),          # input branch
         "w_gate_branch": dense_init(gen, d, dr, **kw),

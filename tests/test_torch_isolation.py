@@ -2,7 +2,8 @@
 ``engine.sweep``, ``dist`` and ``launch.mesh`` included) and not the chip
 smoke script imports ``jax`` or the JAX package ``repro``, the port serves
 a forget request, a scanned coalesced group under a telemetry capture and
-a sharded request on a one-rank gloo mesh, with both blocked,
+a sharded request on a one-rank gloo mesh and counts a dry-run cell, with
+both blocked,
 its entry points refuse to run on an absent card instead of quietly
 falling back to the host, and nothing of it uses ``torch.optim``."""
 import ast
@@ -289,6 +290,13 @@ _, lst = cau.context_adaptive_unlearn_legacy(
     tok[8:16, :-1], tok[8:16, 1:],
     cau.UnlearnConfig(tau=-1.0, chunk_size=4, checkpoint_every=2))
 out += [tr.result["steps_run"], lst["stopped_at_l"]]
+# a dry-run cell counted on the host (fake tensors, one rank's rows) at an
+# H100's peaks
+from repro_torch.launch import dryrun as DR
+rec = DR.run_cell("whisper-tiny", "decode_32k", False,
+                  card="NVIDIA H100 80GB HBM3", device="cpu")
+assert rec["status"] == "ok" and rec["roofline"]["step_time_bound_s"] > 0
+out.append(rec["count"]["rows_per_rank"])
 leaked = [m for m in sys.modules
           if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
 print("LEAKED", leaked, "STOP", out)
@@ -302,13 +310,14 @@ def test_lm_serves_with_jax_and_repro_blocked():
     ForgetService drains two domains and refreshes its Fisher, and a
     StreamEngine serves three sequences with one shadow drain published
     at its deadline, whose tree a checkpoint round trip restores, the train
-    launcher's loop takes two steps with the int8 codec, and the legacy CAU
-    oracle serves a request, with JAX and the JAX package blocked."""
+    launcher's loop takes two steps with the int8 codec, the legacy CAU
+    oracle serves a request and the dry run counts a cell, with JAX and the
+    JAX package blocked."""
     env = dict(os.environ, PYTHONPATH=str(SRC))
     proc = subprocess.run([sys.executable, "-c", _BLOCKED_LM_RUN], env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
-    assert "LEAKED [] STOP [9, 9, 4, 4, 2, 1, 2, 9]" in proc.stdout, \
+    assert "LEAKED [] STOP [9, 9, 4, 4, 2, 1, 2, 9, 8]" in proc.stdout, \
         proc.stdout
 
 
@@ -325,6 +334,10 @@ def test_lm_entry_points_raise_without_a_card():
     from repro_torch.launch import train
     with pytest.raises(RuntimeError, match="is_available"):
         train.main(["--steps", "1"])
+    # the dry run reads the card's peaks: without card= it asks for one
+    from repro_torch.launch import dryrun
+    with pytest.raises(RuntimeError, match="is_available"):
+        dryrun.run_cell("yi-6b", "decode_32k", False)
 
 
 def test_nothing_uses_torch_optim():

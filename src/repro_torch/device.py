@@ -6,6 +6,9 @@ path (the tests do).
 """
 from __future__ import annotations
 
+import contextlib
+import os
+
 import torch
 
 
@@ -35,3 +38,28 @@ def resolve_device(device) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"device must be 'cuda' or 'cpu', got {device!r}")
     return dev
+
+
+@contextlib.contextmanager
+def deterministic(device):
+    """Deterministic algorithms while the block runs on a CUDA ``device``,
+    the process's setting restored after; on the host, nothing.
+
+    On the card the embedding's gradient accumulates by atomics otherwise,
+    so two Fishers of the same weights and data differ in their last bits,
+    and with them a gate that holds one run bit for bit against another
+    (``serve --fleet --check``'s solo replay, the load harness's
+    fingerprint). cuBLAS needs ``CUBLAS_WORKSPACE_CONFIG`` before its first
+    use in the process: it is set here where the caller left it unset.
+    Without a card this does nothing either: ``resolve_device`` raises."""
+    if torch.device(device).type != "cuda" or not torch.cuda.is_available():
+        yield
+        return
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    prev = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])

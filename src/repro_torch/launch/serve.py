@@ -64,6 +64,7 @@ line always serves the SMOKE config.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import time
 import warnings
@@ -78,7 +79,7 @@ from repro_torch.api import (ServeSpec, UnlearnSpec, Unlearner,
                              compilation_cache_entries,
                              enable_compilation_cache)
 from repro_torch.data.synthetic import LMDataConfig, make_lm_domains
-from repro_torch.device import resolve_device
+from repro_torch.device import deterministic, resolve_device
 from repro_torch.engine import ProgramCache
 from repro_torch.fleet import Fleet, FleetSpec, TenantSpec
 from repro_torch.models import layers as L
@@ -1279,9 +1280,16 @@ def main(argv=None) -> dict:
     ap.add_argument("--out", default=None,
                     help="write the result JSON to this path")
     args = ap.parse_args(argv)
+    # --check holds runs bit for bit against each other (the fleet's solo
+    # replay): on the card that needs deterministic algorithms
+    with (deterministic(args.device) if args.check
+          else contextlib.nullcontext()):
+        return _main_fleet(args) if args.fleet else _main_one(args)
 
-    if args.fleet:
-        return _main_fleet(args)
+
+def _main_one(args) -> dict:
+    """``main`` on one tenant: the batch loop, or ``--serve-mode
+    stream``."""
     # the cache must be live BEFORE the first kernel loads for a cold start
     # to be replayable from disk
     cache_entries0 = (enable_compilation_cache(args.cache_dir)

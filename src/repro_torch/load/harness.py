@@ -28,6 +28,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 
 from repro_torch.api.specs import _require
+from repro_torch.device import deterministic
 from repro_torch.obs import telemetry as _tel
 from repro_torch.obs.report import summarize
 from repro_torch.obs.telemetry import Telemetry, VirtualClock, wall_time
@@ -243,6 +244,15 @@ class LoadHarness:
         JSONL path) to keep the stream.  The harness drives the telemetry
         clock to the tick index, so every event carries virtual time.
         """
+        # the fingerprint holds a run against a replay bit for bit: each
+        # run computes its tenants' Fishers, deterministically on the card
+        # (a tenant without a device, a model-free fleet, runs nothing there)
+        cuda = any(str(getattr(rt, "device", "cpu")).startswith("cuda")
+                   for rt in self.fleet.tenants.values())
+        with deterministic("cuda" if cuda else "cpu"):
+            return self._run(telemetry)
+
+    def _run(self, telemetry: Optional[Telemetry]) -> Dict[str, Any]:
         own = telemetry is None
         tel = telemetry if telemetry is not None \
             else Telemetry(clock=VirtualClock(), keep=True)

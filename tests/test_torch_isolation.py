@@ -26,6 +26,10 @@ SRC = ROOT / "src"
 PORT = SRC / "repro_torch"
 SMOKE = ROOT / "chip_smoke.py"
 BLOCKED = ("jax", "jaxlib", "repro")
+# the port's examples and the tools that drive or gate it
+PORT_SCRIPTS = sorted(ROOT.glob("examples/torch_*.py")) + sorted(
+    ROOT.glob("tools/*_phase.py")) + [ROOT / "tools" / "api_gate_torch.py",
+                                      ROOT / "tools" / "phase_clock.py"]
 
 
 def _blocked(name: str) -> bool:
@@ -42,7 +46,8 @@ def test_no_module_imports_jax_or_repro():
     for pkg in ("robust", "fleet", "launch", "ckpt", "load", "dist"):
         assert any(p.parent.name == pkg for p in files), pkg
     assert PORT / "launch" / "mesh.py" in files
-    for path in files + [SMOKE]:
+    assert len(PORT_SCRIPTS) >= 14
+    for path in files + [SMOKE] + PORT_SCRIPTS:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]
@@ -150,6 +155,71 @@ def test_port_serves_a_forget_with_jax_and_repro_blocked():
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "LEAKED []" in proc.stdout, proc.stdout
     assert int(proc.stdout.split("MODULES ")[1].split()[0]) >= 15
+
+
+_BLOCKED_SCRIPTS = _BLOCKED_RUN.split("import numpy as np")[0] + r"""
+import importlib.util
+import io
+import contextlib
+
+import torch
+
+torch.set_num_threads(2)
+mods = {}
+for path in sys.argv[1:]:
+    name = path.rsplit("/", 1)[-1][:-3]
+    spec = importlib.util.spec_from_file_location(name, path)
+    mods[name] = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mods[name])
+# two examples run end to end on the host, and the gate over the tree
+q = mods["torch_quickstart"].run("cpu", steps=3)
+with contextlib.redirect_stdout(io.StringIO()):
+    f = mods["torch_fleet_two_tenants"].run("cpu")
+    rc = mods["api_gate_torch"].main([])
+assert f["tenants"]["globex"]["first_drain"]["compiles"] == 0
+leaked = [m for m in sys.modules
+          if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
+print("SCRIPTS", len(mods), "LEAKED", leaked, "STOP", q["stopped_at_l"],
+      "GATE", rc)
+"""
+
+
+def test_examples_and_tools_with_jax_and_repro_blocked():
+    """Every example of the port and every tool that drives or gates it
+    imports with JAX and the JAX package blocked; the quickstart and the
+    fleet example run, and the port's API gate passes."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    proc = subprocess.run([sys.executable, "-c", _BLOCKED_SCRIPTS]
+                          + [str(p) for p in PORT_SCRIPTS], env=env,
+                          capture_output=True, text=True, timeout=300,
+                          cwd=str(ROOT))
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert f"SCRIPTS {len(PORT_SCRIPTS)} LEAKED []" in proc.stdout, \
+        proc.stdout
+    assert "GATE 0" in proc.stdout, proc.stdout
+
+
+def test_examples_raise_without_a_card():
+    """The port's examples run on the card unless asked for the host: each
+    one's ``run()`` raises before it computes anything, and a script run
+    without ``--device cpu`` exits non-zero."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present; this checks the host without one")
+    import importlib.util
+    paths = sorted(ROOT.glob("examples/torch_*.py"))
+    assert len(paths) == 6
+    for path in paths:
+        spec = importlib.util.spec_from_file_location(path.stem, path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        with pytest.raises(RuntimeError, match="is_available"):
+            mod.run()
+    proc = subprocess.run([sys.executable, str(paths[0])],
+                          env=dict(os.environ, PYTHONPATH=str(SRC)),
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert "torch.cuda.is_available() is False" in proc.stderr, \
+        proc.stderr[-2000:]
 
 
 def test_entry_points_raise_without_a_card():
@@ -345,7 +415,7 @@ def test_nothing_uses_torch_optim():
     of the port and not the chip smoke script imports or reaches
     ``torch.optim``."""
     offenders = []
-    for path in sorted(PORT.rglob("*.py")) + [SMOKE]:
+    for path in sorted(PORT.rglob("*.py")) + [SMOKE] + PORT_SCRIPTS:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
             if isinstance(node, ast.Import):
                 bad = any(a.name.startswith("torch.optim")

@@ -142,7 +142,7 @@ def main() -> int:
     share, n_samples = cs.nvml_busy(lambda: unl.forget(req, params=params))
     t0 = time.perf_counter()
     busy, n_kernels, ranked = cs.profile_request(
-        lambda: unl.forget(req, params=params), cpu=False)
+        lambda: unl.forget(req, params=params))
     prof_s = time.perf_counter() - t0
     wall = min(walls)
     print(f"[recurrent_profile] {cfg.name} warm fp32 ssd request: wall "

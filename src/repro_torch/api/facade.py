@@ -222,8 +222,10 @@ class Unlearner:
         stored tree (the once-per-served-model lifecycle)."""
         if self._fisher is None:
             cs = self.spec.exec.chunk_size if chunk_size is None else chunk_size
-            self.set_fisher(diag_fisher(loss_fn, params, batch,
-                                        chunk_size=cs, device=self.device))
+            with _t.span("fisher_global"):
+                self.set_fisher(diag_fisher(loss_fn, params, batch,
+                                            chunk_size=cs,
+                                            device=self.device))
         return self._fisher
 
     # -- streamed Fisher refresh (DESIGN.md §10) ----------------------------
@@ -510,21 +512,24 @@ class Unlearner:
 
         Unless the spec sets ``ExecSpec(donate=True)``, the caller's
         parameter tensors are left untouched: edited layers come back as
-        new tensors. With ``donate=True`` the edit is written into them."""
-        req = _coerce_request(request)
-        sess = self._ensure_session()
-        cfg = self.spec.to_config() if cfg is None else cfg
-        inputs = torch.as_tensor(req.inputs, device=self.device)
-        labels = torch.as_tensor(req.labels, device=self.device)
-        if self.mesh is not None:
-            params = self.place_params(params)
-            inputs, labels = self.place_batch((inputs, labels))
-        new_params, stats = sess.forget(params, inputs, labels, cfg)
-        stats["mode"] = self.spec.mode
-        if req.tag is not None:
-            stats["tag"] = req.tag
-        self._note_drain([stats])
-        return new_params, stats
+        new tensors. With ``donate=True`` the edit is written into them.
+        Inside ``telemetry.capture(spans=True)`` the request is a
+        ``forget`` span."""
+        with _t.span("forget"):
+            req = _coerce_request(request)
+            sess = self._ensure_session()
+            cfg = self.spec.to_config() if cfg is None else cfg
+            inputs = torch.as_tensor(req.inputs, device=self.device)
+            labels = torch.as_tensor(req.labels, device=self.device)
+            if self.mesh is not None:
+                params = self.place_params(params)
+                inputs, labels = self.place_batch((inputs, labels))
+            new_params, stats = sess.forget(params, inputs, labels, cfg)
+            stats["mode"] = self.spec.mode
+            if req.tag is not None:
+                stats["tag"] = req.tag
+            self._note_drain([stats])
+            return new_params, stats
 
     def forget_group(self, requests: Sequence, *, params: Params,
                      reference: Optional[Params] = None,
@@ -535,28 +540,30 @@ class Unlearner:
         group_stats)``; per-request halting/MAC accounting is preserved.
         ``reference`` (default: ``params``) is the snapshot every set's
         vjp and Fisher run on. A group never donates: the caller's tensors
-        are left untouched."""
-        reqs = [_coerce_request(r) for r in requests]
-        if not reqs:
-            raise ValueError("forget_group needs at least one forget "
-                             "request; an empty drain should be skipped by "
-                             "the caller")
-        sess = self._ensure_session()
-        cfg = self.spec.to_config() if cfg is None else cfg
-        sets = [(torch.as_tensor(r.inputs, device=self.device),
-                 torch.as_tensor(r.labels, device=self.device))
-                for r in reqs]
-        if self.mesh is not None:
-            params = self.place_params(params)
-            if reference is not None:
-                reference = self.place_params(reference)
-            sets = [self.place_batch(st) for st in sets]
-        new_params, stats_k, group_stats = sess.forget_many(
-            params, sets, cfg, reference=reference)
-        for r, st in zip(reqs, stats_k):
-            st["mode"] = self.spec.mode
-            if r.tag is not None:
-                st["tag"] = r.tag
-        group_stats["mode"] = self.spec.mode
-        self._note_drain(stats_k)
-        return new_params, stats_k, group_stats
+        are left untouched. Inside ``telemetry.capture(spans=True)`` the
+        group is a ``forget`` span."""
+        with _t.span("forget"):
+            reqs = [_coerce_request(r) for r in requests]
+            if not reqs:
+                raise ValueError("forget_group needs at least one forget "
+                                 "request; an empty drain should be skipped "
+                                 "by the caller")
+            sess = self._ensure_session()
+            cfg = self.spec.to_config() if cfg is None else cfg
+            sets = [(torch.as_tensor(r.inputs, device=self.device),
+                     torch.as_tensor(r.labels, device=self.device))
+                    for r in reqs]
+            if self.mesh is not None:
+                params = self.place_params(params)
+                if reference is not None:
+                    reference = self.place_params(reference)
+                sets = [self.place_batch(st) for st in sets]
+            new_params, stats_k, group_stats = sess.forget_many(
+                params, sets, cfg, reference=reference)
+            for r, st in zip(reqs, stats_k):
+                st["mode"] = self.spec.mode
+                if r.tag is not None:
+                    st["tag"] = r.tag
+            group_stats["mode"] = self.spec.mode
+            self._note_drain(stats_k)
+            return new_params, stats_k, group_stats

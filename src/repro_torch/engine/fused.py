@@ -33,6 +33,7 @@ from repro_torch.core.cau import _restore_excluded
 from repro_torch.core.ssd import dampen_tree_counted
 from repro_torch.dist.execute import reduce_fisher_
 from repro_torch.models.module import tree_leaves, tree_map, tree_unflatten
+from repro_torch.obs import telemetry as _t
 
 F32 = torch.float32
 Params = Any
@@ -81,25 +82,27 @@ def grad_fisher_chunks(apply_fn: Callable[[Params, torch.Tensor],
     nc = acts_c.shape[0]
     fish = None
     g_acts = torch.empty_like(acts_c) if with_act_grad else None
-    with torch.enable_grad():
-        for i in range(nc):
-            lp = tree_map(lambda t: t.detach().requires_grad_(True), layer_p)
-            leaves = tree_leaves(lp)
-            a = acts_c[i].detach().requires_grad_(with_act_grad)
-            inputs = leaves + [a] if with_act_grad else leaves
-            grads = torch.autograd.grad(apply_fn(lp, a), inputs,
-                                        grad_outputs=cot_c[i])
-            if with_act_grad:
-                g_acts[i] = grads[-1]
-                grads = grads[:-1]
-            if fish is None:
-                fish = [g.to(F32) * g.to(F32) for g in grads]
-            else:
-                for f, g in zip(fish, grads):
-                    f.addcmul_(g.to(F32), g.to(F32))
-    nc = reduce_fisher_(fish, nc)
-    if nc > 1:
-        fish = [f.div_(nc) for f in fish]
+    with _t.span("vjp"):
+        with torch.enable_grad():
+            for i in range(nc):
+                lp = tree_map(lambda t: t.detach().requires_grad_(True),
+                              layer_p)
+                leaves = tree_leaves(lp)
+                a = acts_c[i].detach().requires_grad_(with_act_grad)
+                inputs = leaves + [a] if with_act_grad else leaves
+                grads = torch.autograd.grad(apply_fn(lp, a), inputs,
+                                            grad_outputs=cot_c[i])
+                if with_act_grad:
+                    g_acts[i] = grads[-1]
+                    grads = grads[:-1]
+                if fish is None:
+                    fish = [g.to(F32) * g.to(F32) for g in grads]
+                else:
+                    for f, g in zip(fish, grads):
+                        f.addcmul_(g.to(F32), g.to(F32))
+        nc = reduce_fisher_(fish, nc)
+        if nc > 1:
+            fish = [f.div_(nc) for f in fish]
     return tree_unflatten(layer_p, fish), g_acts
 
 
@@ -160,7 +163,7 @@ def build_fused_step(apply_fn: Callable[[Params, Params, torch.Tensor],
         fish, g_acts = grad_fisher_chunks(
             lambda lp, aa: apply_fn(ctx, lp, aa), ref_layer, acts_c, cot_c,
             with_act_grad=with_act_grad)
-        with torch.no_grad():
+        with _t.span("dampen"), torch.no_grad():
             new_layer, masks, n_sel = dampen_tree_counted(
                 precision, edit_layer, fish, fisher_g, alpha, lam,
                 use_kernel, in_place=in_place)

@@ -37,6 +37,12 @@ In the layerwise loop the host drives the layer walk / checkpoint decisions
 / early stop exactly as the RISC-V core drives the paper's processor. Every
 request emits one ``engine.sweep`` telemetry event, and the step cache one
 ``program.compile`` or ``program.hit`` per lookup (``repro_torch.obs``).
+Inside ``telemetry.capture(spans=True)`` a request's phases are spans:
+``collect`` (the forward collect and cotangents), ``layer`` (one layer's
+edit; ``vjp`` and ``dampen`` inside it), ``ckpt`` (a checkpoint's partial
+inference) and ``read`` (a device-to-host read). Each such read is counted
+in the request's ``stats["host_reads"]`` (a group's in its group stats),
+beside ``engine``, whose keys stay the reference's.
 """
 from __future__ import annotations
 
@@ -100,6 +106,8 @@ class UnlearnSession:
         self._fisher_whole: Optional[Tuple[Params, Params]] = None
         self.programs = programs if programs is not None else ProgramCache()
         self.programs.sessions += 1
+        # device-to-host reads made by this session's requests
+        self.host_reads = 0
         self._ns: Hashable = (adapter.name, adapter.n_layers, donate)
         # which installed FaultSpecs hit this session (the facade sets its
         # name; None keys them by the adapter family)
@@ -149,6 +157,13 @@ class UnlearnSession:
                 precision=engine["precision"],
                 compiles=engine["compiles"],
                 cache_hits=engine["cache_hits"])
+
+    def _read(self, fn: Callable[[Any], Any], x: Any, **attrs: Any) -> Any:
+        """``fn(x)`` where it reads the device on the host: counted, and in
+        a ``read`` span."""
+        self.host_reads += 1
+        with _t.span("read", **attrs):
+            return fn(x)
 
     def _layer_ctx(self, params: Params, j: int) -> Params:
         """Context the layer forward needs beyond its own params. Adapters
@@ -377,8 +392,9 @@ class UnlearnSession:
             self.stats["int8_sweep_launches"] += 1
         # ONE host read for the whole drain: the halting, selection and
         # trace outputs of every set, packed (exactly) into one f64 table
-        host = torch.cat([stop[:, None].double(), n_sel.double(),
-                          acc.double()], dim=1).cpu().numpy()
+        host = self._read(lambda t: t.cpu().numpy(), torch.cat(
+            [stop[:, None].double(), n_sel.double(), acc.double()], dim=1),
+            what="table")
         stop = host[:, 0]
         n_sel = host[:, 1:1 + limit]
         acc = host[:, 1 + limit:]
@@ -481,6 +497,7 @@ class UnlearnSession:
         self.stats["requests"] += 1
         comp0, hits0 = self._family_counters()
         launch0 = self.stats["sweep_launches"]
+        reads0 = self.host_reads
 
         if cfg.sweep_mode == "scanned":
             res = self._try_scanned(params, [(inputs, labels)], cfg)
@@ -494,6 +511,7 @@ class UnlearnSession:
                     "precision": cfg.precision,
                     "sweep_launches": self.stats["sweep_launches"] - launch0,
                 }
+                st["host_reads"] = self.host_reads - reads0
                 self._emit_sweep(st["engine"], [st["stopped_at_l"]])
                 return new_params, st
 
@@ -512,14 +530,14 @@ class UnlearnSession:
         macs = MacCounter(adapter.layer_fwd_macs, prm_counts,
                           batch=_dx.global_rows(labels))
 
-        with torch.no_grad():
-            logits, acts = adapter.forward_collect(params, inputs)
+        cs = cfg.chunk_size
+        with _t.span("collect"):
+            with torch.no_grad():
+                logits, acts = adapter.forward_collect(params, inputs)
+            cot = _logit_cotangents(adapter.loss, _chunk(logits, cs),
+                                    _chunk(labels, cs))
         macs.add_forward_all()
         uniform = self._uniform_suffix(acts)
-
-        cs = cfg.chunk_size
-        labels_c = _chunk(labels, cs)
-        cot = _logit_cotangents(adapter.loss, _chunk(logits, cs), labels_c)
 
         stats: Dict[str, Any] = {
             "stopped_at_l": L, "checkpoints_hit": [], "selected_per_layer": {},
@@ -529,42 +547,47 @@ class UnlearnSession:
 
         for l in range(1, min(L, sweep_limit) + 1):  # paper index, back->front
             j = L - l
-            layer_p = adapter.get_layer(params, j)  # untouched == original
-            ctx = self._layer_ctx(params, j)
-            acts_c = _chunk(acts[j], cs)
-            s = float(S[l - 1])
-            # the reference's arithmetic: a Python-double product rounded
-            # to f32 once
-            scalars = (f32(cfg.alpha * s), f32(cfg.lam * s))
-            fg_layer = adapter.get_layer(self.fisher_global, j)
+            with _t.span("layer", l=l, j=j):
+                layer_p = adapter.get_layer(params, j)  # untouched == original
+                ctx = self._layer_ctx(params, j)
+                acts_c = _chunk(acts[j], cs)
+                s = float(S[l - 1])
+                # the reference's arithmetic: a Python-double product
+                # rounded to f32 once
+                scalars = (f32(cfg.alpha * s), f32(cfg.lam * s))
+                fg_layer = adapter.get_layer(self.fisher_global, j)
 
-            if int8:
-                # vjp/Fisher on the materialised fq layer; the edit on codes
-                # quantised from the PRISTINE layer
-                edit_q, edit_s = q8_quantize_tree(
-                    adapter.get_layer(pristine, j),
-                    min_scale=cfg.quant_min_scale)
-                step = self.fused_program(j, ctx, layer_p, acts_c, cot, cfg,
-                                          split_edit=True)
-                new_q, g_acts, n_sel = step(ctx, layer_p, edit_q, fg_layer,
-                                            acts_c, cot, scalars)
-                new_layer = q8_dequantize_tree(new_q, edit_s, like=layer_p)
-            else:
-                step = self.fused_program(j, ctx, layer_p, acts_c, cot, cfg)
-                new_layer, g_acts, n_sel = step(ctx, layer_p, fg_layer,
-                                                acts_c, cot, scalars)
+                if int8:
+                    # vjp/Fisher on the materialised fq layer; the edit on
+                    # codes quantised from the PRISTINE layer
+                    edit_q, edit_s = q8_quantize_tree(
+                        adapter.get_layer(pristine, j),
+                        min_scale=cfg.quant_min_scale)
+                    step = self.fused_program(j, ctx, layer_p, acts_c, cot,
+                                              cfg, split_edit=True)
+                    new_q, g_acts, n_sel = step(ctx, layer_p, edit_q,
+                                                fg_layer, acts_c, cot,
+                                                scalars)
+                    new_layer = q8_dequantize_tree(new_q, edit_s,
+                                                   like=layer_p)
+                else:
+                    step = self.fused_program(j, ctx, layer_p, acts_c, cot,
+                                              cfg)
+                    new_layer, g_acts, n_sel = step(ctx, layer_p, fg_layer,
+                                                    acts_c, cot, scalars)
+                params = adapter.set_layer(params, j, new_layer)
+                stats["selected_per_layer"][l] = self._read(
+                    int, n_sel, l=l, what="n_sel")
+                cot = g_acts if j > 0 else None
             macs.add_backward_layer(j)
             macs.add_fisher_layer(j)
             macs.add_dampen_layer(j)
 
-            params = adapter.set_layer(params, j, new_layer)
-            stats["selected_per_layer"][l] = int(n_sel)
-            cot = g_acts if j > 0 else None
-
             if l in cps:
                 # the checkpoint's single host sync
-                a_forget = float(self.partial_acc(j, params, acts[j], labels,
-                                                  uniform))
+                with _t.span("ckpt", l=l):
+                    a_forget = self._read(float, self.partial_acc(
+                        j, params, acts[j], labels, uniform), l=l, what="acc")
                 macs.add_partial_inference(j, L)
                 stats["checkpoints_hit"].append(l)
                 stats["forget_acc_trace"].append((l, a_forget))
@@ -586,6 +609,7 @@ class UnlearnSession:
             "sweep_mode": "layerwise",
             "precision": cfg.precision,
         }
+        stats["host_reads"] = self.host_reads - reads0
         self._emit_sweep(stats["engine"], [stats["stopped_at_l"]])
         return params, stats
 
@@ -679,6 +703,7 @@ class UnlearnSession:
         self.stats["group_sweeps"] += 1
         comp0, hits0 = self._family_counters()
         launch0 = self.stats["sweep_launches"]
+        reads0 = self.host_reads
 
         if cfg.sweep_mode == "scanned":
             res = self._try_scanned(params, forget_sets, cfg,
@@ -699,6 +724,7 @@ class UnlearnSession:
                         "sweep_launches":
                             self.stats["sweep_launches"] - launch0,
                     },
+                    "host_reads": self.host_reads - reads0,
                 }
                 self._emit_sweep(group_stats["engine"],
                                  group_stats["stopped_at_l"])
@@ -729,22 +755,24 @@ class UnlearnSession:
         labels_k: List[torch.Tensor] = []
         macs_k: List[MacCounter] = []
         stats_k: List[Dict] = []
-        for inputs, labels in forget_sets:
-            with torch.no_grad():
-                logits, acts = adapter.forward_collect(ref_run, inputs)
-            macs = MacCounter(adapter.layer_fwd_macs, prm_counts,
-                              batch=_dx.global_rows(labels))
-            macs.add_forward_all()
-            cot_k.append(_logit_cotangents(adapter.loss, _chunk(logits, cs),
-                                           _chunk(labels, cs)))
-            acts_k.append(acts)
-            labels_k.append(labels)
-            macs_k.append(macs)
-            stats_k.append({
-                "stopped_at_l": L, "checkpoints_hit": [],
-                "selected_per_layer": {}, "forget_acc_trace": [],
-                "profile_S": S.tolist(),
-            })
+        with _t.span("collect"):
+            for inputs, labels in forget_sets:
+                with torch.no_grad():
+                    logits, acts = adapter.forward_collect(ref_run, inputs)
+                macs = MacCounter(adapter.layer_fwd_macs, prm_counts,
+                                  batch=_dx.global_rows(labels))
+                macs.add_forward_all()
+                cot_k.append(_logit_cotangents(adapter.loss,
+                                               _chunk(logits, cs),
+                                               _chunk(labels, cs)))
+                acts_k.append(acts)
+                labels_k.append(labels)
+                macs_k.append(macs)
+                stats_k.append({
+                    "stopped_at_l": L, "checkpoints_hit": [],
+                    "selected_per_layer": {}, "forget_acc_trace": [],
+                    "profile_S": S.tolist(),
+                })
         uniform = self._uniform_suffix(acts_k[0])
 
         active = [True] * K
@@ -752,44 +780,50 @@ class UnlearnSession:
 
         for l in range(1, min(L, sweep_limit) + 1):  # paper index, back->front
             j = L - l
-            ref_layer = adapter.get_layer(ref_run, j)   # snapshot == original
-            ctx = self._layer_ctx(ref_run, j)
-            if int8:
-                cur, cur_s = q8_quantize_tree(
-                    adapter.get_layer(pristine_edit, j),
-                    min_scale=cfg.quant_min_scale)
-            else:
-                cur = adapter.get_layer(params, j)
-            s = float(S[l - 1])
-            scalars = (f32(cfg.alpha * s), f32(cfg.lam * s))
-            fg_layer = adapter.get_layer(self.fisher_global, j)
+            with _t.span("layer", l=l, j=j):
+                # the snapshot, equal to the original
+                ref_layer = adapter.get_layer(ref_run, j)
+                ctx = self._layer_ctx(ref_run, j)
+                if int8:
+                    cur, cur_s = q8_quantize_tree(
+                        adapter.get_layer(pristine_edit, j),
+                        min_scale=cfg.quant_min_scale)
+                else:
+                    cur = adapter.get_layer(params, j)
+                s = float(S[l - 1])
+                scalars = (f32(cfg.alpha * s), f32(cfg.lam * s))
+                fg_layer = adapter.get_layer(self.fisher_global, j)
 
-            for k in range(K):
-                if not active[k]:
-                    continue
-                acts_c = _chunk(acts_k[k][j], cs)
-                step = self.fused_program(j, ctx, ref_layer, acts_c,
-                                          cot_k[k], cfg, split_edit=True)
-                cur, g_acts, n_sel = step(ctx, ref_layer, cur, fg_layer,
-                                          acts_c, cot_k[k], scalars)
-                macs_k[k].add_backward_layer(j)
-                macs_k[k].add_fisher_layer(j)
-                macs_k[k].add_dampen_layer(j)
-                stats_k[k]["selected_per_layer"][l] = int(n_sel)
-                cot_k[k] = g_acts if j > 0 else None
+                for k in range(K):
+                    if not active[k]:
+                        continue
+                    acts_c = _chunk(acts_k[k][j], cs)
+                    step = self.fused_program(j, ctx, ref_layer, acts_c,
+                                              cot_k[k], cfg, split_edit=True)
+                    cur, g_acts, n_sel = step(ctx, ref_layer, cur, fg_layer,
+                                              acts_c, cot_k[k], scalars)
+                    macs_k[k].add_backward_layer(j)
+                    macs_k[k].add_fisher_layer(j)
+                    macs_k[k].add_dampen_layer(j)
+                    stats_k[k]["selected_per_layer"][l] = self._read(
+                        int, n_sel, l=l, k=k, what="n_sel")
+                    cot_k[k] = g_acts if j > 0 else None
 
-            if int8:
-                # beta <= 1 keeps the scale table valid across all K edits
-                cur = q8_dequantize_tree(
-                    cur, cur_s, like=adapter.get_layer(pristine_edit, j))
-            params = adapter.set_layer(params, j, cur)
+                if int8:
+                    # beta <= 1 keeps the scale table valid across all K
+                    # edits
+                    cur = q8_dequantize_tree(
+                        cur, cur_s, like=adapter.get_layer(pristine_edit, j))
+                params = adapter.set_layer(params, j, cur)
 
             if l in cps:
                 for k in range(K):
                     if not active[k]:
                         continue
-                    a_forget = float(self.partial_acc(j, params, acts_k[k][j],
-                                                      labels_k[k], uniform))
+                    with _t.span("ckpt", l=l, k=k):
+                        a_forget = self._read(float, self.partial_acc(
+                            j, params, acts_k[k][j], labels_k[k], uniform),
+                            l=l, k=k, what="acc")
                     macs_k[k].add_partial_inference(j, L)
                     stats_k[k]["checkpoints_hit"].append(l)
                     stats_k[k]["forget_acc_trace"].append((l, a_forget))
@@ -821,6 +855,7 @@ class UnlearnSession:
                 "sweep_mode": "layerwise",
                 "precision": cfg.precision,
             },
+            "host_reads": self.host_reads - reads0,
         }
         self._emit_sweep(group_stats["engine"], group_stats["stopped_at_l"])
         return params, stats_k, group_stats

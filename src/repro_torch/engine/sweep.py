@@ -52,6 +52,7 @@ from repro_torch.core.cau import (ModelAdapter, _chunk, _logit_cotangents,
 from repro_torch.core.ssd import dampen_tree_counted
 from repro_torch.dist.execute import global_acc
 from repro_torch.models.module import tree_leaves, tree_map
+from repro_torch.obs import telemetry as _t
 from repro_torch.optim.compression import (q8_dequantize_tree,
                                            q8_fakequant_tree,
                                            q8_quantize_tree)
@@ -238,16 +239,18 @@ def build_sweep_program(adapter: ModelAdapter, plan: SweepPlan, *,
         exclusion restore. Returns (layer', [K] counts)."""
         n_sel_k = []
         for k in range(K):
-            new_layer, masks, n_sel = dampen_tree_counted(
-                precision, cur, fish_k[k], fish_g, sc[0], sc[1], use_kernel,
-                specs=specs)
-            if n_sel is None:
-                n_sel = sum(m.sum() for m in tree_leaves(masks))
-            n_sel_k.append(n_sel)
-            if exclude is not None:
-                new_layer = _restore_excluded(exclude, new_layer, cur)
-            ak = active[k]
-            cur = tree_map(lambda n, o: torch.where(ak, n, o), new_layer, cur)
+            with _t.span("dampen", k=k):
+                new_layer, masks, n_sel = dampen_tree_counted(
+                    precision, cur, fish_k[k], fish_g, sc[0], sc[1],
+                    use_kernel, specs=specs)
+                if n_sel is None:
+                    n_sel = sum(m.sum() for m in tree_leaves(masks))
+                n_sel_k.append(n_sel)
+                if exclude is not None:
+                    new_layer = _restore_excluded(exclude, new_layer, cur)
+                ak = active[k]
+                cur = tree_map(lambda n, o: torch.where(ak, n, o),
+                               new_layer, cur)
         return cur, torch.stack(n_sel_k)
 
     def sweep(ref_tree, edit_tree, fisher, inputs_k, labels_k, scalars, tau):
@@ -256,12 +259,13 @@ def build_sweep_program(adapter: ModelAdapter, plan: SweepPlan, *,
         with torch.no_grad():
             # ---- forward collect + cotangents, per set -------------------
             acts_k, cot = [], []
-            for inp, lbl in zip(inputs_k, labels_k):
-                logits, acts = adapter.forward_collect(ref_tree, inp)
-                cot.append(_logit_cotangents(adapter.loss,
-                                             _chunk(logits, cs),
-                                             _chunk(lbl, cs)))
-                acts_k.append(acts)
+            with _t.span("collect"):
+                for inp, lbl in zip(inputs_k, labels_k):
+                    logits, acts = adapter.forward_collect(ref_tree, inp)
+                    cot.append(_logit_cotangents(adapter.loss,
+                                                 _chunk(logits, cs),
+                                                 _chunk(lbl, cs)))
+                    acts_k.append(acts)
 
             active = torch.ones((K,), dtype=torch.bool, device=dev)
             stop_l = torch.full((K,), min(L, limit), dtype=I32, device=dev)
@@ -283,27 +287,28 @@ def build_sweep_program(adapter: ModelAdapter, plan: SweepPlan, *,
                 """vjp + Fisher per set on the snapshot layer, then the
                 masked composition onto the carried layer; returns the
                 per-set input cotangents."""
-                ref_layer = adapter.get_layer(ref_tree, j)
-                pristine = adapter.get_layer(edit_tree, j)
-                if int8:
-                    cur, scales = q8_quantize_tree(pristine,
-                                                   min_scale=quant_min_scale)
-                else:
-                    cur = pristine
-                fish_k, g_k = [], []
-                for k in range(K):
-                    f, g = grad_fisher_chunks(
-                        fn, ref_layer, _chunk(acts_k[k][j], cs), cot[k],
-                        with_act_grad=with_act_grad)
-                    fish_k.append(f)
-                    g_k.append(g)
-                cur, n_sel = _dampen_compose(
-                    cur, fish_k, adapter.get_layer(fisher, j), sc, active,
-                    _constrain_stack(cur) if stacked else None)
-                deploy[j] = (q8_dequantize_tree(cur, scales, like=pristine)
-                             if int8 else cur)
-                n_sel_rows.append(n_sel)
-                return g_k
+                with _t.span("layer", l=L - j, j=j):
+                    ref_layer = adapter.get_layer(ref_tree, j)
+                    pristine = adapter.get_layer(edit_tree, j)
+                    if int8:
+                        cur, scales = q8_quantize_tree(
+                            pristine, min_scale=quant_min_scale)
+                    else:
+                        cur = pristine
+                    fish_k, g_k = [], []
+                    for k in range(K):
+                        f, g = grad_fisher_chunks(
+                            fn, ref_layer, _chunk(acts_k[k][j], cs), cot[k],
+                            with_act_grad=with_act_grad)
+                        fish_k.append(f)
+                        g_k.append(g)
+                    cur, n_sel = _dampen_compose(
+                        cur, fish_k, adapter.get_layer(fisher, j), sc, active,
+                        _constrain_stack(cur) if stacked else None)
+                    deploy[j] = (q8_dequantize_tree(cur, scales, like=pristine)
+                                 if int8 else cur)
+                    n_sel_rows.append(n_sel)
+                    return g_k
 
             def sc_row(l):
                 return (float(scalars[l - 1][0]), float(scalars[l - 1][1]))
@@ -327,10 +332,11 @@ def build_sweep_program(adapter: ModelAdapter, plan: SweepPlan, *,
                                                           lp, aa),
                 sc_row(1), True)
             if 1 in cps_set:
-                halt_check(1, torch.stack([
-                    global_acc(adapter.acc(head(acts_k[k][L - 1]),
-                                           labels_k[k]), labels_k[k])
-                    for k in range(K)]))
+                with _t.span("ckpt", l=1):
+                    halt_check(1, torch.stack([
+                        global_acc(adapter.acc(head(acts_k[k][L - 1]),
+                                               labels_k[k]), labels_k[k])
+                        for k in range(K)]))
             else:
                 acc_rows.append(nan_row)
 
@@ -354,8 +360,9 @@ def build_sweep_program(adapter: ModelAdapter, plan: SweepPlan, *,
                             return global_acc(adapter.acc(head(x),
                                                           labels_k[k]),
                                               labels_k[k])
-                        halt_check(l, torch.stack(
-                            [suffix_acc(k) for k in range(K)]))
+                        with _t.span("ckpt", l=l):
+                            halt_check(l, torch.stack(
+                                [suffix_acc(k) for k in range(K)]))
                     else:
                         acc_rows.append(nan_row)
 
@@ -389,8 +396,9 @@ def build_sweep_program(adapter: ModelAdapter, plan: SweepPlan, *,
                                 adapter.get_layer(new_tree, jj), x)
                         return global_acc(adapter.acc(x, labels_k[k]),
                                           labels_k[k])
-                    halt_check(L, torch.stack([full_acc(k)
-                                               for k in range(K)]))
+                    with _t.span("ckpt", l=L):
+                        halt_check(L, torch.stack([full_acc(k)
+                                                   for k in range(K)]))
                 else:
                     acc_rows.append(nan_row)
 

@@ -28,11 +28,28 @@ telemetry capture is active.
 packages (load and fleet, as in the reference), so every wall-clock datum
 flows through here and lands in a nondeterministic-by-convention field
 instead of leaking into the deterministic stream.
+
+Spans (the port's own, not in the reference): ``span(name, **attrs)``
+marks a phase of a request where the work happens. They are recorded only
+inside ``capture(spans=True)``, kept apart from the event stream (which,
+and whose fingerprint, they never change) in ``Telemetry.spans``, and
+written at ``close()`` beside the JSONL sink as ``<path>.spans.jsonl``.
+A record holds ``name``, ``id``, ``parent`` (the innermost open span on
+its thread), ``req`` (the enclosing span's request id; a span opened
+outside any span starts a new request), ``host_start`` / ``host_end`` in
+``time.perf_counter`` seconds and ``attrs``. With ``device=`` a CUDA
+device, each span also records a CUDA event on the current stream at
+entry and exit; ``close()`` synchronises once and resolves them onto the
+host clock through one anchor taken at entry (``SpanLog._tie_clocks``):
+``dev_start`` / ``dev_end`` (seconds) and ``dev_ms``, the span's time on
+the device. A CPU capture writes no device field. Without such a capture
+``span`` returns one shared no-op object.
 """
 from __future__ import annotations
 
 import contextlib
 import hashlib
+import itertools
 import json
 import threading
 import time as _time
@@ -103,6 +120,101 @@ def _jsonable(v: Any) -> Any:
     return repr(v)
 
 
+class _NoSpan:
+    """What ``span`` returns where spans are not recorded: nothing."""
+    __slots__ = ()
+
+    def __enter__(self) -> "_NoSpan":
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+
+_NO_SPAN = _NoSpan()
+
+
+class SpanLog:
+    """The spans of one capture, in order of entry (see the module
+    docstring). ``device`` a CUDA device adds the device's times."""
+
+    def __init__(self, device=None):
+        self.records: List[Dict[str, Any]] = []
+        self._ids = itertools.count()
+        self._reqs = itertools.count()
+        self._local = threading.local()
+        # (record, entry event, exit event) until close() resolves them
+        self._events: List[Any] = []
+        self._cuda = None
+        if device is not None:
+            import torch
+            if torch.device(device).type == "cuda":
+                self._cuda = torch.cuda
+                self._anchor, self._anchor_host = self._tie_clocks()
+
+    # events recorded to tie the device's clock to the host's
+    TIES = 20
+
+    def _tie_clocks(self):
+        """(an event, its time on the host's clock). An event recorded on
+        an idle device is stamped no earlier than the host's clock read
+        just before its record: the latest of those reads, each less the
+        event's time after the first, is the first event's host time,
+        early by the device's shortest delay."""
+        cuda = self._cuda
+        first = cuda.Event(enable_timing=True)
+        cuda.synchronize()
+        first.record()
+        cuda.synchronize()
+        host = -float("inf")
+        for _ in range(self.TIES):
+            ev = cuda.Event(enable_timing=True)
+            t = _time.perf_counter()
+            ev.record()
+            cuda.synchronize()
+            host = max(host, t - first.elapsed_time(ev) / 1e3)
+        return first, host
+
+    @contextlib.contextmanager
+    def span(self, name: str, attrs: Dict[str, Any]):
+        stack = getattr(self._local, "stack", None)
+        if stack is None:
+            stack = self._local.stack = []
+        parent = stack[-1] if stack else None
+        rec = {"name": name, "id": next(self._ids),
+               "parent": None if parent is None else parent["id"],
+               "req": next(self._reqs) if parent is None else parent["req"],
+               "host_start": _time.perf_counter(), "host_end": None,
+               "attrs": attrs}
+        self.records.append(rec)
+        ev = None
+        if self._cuda is not None:
+            ev = self._cuda.Event(enable_timing=True)
+            ev.record()
+        stack.append(rec)
+        try:
+            yield rec
+        finally:
+            stack.pop()
+            if ev is not None:
+                end = self._cuda.Event(enable_timing=True)
+                end.record()
+                self._events.append((rec, ev, end))
+            rec["host_end"] = _time.perf_counter()
+
+    def resolve(self) -> None:
+        """Give every closed span its device times (one synchronise)."""
+        if self._cuda is None or not self._events:
+            return
+        self._cuda.synchronize()
+        a, h = self._anchor, self._anchor_host
+        for rec, ev, end in self._events:
+            rec["dev_start"] = h + a.elapsed_time(ev) / 1e3
+            rec["dev_end"] = h + a.elapsed_time(end) / 1e3
+            rec["dev_ms"] = ev.elapsed_time(end)
+        self._events = []
+
+
 class Telemetry:
     """One structured event stream: in-memory list + optional JSONL sink.
 
@@ -112,10 +224,14 @@ class Telemetry:
               ``VirtualClock`` at 0).
     ``keep``  retain events in ``self.events`` (set False for very long
               runs that only want the JSONL file).
+    ``spans`` record ``span``s in ``self.spans`` (written at ``close()`` to
+              ``<path>.spans.jsonl``); ``device`` a CUDA device adds their
+              device times.
     """
 
     def __init__(self, path: Optional[str] = None,
-                 clock: Optional[VirtualClock] = None, keep: bool = True):
+                 clock: Optional[VirtualClock] = None, keep: bool = True,
+                 *, spans: bool = False, device=None):
         if path is not None and (not isinstance(path, str) or not path):
             raise ValueError(f"Telemetry path must be None or a non-empty "
                              f"string, got {path!r}")
@@ -130,6 +246,9 @@ class Telemetry:
         # drain-path events interleave with the engine's own — the seq
         # counter, counts, events list and JSONL sink all need one lock
         self._lock = threading.Lock()
+        self.span_log = SpanLog(device) if spans else None
+        self.spans: List[Dict[str, Any]] = (
+            self.span_log.records if spans else [])
         self._fh = None
         if path:
             try:
@@ -198,6 +317,10 @@ class Telemetry:
         self.emit("log", tag=tag, msg=msg, **fields)
 
     def close(self) -> None:
+        if self.span_log is not None:
+            self.span_log.resolve()
+            if self.path:
+                self._write_spans(self.path + ".spans.jsonl")
         if self._fh is not None:
             try:
                 self._fh.close()
@@ -205,6 +328,17 @@ class Telemetry:
                 with self._lock:
                     self._degrade_locked(e)
             self._fh = None
+
+    def _write_spans(self, path: str) -> None:
+        try:
+            with open(path, "w") as f:
+                for rec in self.spans:
+                    f.write(json.dumps(_jsonable(rec)) + "\n")
+        except OSError as e:
+            import sys
+            print(f"[telemetry] WARNING: spans not written to {path!r} "
+                  f"({e!r}); they stay in memory", file=sys.stderr,
+                  flush=True)
 
     def __enter__(self) -> "Telemetry":
         return self
@@ -215,16 +349,19 @@ class Telemetry:
 
 # -- the process-wide emitter -----------------------------------------------
 _EMITTER: Optional[Telemetry] = None
+# the installed emitter's span log (None: spans are not recorded)
+_SPANS: Optional[SpanLog] = None
 
 
 def install(t: Optional[Telemetry]) -> Optional[Telemetry]:
     """Install ``t`` as the process-wide emitter (None uninstalls);
     returns the previous emitter so callers can restore it."""
-    global _EMITTER
+    global _EMITTER, _SPANS
     if t is not None and not isinstance(t, Telemetry):
         raise ValueError(f"telemetry.install needs a Telemetry or None, "
                          f"got {type(t).__name__}")
     prev, _EMITTER = _EMITTER, t
+    _SPANS = None if t is None else t.span_log
     return prev
 
 
@@ -240,6 +377,14 @@ def emit(kind: str, **fields: Any) -> Optional[Dict[str, Any]]:
     return _EMITTER.emit(kind, **fields)
 
 
+def span(name: str, **attrs: Any):
+    """A context manager marking one phase of a request: recorded inside
+    ``capture(spans=True)``, else the shared no-op."""
+    if _SPANS is None:
+        return _NO_SPAN
+    return _SPANS.span(name, attrs)
+
+
 def log(tag: str, msg: str, **fields: Any) -> None:
     """The drop-in for the stack's ad-hoc ``print(f"[{tag}] ...")`` calls:
     ALWAYS prints the identical human-readable line; additionally records a
@@ -252,10 +397,13 @@ def log(tag: str, msg: str, **fields: Any) -> None:
 
 @contextlib.contextmanager
 def capture(path: Optional[str] = None,
-            clock: Optional[VirtualClock] = None, keep: bool = True):
+            clock: Optional[VirtualClock] = None, keep: bool = True,
+            *, spans: bool = False, device=None):
     """Context manager installing a fresh ``Telemetry`` as the process-wide
-    emitter for the block (restoring whatever was installed before)."""
-    t = Telemetry(path=path, clock=clock, keep=keep)
+    emitter for the block (restoring whatever was installed before);
+    ``spans`` / ``device`` as ``Telemetry``'s."""
+    t = Telemetry(path=path, clock=clock, keep=keep, spans=spans,
+                  device=device)
     prev = install(t)
     try:
         yield t
